@@ -27,5 +27,8 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one"
+    )
     assert jax.devices()[0].platform == "cpu"
     assert len(jax.devices()) == 8, jax.devices()
