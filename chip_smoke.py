@@ -2,14 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes of the main path, then solves the two
-dataset cases `poisson_basic` (P1, 121 x 121 lattice) and
-`poisson_p3_variable_kappa_mild` (P3, 241 x 241 lattice, 37 taps) through
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
+once), holds each against its plain PyTorch version at the shapes of the
+main paths, then drives the two main paths through
 `OracleSolver(device="cuda")` and checks their errors against the
-recorded values. One line per phase; any failure raises and exits
-non-zero. The last two lines are a JSON object with per-kernel launches,
-errors and times, and the contract line {"ok": true, "device": ...}.
+recorded values:
+
+  Poisson     `poisson_basic` (P1, 121 x 121 lattice) and
+              `poisson_p3_variable_kappa_mild` (P3, 241 x 241, 37 taps):
+              the stencil kernel and the fused inner CG
+  Helmholtz   `helmholtz_basic_k5` (121 x 121, k = 5) and
+              `helmholtz_k12_exponential_mode` (161 x 161, k = 12): the
+              stencil kernel, the fused Richardson preconditioner and the
+              fused Arnoldi cycle
+
+Each path runs with the launch counters set to 0 just before it and read
+just after; a kernel of the path that never launched fails the run. One
+line per phase; any failure raises and exits non-zero. The last lines are
+the card's name and power limit, a JSON object with per-kernel launches,
+errors, times and bounds, and the contract line {"ok": true, "device": ...}.
 
 Needs a CUDA device, nvcc (CUDA_HOME or /usr/local/cuda) and the
 repository checkout around this file; imports neither jax nor
@@ -27,23 +38,45 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CASES = {
+POISSON = {
     # case id -> (recorded baseline_error, relative tolerance, outer
     # rounds of 25 fused PCG steps the solve takes to reach rtol 1e-10)
     "poisson_basic": (1.924806820736457e-4, 1e-6, 2),
     "poisson_p3_variable_kappa_mild": (3.75760311692739e-9, 1e-5, 3),
 }
-SOLVES = 3  # whole-case solves per case on the main path
+HELMHOLTZ = {
+    # case id -> (recorded baseline_error, relative tolerance, inner on
+    # the card, outer rounds of one GMRES(30) cycle each)
+    "helmholtz_basic_k5": (6.517975839100497e-4, 1e-6, "gmres+fused-richardson-cuda", 4),
+    "helmholtz_k12_exponential_mode": (3.1268822007046e-4, 1e-6, "fused-gmres-cuda", 3),
+}
+SOLVES = 3  # whole-case solves per case on each main path
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
 TOL_F32 = 1e-5
 # fused inner CG vs plain: f32 sums in another order through 25 PCG
 # steps (the tolerance tests/test_gmg_fused.py holds the Pallas kernel to)
 TOL_CG = 2e-4
-# one PCG step, z = alpha V(r): f32 sums in another order through one
-# V-cycle, where a fault in the V-cycle shows at full size
+# one PCG step (z = alpha V(r)), a Richardson chain of 1 or 2 V-cycles,
+# one Arnoldi step (V, H, beta): f32 sums in another order through one or
+# two V-cycles, where a fault in the V-cycle shows at full size
 TOL_VCYCLE = 1e-5
+# linearity of the Richardson chain (tests/test_gmg_fused.py)
+TOL_LINEAR = 2e-4
+# the whole Arnoldi cycle: float MGS in another order parts the two
+# recurrences after a few steps, so the cycle is held by its residual
+# against the true operator: below RESID_MAX and within RESID_RATIO of
+# the plain version's
+RESID_MAX = 0.1
+RESID_RATIO = 2.0
+ARNOLDI_STEPS = 30
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 and float64 outside the
+# tensor cores
+HBM_BYTES_S = 3.35e12
+FLOPS_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def say(phase: str, msg: str) -> None:
@@ -69,7 +102,89 @@ def median_ms(fn, calls: int = 20, samples: int = 5) -> float:
     return statistics.median(times)
 
 
-def case_operator(config, device):
+# -- bounds: the least time the card could take for the same work ---------
+
+
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """max(bytes / HBM rate, flops / peak rate) in ms, and which bounds."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FLOPS_S[dtype]
+    return dict(
+        bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+
+
+def _taps_flops(K: int, n: int) -> int:
+    return 2 * K * n  # one multiply and one add per tap and point
+
+
+def vcycle_flops(fused) -> int:
+    """Operations of one V-cycle on a fused hierarchy: per level, x = D r,
+    r - A x, restriction (9 taps per coarse point), prolongation and its
+    add (at most 4 taps per fine point), post-smoothing x + D (r - A x);
+    on the coarsest level, x = D r and COARSE_SWEEPS - 1 Jacobi sweeps."""
+    from pdebench_tpu_torch.solvers.gmg_fused import COARSE_SWEEPS
+
+    total = 0
+    shapes = [(W.shape[0], W.shape[1] * W.shape[2]) for W in fused.W]
+    for (K, n), (_, nc) in zip(shapes[:-1], shapes[1:]):
+        total += n + (_taps_flops(K, n) + n) + 2 * 9 * nc + (2 * 4 * n + n)
+        total += _taps_flops(K, n) + 3 * n
+    K, n = shapes[-1]
+    return total + n + (COARSE_SWEEPS - 1) * (_taps_flops(K, n) + 3 * n)
+
+
+def hierarchy_bytes(fused) -> int:
+    return sum(W.numel() * 4 + D.numel() * 4 for W, D in zip(fused.W, fused.D))
+
+
+def chain_flops(fused, cycles: int) -> int:
+    K0, n0 = fused.W[0].shape[0], fused.shape[0] * fused.shape[1]
+    return cycles * vcycle_flops(fused) + (cycles - 1) * (_taps_flops(K0, n0) + 2 * n0)
+
+
+def cg_bound(fused) -> dict:
+    K0, n0 = fused.W[0].shape[0], fused.shape[0] * fused.shape[1]
+    step = _taps_flops(K0, n0) + 4 * n0 + 6 * n0 + vcycle_flops(fused)
+    flops = vcycle_flops(fused) + 2 * n0 + fused.inner_iters * step
+    return bound(hierarchy_bytes(fused) + 2 * 4 * n0, flops, torch.float32)
+
+
+def richardson_bound(fused) -> dict:
+    n0 = fused.shape[0] * fused.shape[1]
+    return bound(hierarchy_bytes(fused) + 2 * 4 * n0, chain_flops(fused, fused.inner_iters), torch.float32)
+
+
+def gmres_bound(fg) -> dict:
+    """Inputs r, W_op and the hierarchy read once; outputs V, H, beta
+    written once. Operations: the preconditioned r, then per step j the
+    operator apply, the preconditioner, j + 1 Gram-Schmidt terms (a dot
+    and an axpy each), two norms and the scaling of V[j+1]."""
+    from pdebench_tpu_torch.solvers.gmg_fused import PRECOND_CYCLES
+
+    m, n0, Kop = fg.m, fg.shape[0] * fg.shape[1], len(fg.op_offsets)
+    precond = chain_flops(fg, PRECOND_CYCLES)
+    flops = precond + 3 * n0
+    for j in range(m):
+        flops += _taps_flops(Kop, n0) + precond + n0 + (j + 1) * 4 * n0 + 4 * n0 + 2 * n0
+    nbytes = hierarchy_bytes(fg) + 4 * n0 * (1 + Kop + m + 1) + 4 * (m * (m + 1) + 1)
+    return bound(nbytes, flops, torch.float32)
+
+
+# -- the cases' operators --------------------------------------------------
+
+
+def load_cases(ids):
+    cases = {}
+    with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
+        for line in fh:
+            c = json.loads(line)
+            if c["id"] in ids:
+                cases[c["id"]] = c["oracle_config"]
+    return cases
+
+
+def poisson_operator(config, device):
     """The case's f32 lattice operator with its GMG hierarchy attached,
     built through the port's setup path."""
     from pdebench_tpu_torch.fem.assemble import local_stiffness
@@ -84,6 +199,228 @@ def case_operator(config, device):
     mask = ctx.mask.cpu().numpy()
     attach_lattice_gmg(lat, mask)
     return lat, mask
+
+
+def helmholtz_operator(config, device):
+    """The case's f32 lattice operator K - k^2 M with its shifted-
+    Laplacian hierarchy, the lattice mask and the true constrained
+    weights, built through the port's setup path."""
+    from pdebench_tpu_torch.fem.assemble import local_mass, local_stiffness
+    from pdebench_tpu_torch.oracle import helmholtz, scalar
+    from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
+    from pdebench_tpu_torch.solvers.stencil import constrain_step_weights
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, pde["manufactured_solution"]["u"])
+    k2 = float(pde["pde_params"]["k"]) ** 2
+    ctx = scalar.setup_scalar(config, device)
+    lat = scalar.maybe_lattice32(ctx, local_stiffness(ctx.cb) - k2 * local_mass(ctx.cb))
+    mask = ctx.mask.cpu().numpy()
+    attach_lattice_gmg(lat, mask, A_override=helmholtz.shifted_laplacian(ctx, k2))
+    keep = torch.as_tensor(
+        1.0 - lat.lattice.embed_np(mask, True).astype(np.float32), device=device
+    ).reshape(lat.shape)
+    return lat, mask, constrain_step_weights(lat.W, lat.offsets, keep)
+
+
+def lattice_rhs(lat, mask, rng, device):
+    r = rng.standard_normal(lat.lattice.n_dof)
+    r[mask] = 0.0
+    return torch.as_tensor(lat.lattice.embed_np(r.astype(np.float32), 0.0), device=device)
+
+
+def allclose_scale(got, want, tol):
+    """(max abs diff, scale, ok) of torch.allclose at rtol = tol and atol
+    = tol * max |want|."""
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff, scale, bool(torch.allclose(got, want, rtol=tol, atol=tol * scale))
+
+
+def true_residual(lat, W, r_lat, z):
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    Az = stencil_kernel.stencil_apply_2d_torch(
+        F.pad(z.reshape(lat.shape), (lat.pad,) * 4), W, lat.offsets, lat.pad
+    ).reshape(-1)
+    return float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
+
+
+# -- phases ------------------------------------------------------------------
+
+
+def check_stencil(ops, rng, dev, report):
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    for cid, lat in ops.items():
+        ny, nx = lat.shape
+        for W, tol in ((lat.W_f64, TOL_F64), (lat.W, TOL_F32)):
+            u = torch.as_tensor(rng.standard_normal(lat.shape), device=dev).to(W.dtype)
+            up = F.pad(u, (lat.pad,) * 4)
+            args = (up, W, lat.offsets, lat.pad)
+            yk = stencil_kernel.stencil_apply_2d(*args)  # CUDA tensors: the kernel
+            yp = stencil_kernel.stencil_apply_2d_torch(*args)
+            torch.cuda.synchronize()
+            err = float((yk - yp).abs().max() / yp.abs().max())
+            ms = median_ms(lambda: stencil_kernel.stencil_apply_2d(*args))
+            plain_ms = median_ms(lambda: stencil_kernel.stencil_apply_2d_torch(*args))
+            K = len(lat.offsets)
+            b = bound(
+                (up.numel() + W.numel() + ny * nx) * W.element_size(),
+                _taps_flops(K, ny * nx), W.dtype,
+            )
+            tag = f"{ny}x{nx} K={K} pad={lat.pad} {str(W.dtype)[6:]}"
+            say("2", f"stencil_apply_2d {cid} {tag}: max rel diff {err:.3e} (tol {tol:g}); "
+                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.2e} ms "
+                     f"({b['bound_by']})")
+            if not err <= tol:
+                raise AssertionError(f"stencil kernel disagrees at {tag}: {err}")
+            if cid == "poisson_basic" and W.dtype == torch.float64:
+                report["stencil_apply_2d"] = dict(
+                    max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms, **b
+                )
+
+
+def check_fused_cg(ops, rng, dev, report):
+    """One PCG step (the V-cycle's arithmetic, tightly), then the main
+    path's 25 on each Poisson case's own hierarchy."""
+    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+
+    for cid, (lat, mask) in ops.items():
+        r_lat = lattice_rhs(lat, mask, rng, dev)
+        step = gmg_fused.build_fused_inner_cg(lat.gmg, 1, dev)
+        zk, zp = step(r_lat), step.plain(r_lat)
+        torch.cuda.synchronize()
+        diff, scale, ok = allclose_scale(zk, zp, TOL_VCYCLE)
+        say("3", f"fused_inner_cg {cid} 1 PCG step: max abs diff {diff:.3e} "
+                 f"(scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
+        if not ok:
+            raise AssertionError(f"fused V-cycle step disagrees on {cid}: {diff}")
+
+        fused = gmg_fused.build_fused_inner_cg(lat.gmg, 25, dev)
+        zk = fused(r_lat)  # CUDA tensor: the kernel
+        zp = fused.plain(r_lat)
+        torch.cuda.synchronize()
+        diff, scale, ok = allclose_scale(zk, zp, TOL_CG)
+        # the correction must solve the constrained fine system
+        W0 = lat.gmg.levels[0]
+        Az = stencil_kernel.stencil_apply_2d_torch(
+            F.pad(zk.reshape(lat.shape), (W0.pad,) * 4), W0.W, W0.offsets, W0.pad,
+        ).reshape(-1)
+        rel = float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
+        ms = median_ms(lambda: fused(r_lat), calls=5, samples=3)
+        plain_ms = median_ms(lambda: fused.plain(r_lat), calls=1, samples=3)
+        b = cg_bound(fused)
+        say("3", f"fused_inner_cg {cid} {len(fused.W)} levels {[tuple(W.shape) for W in fused.W]}: "
+                 f"max abs diff {diff:.3e} (scale {scale:.3e}, rtol=atol/scale={TOL_CG:g}) "
+                 f"residual {rel:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                 f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
+        if not ok or not rel < 1e-3:
+            raise AssertionError(f"fused inner CG disagrees on {cid}: {diff}, residual {rel}")
+        if cid == "poisson_basic":
+            report["gmg_fused_cg"] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
+
+
+def check_richardson(ops, rng, dev, report):
+    """Kernel #3 on each Helmholtz case's surrogate hierarchy: 1 and 2
+    cycles per element, linearity, times at the main path's 2 cycles."""
+    from pdebench_tpu_torch.solvers import gmg_fused
+
+    for cid, (lat, mask, _) in ops.items():
+        for cycles in (1, 2):
+            rich = gmg_fused.build_fused_richardson(lat.gmg, cycles, dev)
+            r1, r2 = lattice_rhs(lat, mask, rng, dev), lattice_rhs(lat, mask, rng, dev)
+            z1 = rich(r1)  # CUDA tensor: the kernel
+            zp = rich.plain(r1)
+            torch.cuda.synchronize()
+            diff, scale, ok = allclose_scale(z1, zp, TOL_VCYCLE)
+            lin, _, lin_ok = allclose_scale(rich(r1 + 2.0 * r2), z1 + 2.0 * rich(r2), TOL_LINEAR)
+            say("3b", f"fused_richardson {cid} {cycles} cycle(s) {len(rich.W)} levels "
+                      f"{[tuple(W.shape) for W in rich.W]}: max abs diff {diff:.3e} (scale "
+                      f"{scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g}); linearity max abs diff "
+                      f"{lin:.3e} (tol {TOL_LINEAR:g} of scale)")
+            if not ok or not lin_ok:
+                raise AssertionError(f"fused Richardson disagrees on {cid}, {cycles} cycles: "
+                                     f"{diff}, linearity {lin}")
+        ms = median_ms(lambda: rich(r1), calls=20, samples=5)
+        plain_ms = median_ms(lambda: rich.plain(r1), calls=2, samples=3)
+        b = richardson_bound(rich)
+        say("3b", f"fused_richardson {cid} 2 cycles: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
+        if cid == "helmholtz_basic_k5":
+            report["gmg_fused_richardson"] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
+
+
+def check_gmres(ops, rng, dev, report):
+    """Kernel #6 on each Helmholtz case's hierarchy with the TRUE
+    constrained weights: one step per element, then the whole cycle by
+    its true-operator residual, times at the main path's m = 30."""
+    from pdebench_tpu_torch.solvers import gmg_fused
+
+    for cid, (lat, mask, W32c) in ops.items():
+        r = lattice_rhs(lat, mask, rng, dev)
+        one = gmg_fused.build_fused_inner_gmres(lat.gmg, 1, dev, lat.offsets)
+        got, want = one.raw(r, W32c), one.plain_raw(r, W32c)  # kernel, plain
+        torch.cuda.synchronize()
+        err_v = None
+        for name, g, w in zip(("V", "H", "beta"), got, want):
+            diff, scale, ok = allclose_scale(g, w, TOL_VCYCLE)
+            say("3c", f"fused_gmres {cid} m=1 {name}: max abs diff {diff:.3e} (scale "
+                      f"{scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
+            if not ok:
+                raise AssertionError(f"fused Arnoldi step disagrees on {cid} in {name}: {diff}")
+            err_v = diff if name == "V" else err_v
+
+        fg = gmg_fused.build_fused_inner_gmres(lat.gmg, ARNOLDI_STEPS, dev, lat.offsets)
+        rel = true_residual(lat, W32c, r, fg(r, W32c))
+        rel_plain = true_residual(lat, W32c, r, fg.plain(r, W32c))
+        ms = median_ms(lambda: fg.raw(r, W32c), calls=5, samples=3)
+        plain_ms = median_ms(lambda: fg.plain_raw(r, W32c), calls=1, samples=3)
+        b = gmres_bound(fg)
+        say("3c", f"fused_gmres {cid} m={ARNOLDI_STEPS} {len(fg.W)} levels: true-operator "
+                  f"residual kernel {rel:.3e}, plain {rel_plain:.3e} (kernel below {RESID_MAX:g} "
+                  f"and {RESID_RATIO:g}x plain); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
+        if not (rel < RESID_MAX and rel <= RESID_RATIO * rel_plain):
+            raise AssertionError(f"fused Arnoldi cycle on {cid}: residual {rel} vs plain {rel_plain}")
+        if cid == "helmholtz_k12_exponential_mode":
+            report["gmg_fused_gmres"] = dict(max_abs_err=err_v, ms=ms, plain_ms=plain_ms, **b)
+
+
+def drive(solver, cases, want, phase):
+    """SOLVES whole-case solves per case through OracleSolver, setup
+    caches cleared before each; every check of the case must hold."""
+    from pdebench_tpu_torch.oracle import base
+
+    for cid, (ref_err, tol, inner_want, outer_want, steps) in want.items():
+        warm, total = [], []
+        for _ in range(SOLVES):
+            base.clear_setup_caches()
+            res = solver.solve(cases[cid])
+            info = res.solver_info
+            grid = np.asarray(res.reference)
+            rel = abs(res.baseline_error - ref_err) / ref_err
+            outer = info.get("iterations", 0) // steps
+            say(phase, f"{cid}: baseline_error {res.baseline_error!r} (recorded "
+                       f"{ref_err!r}, rel {rel:.2e}, tol {tol:g}); baseline_time "
+                       f"{res.baseline_time:.4f} s, t_setup {info['t_setup']:.4f} s, "
+                       f"warm solve {info['t_warm']:.4f} s, cold {info['t_cold']:.4f} s; "
+                       f"inner {info.get('inner')}, outer {outer}, residual "
+                       f"{info.get('residual')}")
+            if grid.shape != (50, 50) or not np.isfinite(grid).all():
+                raise AssertionError(f"{cid}: bad grid {grid.shape}")
+            if not rel <= tol:
+                raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
+            if info.get("inner") != inner_want or "iterative_failed" in info:
+                raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
+            if outer != outer_want:
+                raise AssertionError(f"{cid}: {outer} outer rounds, expected {outer_want}")
+            warm.append(info["t_warm"])
+            total.append(res.baseline_time)
+        say(phase, f"{cid} over {SOLVES} solves: warm solve median "
+                   f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
+                   f"baseline_time median {statistics.median(total):.4f} s "
+                   f"({min(total):.4f}-{max(total):.4f})")
 
 
 def main() -> int:
@@ -106,150 +443,72 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     say("0", f"torch {torch.__version__} cuda {torch.version.cuda} "
              f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    print(smi, flush=True)
 
-    # (1) build
-    for name in ("stencil_apply", "gmg_fused_cg"):
-        t0 = time.perf_counter()
-        _build.load(name)
+    # (1) build: one nvcc per source, all started together
+    sources = ("stencil_apply", "gmg_fused_cg", "gmg_fused_gmres")
+    t0 = time.perf_counter()
+    _build.load_all(sources)
+    say("1", f"built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
+    for name in sources:
         usage = [ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
                  if "registers" in ln or "spill" in ln]
-        say("1", f"built {name} in {time.perf_counter() - t0:.2f} s; " + " | ".join(usage))
+        say("1", f"{name}: " + " | ".join(usage))
 
-    cases = {}
-    with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
-        for line in fh:
-            c = json.loads(line)
-            if c["id"] in CASES:
-                cases[c["id"]] = c["oracle_config"]
-    ops = {cid: case_operator(cases[cid], dev) for cid in CASES}
-
-    # (2) stencil kernel vs plain at the main path's shapes
+    cases = load_cases(set(POISSON) | set(HELMHOLTZ))
+    p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
+    h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     rng = np.random.default_rng(0)
     report = {}
-    for cid, (lat, _) in ops.items():
-        ny, nx = lat.shape
-        for W, tol in ((lat.W_f64, TOL_F64), (lat.W, TOL_F32)):
-            u = torch.as_tensor(rng.standard_normal(lat.shape), device=dev).to(W.dtype)
-            up = torch.nn.functional.pad(u, (lat.pad,) * 4)
-            args = (up, W, lat.offsets, lat.pad)
-            yk = stencil_kernel.stencil_apply_2d(*args)  # CUDA tensors: the kernel
-            yp = stencil_kernel.stencil_apply_2d_torch(*args)
-            torch.cuda.synchronize()
-            err = float((yk - yp).abs().max() / yp.abs().max())
-            ms = median_ms(lambda: stencil_kernel.stencil_apply_2d(*args))
-            plain_ms = median_ms(lambda: stencil_kernel.stencil_apply_2d_torch(*args))
-            tag = f"{ny}x{nx} K={len(lat.offsets)} pad={lat.pad} {str(W.dtype)[6:]}"
-            say("2", f"stencil_apply_2d {tag}: max rel diff {err:.3e} (tol {tol:g}); "
-                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if not err <= tol:
-                raise AssertionError(f"stencil kernel disagrees at {tag}: {err}")
-            if cid == "poisson_basic" and W.dtype == torch.float64:
-                report["stencil_apply_2d"] = dict(
-                    max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms
-                )
 
-    # (3) fused inner CG vs plain on each case's own hierarchy: one PCG
-    # step (the V-cycle's arithmetic, tightly), then the main path's 25
-    for cid, (lat, mask) in ops.items():
-        r = rng.standard_normal(lat.lattice.n_dof)
-        r[mask] = 0.0
-        r_lat = torch.as_tensor(
-            lat.lattice.embed_np(r.astype(np.float32), 0.0), device=dev
-        )
-        step = gmg_fused.build_fused_inner_cg(lat.gmg, 1, dev)
-        zk, zp = step(r_lat), step.plain(r_lat)
-        torch.cuda.synchronize()
-        diff = float((zk - zp).abs().max())
-        scale = float(zp.abs().max())
-        say("3", f"fused_inner_cg {cid} 1 PCG step: max abs diff {diff:.3e} "
-                 f"(scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
-        if not torch.allclose(zk, zp, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale):
-            raise AssertionError(f"fused V-cycle step disagrees on {cid}: {diff}")
+    # (2) stencil kernel vs plain at both paths' shapes
+    check_stencil({cid: lat for cid, (lat, _) in p_ops.items()}
+                  | {cid: lat for cid, (lat, _, _) in h_ops.items()}, rng, dev, report)
+    # (3) fused inner CG, (3b) fused Richardson, (3c) fused Arnoldi vs plain
+    check_fused_cg(p_ops, rng, dev, report)
+    check_richardson(h_ops, rng, dev, report)
+    check_gmres(h_ops, rng, dev, report)
 
-        fused = gmg_fused.build_fused_inner_cg(lat.gmg, 25, dev)
-        zk = fused(r_lat)  # CUDA tensor: the kernel
-        zp = fused.plain(r_lat)
-        torch.cuda.synchronize()
-        diff = float((zk - zp).abs().max())
-        scale = float(zp.abs().max())
-        ok = torch.allclose(zk, zp, rtol=TOL_CG, atol=TOL_CG * scale)
-        # the correction must solve the constrained fine system
-        W0 = lat.gmg.levels[0]
-        Az = stencil_kernel.stencil_apply_2d_torch(
-            torch.nn.functional.pad(zk.reshape(lat.shape), (W0.pad,) * 4),
-            W0.W, W0.offsets, W0.pad,
-        ).reshape(-1)
-        rel = float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
-        ms = median_ms(lambda: fused(r_lat), calls=5, samples=3)
-        plain_ms = median_ms(lambda: fused.plain(r_lat), calls=1, samples=3)
-        n_lv = len(fused.W)
-        say("3", f"fused_inner_cg {cid} {n_lv} levels {[tuple(W.shape) for W in fused.W]}: "
-                 f"max abs diff {diff:.3e} (scale {scale:.3e}, rtol=atol/scale={TOL_CG:g}) "
-                 f"residual {rel:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if not ok or not rel < 1e-3:
-            raise AssertionError(f"fused inner CG disagrees on {cid}: {diff}, residual {rel}")
-        if cid == "poisson_basic":
-            report["gmg_fused_cg"] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms)
-
-    # (4) the main path: OracleSolver on the card, SOLVES whole-case
-    # solves per case, setup caches cleared before each
-    from pdebench_tpu_torch.oracle import base
-
-    stencil_kernel.LAUNCHES = 0
-    gmg_fused.LAUNCHES = 0
+    # (4) the Poisson main path, (5) the Helmholtz main path: OracleSolver
+    # on the card, the counters set to 0 just before each and read after
     solver = OracleSolver(device="cuda")
-    for cid, (ref_err, tol, outer_want) in CASES.items():
-        warm, total = [], []
-        for _ in range(SOLVES):
-            base.clear_setup_caches()
-            res = solver.solve(cases[cid])
-            info = res.solver_info
-            grid = np.asarray(res.reference)
-            rel = abs(res.baseline_error - ref_err) / ref_err
-            outer = info.get("iterations", 0) // 25
-            say("4", f"{cid}: baseline_error {res.baseline_error!r} (recorded "
-                     f"{ref_err!r}, rel {rel:.2e}, tol {tol:g}); baseline_time "
-                     f"{res.baseline_time:.4f} s, t_setup {info['t_setup']:.4f} s, "
-                     f"warm solve {info['t_warm']:.4f} s, cold {info['t_cold']:.4f} s; "
-                     f"inner {info.get('inner')}, outer {outer}, residual "
-                     f"{info.get('residual')}")
-            if grid.shape != (50, 50) or not np.isfinite(grid).all():
-                raise AssertionError(f"{cid}: bad grid {grid.shape}")
-            if not rel <= tol:
-                raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
-            if info.get("inner") != "fused-cg-cuda" or "iterative_failed" in info:
-                raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
-            if outer != outer_want:
-                raise AssertionError(f"{cid}: {outer} outer rounds, expected {outer_want}")
-            warm.append(info["t_warm"])
-            total.append(res.baseline_time)
-        say("4", f"{cid} over {SOLVES} solves: warm solve median "
-                 f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
-                 f"baseline_time median {statistics.median(total):.4f} s "
-                 f"({min(total):.4f}-{max(total):.4f})")
-    launches = {
-        "stencil_apply_2d": stencil_kernel.LAUNCHES,
-        "gmg_fused_cg": gmg_fused.LAUNCHES,
-    }
-    say("4", f"kernel launches on the main path: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    launches = {}
+    paths = (
+        ("4", {cid: (e, t, "fused-cg-cuda", o, 25) for cid, (e, t, o) in POISSON.items()},
+         ("stencil_apply_2d", "gmg_fused_cg")),
+        ("5", {cid: (e, t, i, o, 30) for cid, (e, t, i, o) in HELMHOLTZ.items()},
+         ("stencil_apply_2d", "gmg_fused_richardson", "gmg_fused_gmres")),
+    )
+    for phase, want, kernels in paths:
+        stencil_kernel.LAUNCHES = 0
+        gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
+        drive(solver, cases, want, phase)
+        counts = {
+            "stencil_apply_2d": stencil_kernel.LAUNCHES,
+            "gmg_fused_cg": gmg_fused.LAUNCHES,
+            "gmg_fused_richardson": gmg_fused.LAUNCHES_RICHARDSON,
+            "gmg_fused_gmres": gmg_fused.LAUNCHES_GMRES,
+        }
+        say(phase, f"kernel launches on this main path: {counts}")
+        for name in kernels:
+            if counts[name] < 1:
+                raise AssertionError(f"{name} never launched on main path {phase}: {counts}")
+            launches[name] = launches.get(name, 0) + counts[name]
 
     meta = {
-        "stencil_apply_2d": dict(
-            source="pdebench_tpu_torch/csrc/stencil_apply.cu",
-            replaces="pdebench_tpu/solvers/stencil_pallas.py:131",
-        ),
-        "gmg_fused_cg": dict(
-            source="pdebench_tpu_torch/csrc/gmg_fused_cg.cu",
-            replaces="pdebench_tpu/solvers/gmg_fused.py:434",
-        ),
+        "stencil_apply_2d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
+        "gmg_fused_cg": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        # mode "richardson" of the same pallas_call
+        "gmg_fused_richardson": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        "gmg_fused_gmres": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
     }
+    # library_ms: no single PyTorch call computes a spatially varying
+    # multi-tap stencil, a V-cycle chain, a PCG solve or an Arnoldi cycle
     kernels = [
-        dict(name=name, route="cuda", **meta[name], launches=launches[name], **report[name])
-        for name in ("stencil_apply_2d", "gmg_fused_cg")
+        dict(name=name, route="cuda", source=f"pdebench_tpu_torch/csrc/{src}",
+             replaces=rep, launches=launches[name], library_ms=None, **report[name])
+        for name, (src, rep) in meta.items()
     ]
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

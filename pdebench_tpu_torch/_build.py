@@ -8,8 +8,10 @@ first use in a process:
          -Xcompiler -fPIC -Xptxas -v -o build/pdebench_tpu_torch/lib<name>-<hash>.so
 
 The library lands in `build/pdebench_tpu_torch/` beside the package (a
-directory git ignores), named by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+directory git ignores), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. `load_all` starts one nvcc per missing
+library, all at once, and waits for them together.
 Wrappers pass tensor pointers (`data_ptr()`) and PyTorch's current CUDA
 stream as `ctypes.c_void_p`; every C entry point returns a `cudaError_t`,
 which `check` turns into an exception.
@@ -57,37 +59,53 @@ def nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """Build the missing libraries among `names`, one nvcc each, all
+    started together, then load every one; cached per process."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
-        if not out.exists():
+        jobs = {}
+        for name in names:
+            out = _target(name)
+            if name in _LIBS or out.exists() or name in jobs:
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True,
-                text=True,
+            proc = subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            BUILD_LOG[name] = proc.stdout + proc.stderr
+            jobs[name] = (proc, tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in jobs.items():
+            BUILD_LOG[name] = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src.name}:\n{BUILD_LOG[name]}"
-                )
-            # atomic: concurrent builders never load a half-written file
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        lib.pdb_error_string.argtypes = [ctypes.c_int]
-        lib.pdb_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-        return lib
+                failed.append(f"nvcc failed on {name}.cu:\n{BUILD_LOG[name]}")
+            else:
+                # atomic: concurrent builders never load a half-written file
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _LIBS:
+                lib = ctypes.CDLL(str(_target(name)))
+                lib.pdb_error_string.argtypes = [ctypes.c_int]
+                lib.pdb_error_string.restype = ctypes.c_char_p
+                _LIBS[name] = lib
+        return {name: _LIBS[name] for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
+    return load_all([name])[name]
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

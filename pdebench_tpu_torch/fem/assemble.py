@@ -234,6 +234,11 @@ def local_stiffness(cb: CellBatch, coef_q=None):
     return xeinsum("cqid,cqjd,cq->cij", g, g, _weights(cb, coef_q))
 
 
+def local_mass(cb: CellBatch, coef_q=None):
+    """∫ coef u v : (n_cells, nl, nl)."""
+    return xeinsum("qi,qj,cq->cij", cb.phi, cb.phi, _weights(cb, coef_q))
+
+
 def local_load(cb: CellBatch, f_q):
     """∫ f v : (n_cells, nl)."""
     return xeinsum("qi,cq->ci", cb.phi, _weights(cb, f_q))

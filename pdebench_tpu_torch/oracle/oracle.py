@@ -1,8 +1,8 @@
 """Oracle dispatcher: case pde type -> solver on an explicit device.
 
-Port of pdebench_tpu/oracle/oracle.py. Poisson is ported; the other 13
-PDE types of the reference raise NotImplementedError until their slice
-lands.
+Port of pdebench_tpu/oracle/oracle.py. Poisson and Helmholtz are ported;
+the other 12 PDE types of the reference raise NotImplementedError until
+their slice lands.
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ from .types import OracleResult
 
 _SOLVERS = {
     "poisson": ("poisson", "PoissonSolver"),
+    "helmholtz": ("helmholtz", "HelmholtzSolver"),
 }
 
 _NOT_PORTED = (
-    "heat", "wave", "helmholtz", "convection_diffusion",
+    "heat", "wave", "convection_diffusion",
     "reaction_diffusion", "burgers", "linear_elasticity", "biharmonic",
     "stokes", "navier_stokes", "darcy", "hyperelasticity", "cahn_hilliard",
 )

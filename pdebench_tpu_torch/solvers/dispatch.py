@@ -3,20 +3,30 @@
 Maps the dataset's PETSc solver configs (oracle_solver.ksp_type / pc_type
 / rtol / atol per case) onto the port's stack:
 
-  structured lattice, SPD  -> mixed-precision refinement (f64 outer
-                              stencil residual, f32 inner): the fused
-                              GMG-PCG inner, or a stencil PCG inner with
-                              the GMG V-cycle or Jacobi preconditioner
+  structured lattice       -> mixed-precision refinement (f64 outer
+                              stencil residual, f32 inner): a GMG-PCG
+                              inner for SPD systems, one GMRES(m) cycle
+                              per outer round for nonsymmetric or
+                              indefinite ones (Helmholtz)
   preonly / lu / cholesky  -> the same IR on lattices, host SuperLU
                               otherwise
   unconverged IR           -> host SuperLU on CPU tensors; on CUDA
                               tensors a RuntimeError (no solve moves to
                               the host behind a device request)
 
-`solver_info["inner"]` records which inner solve ran: "fused-cg-cuda"
-(the CUDA kernel), "fused-cg-torch" (its plain version, CPU tensors),
-"stencil-cg", or "host-lu". Unstructured iterative routes (AMG, Jacobi
-Krylov on cell operators) and nonsymmetric inners are not ported yet.
+`solver_info["inner"]` records which inner solve ran; "-cuda" names a
+CUDA kernel, "-torch" its plain version (CPU tensors):
+
+  SPD:          "fused-cg-cuda" / "fused-cg-torch", "stencil-cg"
+  nonsymmetric: "fused-gmres-cuda" / "fused-gmres-torch" (the whole
+                Arnoldi cycle, surrogate hierarchies of >= 20,000 dofs),
+                "gmres+fused-richardson-cuda" / "-torch" (other surrogate
+                hierarchies), "gmres+vcycle" (padded or own-operator
+                hierarchies), "gmres+jacobi" (no hierarchy)
+  host:         "host-lu"
+
+Unstructured iterative routes (AMG, Jacobi Krylov on cell operators) are
+not ported yet.
 
 Port of the stencil-IR route of pdebench_tpu/solvers/dispatch.py.
 """
@@ -32,21 +42,40 @@ from ..fem.assemble import LocalOperator, constrained_operator, constrained_rhs
 from . import direct as directmod
 from .gmg import LatticeGMG, attach_lattice_gmg
 from .krylov import jacobi_preconditioner, refined_solve
+from .stencil import constrain_step_weights
 
 _DIRECT_KSP = ("preonly",)
 _DIRECT_PC = ("lu", "cholesky", "mumps")
 
+# size gates of the reference, kept until a measurement moves them:
+# a GMG hierarchy is attached from this many dofs on (below, its setup
+# costs more than Jacobi's extra iterations) ...
+GMG_MIN_DOFS = 5000
+# ... and a surrogate hierarchy runs the whole fused Arnoldi cycle from
+# this many on (below, the fused Richardson preconditioner)
+FUSED_ARNOLDI_MIN_DOFS = 20000
+# the nonsymmetric inner's Richardson preconditioner: chained V-cycles
+RICHARDSON_CYCLES = 2
+MAX_OUTER = 40
+
 
 def fused_gate(lattice32) -> bool:
-    """The port's scope for the fused GMG-PCG inner: a scalar 2-D
-    LatticeGMG whose hierarchy halves at every level. No memory budget:
-    the hierarchy sits in L2 / device memory, not in on-chip scratch."""
+    """The port's scope for the fused kernels: a scalar 2-D LatticeGMG
+    whose hierarchy halves at every level. No memory budget: the
+    hierarchy sits in L2 / device memory, not in on-chip scratch."""
     gmg = getattr(lattice32, "gmg", None)
     return (
         isinstance(gmg, LatticeGMG)
         and not gmg.padded
         and len(lattice32.shape) == 2
     )
+
+
+def _fused(gmg, key, build):
+    """The fused kernel object `key` of this hierarchy, built once."""
+    if key not in gmg.fused:
+        gmg.fused[key] = build()
+    return gmg.fused[key]
 
 
 def solve_constrained_ir(
@@ -58,12 +87,13 @@ def solve_constrained_ir(
     rtol: float,
     atol: float,
     *,
+    inner: str,
     inner_iters: int,
     max_outer: int,
 ):
-    """Mixed-precision constrained solve of a constant lattice operator
-    (SPD, CG inner): the f64 outer applies lattice32.W_f64 as a stencil,
-    the f32 inner runs in lattice ordering (the dof <-> lattice
+    """Mixed-precision constrained solve of a constant lattice operator:
+    the f64 outer applies lattice32.W_f64 as a stencil, the f32 inner
+    ("cg" or "gmres") runs in lattice ordering (the dof <-> lattice
     permutation happens once per outer round only). `op` (the cell-local
     form of the same operator) feeds the Jacobi diagonal when the lattice
     has no GMG hierarchy.
@@ -73,6 +103,7 @@ def solve_constrained_ir(
     emb, inv = lattice32.embedding, lattice32.inv_j
     gshape = lattice32.grid_shape
     W64 = lattice32.W_f64
+    dev = lattice32.device
 
     def raw64(v):
         v_lat = emb.embed(v, 0.0).reshape(gshape)
@@ -85,33 +116,56 @@ def solve_constrained_ir(
     # absent sites of masked lattices are treated as constrained
     mask_lat = emb.embed(mask, True)
     gmg = lattice32.gmg
-    inner_custom = None
-    if gmg is not None:
-        if fused_gate(lattice32):
-            inner_custom = gmg.fused.get(inner_iters)
-            if inner_custom is None:
-                from .gmg_fused import build_fused_inner_cg
-
-                inner_custom = build_fused_inner_cg(
-                    gmg, inner_iters, lattice32.device
-                )
-                gmg.fused[inner_iters] = inner_custom
-        if inner_custom is not None:
-            M32 = None
-            inner_name = (
-                "fused-cg-cuda" if b.device.type == "cuda" else "fused-cg-torch"
-            )
-        else:
-            # padded hierarchies: the stencil PCG inner with the V-cycle
-            vcyc = gmg.precond()
-            M32 = lambda r_lat: vcyc(r_lat.reshape(gshape)).reshape(-1)
-            inner_name = "stencil-cg"
-    else:
+    kind = "cuda" if b.device.type == "cuda" else "torch"
+    inner_custom, M32 = None, None
+    if gmg is None:
         diag_lat = emb.embed(op.diagonal(), 1.0)
         M32 = jacobi_preconditioner(
             torch.where(mask_lat, 1.0, diag_lat).to(torch.float32)
         )
-        inner_name = "stencil-cg"
+        inner_name = "stencil-cg" if inner == "cg" else "gmres+jacobi"
+    elif inner == "cg" and fused_gate(lattice32):
+        from .gmg_fused import build_fused_inner_cg
+
+        inner_custom = _fused(
+            gmg, ("cg", inner_iters),
+            lambda: build_fused_inner_cg(gmg, inner_iters, dev),
+        )
+        inner_name = f"fused-cg-{kind}"
+    elif (
+        inner == "gmres"
+        and gmg.surrogate
+        and fused_gate(lattice32)
+        and op.ndof >= FUSED_ARNOLDI_MIN_DOFS
+    ):
+        # the hierarchy preconditions a SURROGATE (Helmholtz's shifted
+        # Laplacian): the Arnoldi operator is the TRUE constrained
+        # system, its weights a kernel input, never hierarchy level 0
+        from .gmg_fused import build_fused_inner_gmres
+
+        def build():
+            keep = (1.0 - mask_lat.to(torch.float32)).reshape(gshape)
+            W32c = constrain_step_weights(lattice32.W, lattice32.offsets, keep)
+            fg = build_fused_inner_gmres(gmg, inner_iters, dev, lattice32.offsets)
+            return lambda r, _f=fg, _w=W32c: _f(r, _w)
+
+        inner_custom = _fused(gmg, ("gmres", inner_iters), build)
+        inner_name = f"fused-gmres-{kind}"
+    elif inner == "gmres" and gmg.surrogate and fused_gate(lattice32):
+        from .gmg_fused import build_fused_richardson
+
+        M32 = _fused(
+            gmg, ("richardson", RICHARDSON_CYCLES),
+            lambda: build_fused_richardson(gmg, RICHARDSON_CYCLES, dev),
+        )
+        inner_name = f"gmres+fused-richardson-{kind}"
+    else:
+        # padded hierarchies, and own-operator hierarchies under gmres
+        # (the undamped Richardson chain is not contractive on strongly
+        # nonsymmetric operators): the V-cycle in PyTorch ops
+        vcyc = gmg.precond()
+        M32 = lambda r_lat: vcyc(r_lat.reshape(gshape)).reshape(-1)
+        inner_name = "stencil-cg" if inner == "cg" else "gmres+vcycle"
 
     def A32(v_lat):
         vz = torch.where(mask_lat, 0.0, v_lat)
@@ -123,6 +177,7 @@ def solve_constrained_ir(
         inner_iters=inner_iters, max_outer=max_outer,
         inner_fwd=lambda r: emb.embed(r, 0.0),
         inner_bwd=lambda z: z[inv],
+        inner=inner,
         inner_custom=inner_custom,
     )
     return x, info.iterations, info.residual, info.converged, inner_name
@@ -147,34 +202,41 @@ def solve_linear(
     lat32 = opts.get("_lattice32")
 
     if lat32 is not None:
-        if not symmetric:
-            raise NotImplementedError("nonsymmetric lattice solves are not ported yet")
         if use_direct:
             # structured preonly/lu: the stencil-GMG IR reaches the same
             # rtol far faster than a host LU; on CPU tensors the LU stays
             # the fallback
             info["direct_rerouted"] = "stencil-ir"
-        # attach the stencil-GMG V-cycle once per operator; below 5k dofs
-        # its setup cost beats Jacobi only at size
+        # SPD systems run CG whatever the case's ksp asks (the dataset's
+        # gmres+hypre elasticity configs are SPD)
+        inner = "cg" if symmetric else "gmres"
+        # attach the stencil-GMG V-cycle once per operator; indefinite
+        # systems coarsen the surrogate in opts['_amg_matrix']
+        # (Helmholtz's shifted Laplacian)
         if (
             lat32.gmg is None
             and len(lat32.shape) in (2, 3)
-            and op.ndof >= 5000
+            and op.ndof >= GMG_MIN_DOFS
             and not opts.get("_gmg_failed")
         ):
             try:
-                attach_lattice_gmg(lat32, mask.cpu().numpy())
+                attach_lattice_gmg(
+                    lat32, mask.cpu().numpy(), A_override=opts.get("_amg_matrix")
+                )
             except ValueError as e:  # coarsest level too large to invert
                 opts["_gmg_failed"] = f"{e}"
         has_gmg = lat32.gmg is not None
+        if inner == "cg":
+            n_inner = 25 if has_gmg else 100
+        else:
+            n_inner = 30 if has_gmg else 60
         x, iters, res, conv, inner_name = solve_constrained_ir(
             op, b, mask, g, lat32, rtol, atol,
-            inner_iters=25 if has_gmg else 100,
-            max_outer=40,
+            inner=inner, inner_iters=n_inner, max_outer=MAX_OUTER,
         )
         if conv:
             info.update(
-                method="cg",
+                method=inner,
                 pc_used="gmg+stencil-ir32" if has_gmg else "jacobi+stencil-ir32",
                 inner=inner_name,
                 iterations=int(iters),

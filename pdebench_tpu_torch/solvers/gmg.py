@@ -287,6 +287,7 @@ def lattice_gmg_from_numpy(
     device,
     dtype=torch.float32,
     padded: bool = False,
+    surrogate: bool = False,
 ) -> LatticeGMG:
     """LatticeGMG from given numpy level data — dicts with W, offsets,
     shape, diag_inv, omega and optional pad_to — e.g. the reference
@@ -304,6 +305,7 @@ def lattice_gmg_from_numpy(
         levels=lvs,
         coarse_inv=torch.tensor(np.asarray(coarse_inv), device=device).to(dtype),
         coarse_shape=tuple(coarse_shape),
+        surrogate=surrogate,
         padded=padded,
     )
 
@@ -366,18 +368,40 @@ def setup_gmg(
     )
 
 
-def attach_lattice_gmg(lat32, mask_np) -> None:
+def attach_lattice_gmg(lat32, mask_np, A_override=None) -> None:
     """Build and attach a scalar GMG hierarchy to a lattice operator,
-    from the CONSTRAINED weights derived directly from the operator's
-    own stencil (no CSR round trip)."""
-    from .stencil import constrain_stencil_weights
+    from the CONSTRAINED weights.
+
+    Default path derives the constrained stencil directly from the
+    operator's own weights (no CSR round trip). A_override provides a
+    DIFFERENT matrix to coarsen (e.g. Helmholtz's shifted Laplacian),
+    taking the CSR route: constrained, then stencilled in float32 as the
+    reference does; the hierarchy is then marked `surrogate`.
+    """
+    from .amg import constrained_csr
+    from .stencil import LatticeOperator, constrain_stencil_weights
 
     mask_np = np.asarray(mask_np, dtype=bool)
-    # absent sites of masked lattices count as constrained (True)
-    mask_lat = lat32.lattice.embed_np(mask_np, True).reshape(lat32.shape)
-    W_bc = constrain_stencil_weights(
-        lat32.W.detach().cpu().numpy().astype(np.float64),
-        lat32.offsets,
-        mask_lat,
-    )
-    lat32.gmg = setup_gmg(W_bc, lat32.offsets, lat32.shape, lat32.device)
+    if A_override is not None:
+        A_bc = constrained_csr(A_override, mask_np)
+        lat_bc = LatticeOperator(A_bc, lat32.lattice, "cpu", dtype=torch.float32)
+        W_bc = lat_bc.W.numpy().astype(np.float64)
+        offs = lat_bc.offsets
+        if lat32.lattice.masked:
+            # absent sites embed as all-zero rows; give them a unit
+            # diagonal so smoothers never divide by zero
+            absent = (lat32.lattice.perm == lat32.lattice.n_dof).reshape(lat32.shape)
+            for k, off in enumerate(offs):
+                if all(o == 0 for o in off):
+                    W_bc[k][absent] = 1.0
+    else:
+        # absent sites of masked lattices count as constrained (True)
+        mask_lat = lat32.lattice.embed_np(mask_np, True).reshape(lat32.shape)
+        W_bc = constrain_stencil_weights(
+            lat32.W.detach().cpu().numpy().astype(np.float64),
+            lat32.offsets,
+            mask_lat,
+        )
+        offs = lat32.offsets
+    lat32.gmg = setup_gmg(W_bc, offs, lat32.shape, lat32.device)
+    lat32.gmg.surrogate = A_override is not None

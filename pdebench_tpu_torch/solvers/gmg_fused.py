@@ -1,21 +1,27 @@
-"""Fused GMG-preconditioned inner CG: one CUDA launch per inner solve.
+"""Fused GMG kernels of the refinement's inner solve: one CUDA launch each.
 
-The mixed-precision refinement's inner loop (krylov.refined_solve) runs
-`inner_iters` PCG steps, each a fine-level stencil apply plus a full
-V-cycle. `build_fused_inner_cg` runs the whole inner solve as ONE kernel
-(csrc/gmg_fused_cg.cu, a cooperative persistent launch whose hierarchy
-stays in L2) on CUDA tensors, and as its plain PyTorch version on CPU
-tensors. Both hold the math of the Pallas kernel this replaces
-(pdebench_tpu/solvers/gmg_fused.py::build_fused_inner_cg, mode "cg"):
+The mixed-precision refinement's inner step (krylov.refined_solve) runs
+multigrid V-cycles on a 2-D stencil hierarchy. Each builder here wraps one
+hand-written kernel (a cooperative persistent launch whose hierarchy
+stays in L2) for CUDA tensors, and its plain PyTorch version for CPU
+tensors; each holds the math of the Pallas kernel it replaces
+(pdebench_tpu/solvers/gmg_fused.py):
 
-  - stencil taps read zero outside each level
-  - restriction / prolongation: the truncated [1/4, 1/2, 1/4] band and
-    its bilinear transpose (banded matmuls in the plain version, direct
-    3x3 stencils in the kernel)
-  - coarsest solve: an extra level probed one below the GMG's last,
-    smoothed by COARSE_SWEEPS damped-Jacobi sweeps (a slightly weaker
-    coarse solve than LatticeGMG.precond's dense inverse)
-  - CG recurrence with the |denominator| > 0 guards
+  build_fused_inner_cg     mode "cg": `inner_iters` GMG-PCG steps, the
+                           whole SPD inner solve (csrc/gmg_fused_cg.cu)
+  build_fused_richardson   mode "richardson" of the same kernel: a chain
+                           of V-cycles z += V(r - A0 z), linear in r, the
+                           GMRES inner's preconditioner
+  build_fused_inner_gmres  one m-step left-preconditioned Arnoldi cycle
+                           with a per-call operator stencil
+                           (csrc/gmg_fused_gmres.cu)
+
+Shared math: stencil taps read zero outside each level; restriction /
+prolongation are the truncated [1/4, 1/2, 1/4] band and its bilinear
+transpose (banded matmuls in the plain versions, direct 3x3 stencils in
+the kernels); the coarsest solve is an extra level probed one below the
+GMG's last, smoothed by COARSE_SWEEPS damped-Jacobi sweeps (a slightly
+weaker coarse solve than LatticeGMG.precond's dense inverse).
 
 The numpy hierarchy builders are copied from the reference, without its
 (8, 128) TPU tile padding. Scope: scalar 2-D lattices whose hierarchy
@@ -33,12 +39,23 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .krylov import lstsq_hessenberg
 from .stencil_kernel import stencil_apply_2d_torch
 
 COARSE_SWEEPS = 10
+# the Arnoldi cycle's preconditioner: chained V-cycles per step
+PRECOND_CYCLES = 2
+# happy-breakdown freeze of the Arnoldi cycle: hn <= FREEZE * ||u||
+FREEZE = 1e-5
+EPS = 1e-30
+_MODES = {"cg": 0, "richardson": 1}  # kModeCG, kModeRichardson
 
-# kernel launches in this process (the plain version is not counted)
+# kernel launches in this process, one count per kernel (the plain
+# versions are not counted): gmg_fused_cg in mode cg, in mode richardson,
+# and gmg_fused_gmres
 LAUNCHES = 0
+LAUNCHES_RICHARDSON = 0
+LAUNCHES_GMRES = 0
 
 # limits of csrc/gmg_fused_cg.cu (kMaxLevels, kMaxTaps)
 _MAX_LEVELS = 8
@@ -164,7 +181,7 @@ def _scalar_hierarchy(gmg):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def _lib_cg() -> ctypes.CDLL:
     lib = _build.load("gmg_fused_cg")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.gmg_fused_cg_desc_bytes.argtypes = []
@@ -178,23 +195,41 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong,
     ]
     lib.gmg_fused_cg_pack.restype = i
-    # desc, r, z, iters, blocks, stream
-    lib.gmg_fused_cg_launch.argtypes = [vp, vp, vp, i, i, vp]
+    # desc, r, z, iters, mode, blocks, stream
+    lib.gmg_fused_cg_launch.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.gmg_fused_cg_launch.restype = i
     return lib
 
 
-class FusedInnerCG:
-    """fn(r_lat_flat_f32) -> z_lat_flat_f32: `inner_iters` GMG-PCG steps.
+@functools.lru_cache(maxsize=None)
+def _lib_gmres() -> ctypes.CDLL:
+    lib = _build.load("gmg_fused_gmres")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("gmg_fused_gmres_desc_bytes", "gmg_fused_gmres_partial_slots"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.gmg_fused_gmres_grid.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.gmg_fused_gmres_grid.restype = i
+    # out, nlev, ptrs, dims, offs, op_K, op_offs, Av, z1, w, partial
+    lib.gmg_fused_gmres_pack.argtypes = [vp, i, vp, vp, vp, i, vp, ll, ll, ll, ll]
+    lib.gmg_fused_gmres_pack.restype = i
+    # desc, r, W_op, V, Hc, beta, m, cycles, blocks, stream
+    lib.gmg_fused_gmres_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.gmg_fused_gmres_launch.restype = i
+    return lib
 
-    The hierarchy lives on `device`. A CPU tensor runs `plain` (PyTorch);
-    a CUDA tensor runs `launch` (the kernel). Calls on one object must
-    not overlap on different streams: the kernel's work vectors are
-    allocated once, with the hierarchy.
-    """
 
-    def __init__(self, lv: List[_Level], bands, inner_iters: int, device):
-        self.inner_iters = int(inner_iters)
+def _vp(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+class _FusedHierarchy:
+    """The hierarchy of a fused kernel on `device`, with the plain
+    PyTorch V-cycle and V-cycle chain that the kernels' plain versions
+    share. Calls on one object must not overlap on different streams:
+    a kernel's work vectors are allocated once, with the hierarchy."""
+
+    def __init__(self, lv: List[_Level], bands, device):
         self.shape = (lv[0].ny, lv[0].nx)
 
         def t(a):
@@ -230,10 +265,78 @@ class FusedInnerCG:
         x = x + Py @ (xc @ Px.T)
         return x + D * (r - self._apply(l, x))
 
+    def _chain(self, v: torch.Tensor, cycles: int) -> torch.Tensor:
+        """z = V(v), then cycles - 1 times z += V(v - A0 z): linear in v."""
+        z = self._vcycle(0, v)
+        for _ in range(cycles - 1):
+            z = z + self._vcycle(0, v - self._apply(0, z))
+        return z
+
+    # -- CUDA side ------------------------------------------------------
+
+    def _level_arrays(self):
+        """Work vectors (3, n_l) per level and the flat level arrays that
+        pack_levels (csrc/gmg_vcycle.cuh) takes: pointers, dims, taps."""
+        work = [
+            torch.zeros((3, W.shape[1] * W.shape[2]), dtype=torch.float32, device=self.device)
+            for W in self.W
+        ]
+        ptrs = np.array(
+            [
+                [W.data_ptr(), D.data_ptr()] + [w[j].data_ptr() for j in range(3)]
+                for W, D, w in zip(self.W, self.D, work)
+            ],
+            dtype=np.int64,
+        )
+        dims = np.array([[W.shape[1], W.shape[2], W.shape[0]] for W in self.W], dtype=np.int32)
+        offs = np.array([o for lvl in self.offsets for o in lvl], dtype=np.int32).reshape(-1)
+        return work, ptrs, dims, offs
+
+    def _grid(self, lib, fn) -> int:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(self.device):
+            _build.check(lib, fn(self.shape[0] * self.shape[1], ctypes.byref(blocks)), fn.__name__)
+        return blocks.value
+
+    def _check(self, r_flat: torch.Tensor) -> None:
+        if r_flat.device != self.device:
+            raise ValueError(f"r on {r_flat.device}, hierarchy on {self.device}")
+        if r_flat.dtype != torch.float32 or r_flat.numel() != self.shape[0] * self.shape[1]:
+            raise ValueError(
+                f"expected {self.shape[0] * self.shape[1]} float32 values, got "
+                f"{r_flat.numel()} {r_flat.dtype}"
+            )
+
+    def _check_cuda(self) -> None:
+        if self.device.type != "cuda":
+            raise ValueError(f"the kernel runs on CUDA tensors, not {self.device}")
+
+
+class FusedInnerCG(_FusedHierarchy):
+    """fn(r_lat_flat_f32) -> z_lat_flat_f32, one kernel launch per call.
+
+    mode "cg": `inner_iters` GMG-PCG steps (nonlinear in r: only valid
+    as a whole inner solve under iterative refinement). mode
+    "richardson": a chain of `inner_iters` V-cycles z += V(r - A0 z),
+    linear in r, the preconditioner of the GMRES inner. A CPU tensor
+    runs `plain` (PyTorch); a CUDA tensor runs `launch` (the kernel).
+    """
+
+    def __init__(self, lv: List[_Level], bands, inner_iters: int, device, mode: str = "cg"):
+        if mode not in _MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "richardson" and inner_iters < 1:
+            raise ValueError("a Richardson chain takes at least one V-cycle")
+        super().__init__(lv, bands, device)
+        self.inner_iters = int(inner_iters)
+        self.mode = mode
+
     def plain(self, r_flat: torch.Tensor) -> torch.Tensor:
         """The inner solve in PyTorch ops, on the hierarchy's device."""
         self._check(r_flat)
         r0 = r_flat.reshape(self.shape)
+        if self.mode == "richardson":
+            return self._chain(r0, self.inner_iters).reshape(-1)
         p = self._vcycle(0, r0)
         rz = torch.sum(r0 * p)
         z = torch.zeros_like(r0)
@@ -251,33 +354,13 @@ class FusedInnerCG:
             rz = rz_new
         return z.reshape(-1)
 
-    # -- CUDA kernel ----------------------------------------------------
-
     def _setup_cuda(self):
-        lib = _lib()
-        n = [W.shape[1] * W.shape[2] for W in self.W]
-        dev = self.device
-        work = [torch.zeros((3, m), dtype=torch.float32, device=dev) for m in n]
-        p = torch.zeros(n[0], dtype=torch.float32, device=dev)
+        lib = _lib_cg()
+        work, ptrs, dims, offs = self._level_arrays()
+        p = torch.zeros(self.shape[0] * self.shape[1], dtype=torch.float32, device=self.device)
         Ap = torch.zeros_like(p)
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            _build.check(lib, lib.gmg_fused_cg_grid(n[0], ctypes.byref(blocks)),
-                         "gmg_fused_cg_grid")
-        partial = torch.zeros(2 * blocks.value, dtype=torch.float64, device=dev)
-        ptrs = np.array(
-            [
-                [W.data_ptr(), D.data_ptr()] + [w[j].data_ptr() for j in range(3)]
-                for W, D, w in zip(self.W, self.D, work)
-            ],
-            dtype=np.int64,
-        )
-        dims = np.array(
-            [[W.shape[1], W.shape[2], W.shape[0]] for W in self.W], dtype=np.int32
-        )
-        offs = np.array(
-            [o for lvl in self.offsets for o in lvl], dtype=np.int32
-        ).reshape(-1)
+        blocks = self._grid(lib, lib.gmg_fused_cg_grid)
+        partial = torch.zeros(2 * blocks, dtype=torch.float64, device=self.device)
         desc = np.zeros(lib.gmg_fused_cg_desc_bytes(), dtype=np.uint8)
         code = lib.gmg_fused_cg_pack(
             desc.ctypes.data_as(ctypes.c_void_p), len(self.W),
@@ -291,39 +374,29 @@ class FusedInnerCG:
         # their addresses
         self._cuda = dict(
             lib=lib, work=work, p=p, Ap=Ap, partial=partial,
-            blocks=blocks.value, desc=torch.from_numpy(desc).to(dev),
+            blocks=blocks, desc=torch.from_numpy(desc).to(self.device),
         )
 
     def launch(self, r_flat: torch.Tensor) -> torch.Tensor:
         """The inner solve as one cooperative kernel launch."""
-        global LAUNCHES
+        global LAUNCHES, LAUNCHES_RICHARDSON
         self._check(r_flat)
-        if self.device.type != "cuda":
-            raise ValueError(f"the kernel runs on CUDA tensors, not {self.device}")
+        self._check_cuda()
         if self._cuda is None:
             self._setup_cuda()
         c = self._cuda
         r = r_flat.contiguous()
         z = torch.empty_like(r)
         code = c["lib"].gmg_fused_cg_launch(
-            ctypes.c_void_p(c["desc"].data_ptr()),
-            ctypes.c_void_p(r.data_ptr()),
-            ctypes.c_void_p(z.data_ptr()),
-            self.inner_iters, c["blocks"],
-            _build.current_stream(self.device),
+            _vp(c["desc"]), _vp(r), _vp(z), self.inner_iters, _MODES[self.mode],
+            c["blocks"], _build.current_stream(self.device),
         )
         _build.check(c["lib"], code, "gmg_fused_cg_launch")
-        LAUNCHES += 1
+        if self.mode == "richardson":
+            LAUNCHES_RICHARDSON += 1
+        else:
+            LAUNCHES += 1
         return z
-
-    def _check(self, r_flat: torch.Tensor) -> None:
-        if r_flat.device != self.device:
-            raise ValueError(f"r on {r_flat.device}, hierarchy on {self.device}")
-        if r_flat.dtype != torch.float32 or r_flat.numel() != self.shape[0] * self.shape[1]:
-            raise ValueError(
-                f"expected {self.shape[0] * self.shape[1]} float32 values, got "
-                f"{r_flat.numel()} {r_flat.dtype}"
-            )
 
     def __call__(self, r_flat: torch.Tensor) -> torch.Tensor:
         if r_flat.device.type == "cpu":
@@ -333,9 +406,135 @@ class FusedInnerCG:
         raise ValueError(f"unsupported device {r_flat.device}")
 
 
-def build_fused_inner_cg(gmg, inner_iters: int, device) -> Optional[FusedInnerCG]:
-    """The fused inner solve for `gmg`'s hierarchy on `device`, or None
-    out of scope (padded or non-2-D hierarchies)."""
+class FusedInnerGMRES(_FusedHierarchy):
+    """fn(r_lat_flat_f32, W_op) -> z_lat_flat_f32: one m-step
+    left-preconditioned Arnoldi cycle, the preconditioner a chain of
+    PRECOND_CYCLES V-cycles on the hierarchy, the operator the stencil
+    W_op (K_op, ny, nx) with the taps `op_offsets` given at build (for a
+    surrogate hierarchy the TRUE constrained system, never level 0).
+
+    `raw` returns the cycle's basis V (m+1, n), Hessenberg matrix H
+    (m+1, m) and beta: `plain_raw` (PyTorch) for a CPU tensor, one kernel
+    launch (`launch_raw`) for a CUDA tensor. The call then solves the
+    least squares and forms z = sum_i y_i V[i] in PyTorch on the device,
+    as the reference's wrapper does.
+    """
+
+    def __init__(self, lv: List[_Level], bands, m: int, device, op_offsets):
+        if m < 1:
+            raise ValueError("an Arnoldi cycle takes at least one step")
+        super().__init__(lv, bands, device)
+        self.m = int(m)
+        self.op_offsets = [tuple(int(v) for v in o) for o in op_offsets]
+        self.op_pad = int(max(abs(v) for o in self.op_offsets for v in o))
+
+    def _check_op(self, W_op: torch.Tensor) -> None:
+        want = (len(self.op_offsets),) + self.shape
+        if W_op.device != self.device or W_op.dtype != torch.float32 or tuple(W_op.shape) != want:
+            raise ValueError(
+                f"W_op: expected float32 {want} on {self.device}, got "
+                f"{W_op.dtype} {tuple(W_op.shape)} on {W_op.device}"
+            )
+
+    def plain_raw(self, r_flat: torch.Tensor, W_op: torch.Tensor):
+        """(V, H, beta) of the Arnoldi cycle in PyTorch ops: modified
+        Gram-Schmidt with the happy-breakdown freeze, as the kernel."""
+        self._check(r_flat)
+        self._check_op(W_op)
+        m, p = self.m, self.op_pad
+        f32 = dict(dtype=torch.float32, device=self.device)
+        eps = torch.tensor(EPS, **f32)
+        V = torch.zeros((m + 1,) + self.shape, **f32)
+        H = torch.zeros((m + 1, m), **f32)
+        g0 = self._chain(r_flat.reshape(self.shape), PRECOND_CYCLES)
+        beta = torch.sqrt(torch.sum(g0 * g0))
+        V[0] = g0 / torch.maximum(beta, eps)
+        alive = torch.ones((), **f32)
+        for j in range(m):
+            Av = stencil_apply_2d_torch(F.pad(V[j], (p, p, p, p)), W_op, self.op_offsets, p)
+            u = alive * self._chain(Av, PRECOND_CYCLES)
+            w = u
+            for i in range(j + 1):
+                h = torch.sum(V[i] * w)
+                w = w - h * V[i]
+                H[i, j] = h
+            hn = torch.sqrt(torch.sum(w * w))
+            unorm = torch.sqrt(torch.sum(u * u))
+            alive = alive * (hn > FREEZE * unorm).to(torch.float32)
+            H[j + 1, j] = alive * hn
+            V[j + 1] = alive * w / torch.maximum(hn, eps)
+        return V.reshape(m + 1, -1), H, beta
+
+    def _setup_cuda(self):
+        lib = _lib_gmres()
+        work, ptrs, dims, offs = self._level_arrays()
+        n0 = self.shape[0] * self.shape[1]
+        vecs = torch.zeros((3, n0), dtype=torch.float32, device=self.device)  # Av, z1, w
+        blocks = self._grid(lib, lib.gmg_fused_gmres_grid)
+        partial = torch.zeros(
+            lib.gmg_fused_gmres_partial_slots() * blocks, dtype=torch.float64, device=self.device
+        )
+        op_offs = np.array(self.op_offsets, dtype=np.int32).reshape(-1)
+        desc = np.zeros(lib.gmg_fused_gmres_desc_bytes(), dtype=np.uint8)
+        code = lib.gmg_fused_gmres_pack(
+            desc.ctypes.data_as(ctypes.c_void_p), len(self.W),
+            ptrs.ctypes.data_as(ctypes.c_void_p),
+            dims.ctypes.data_as(ctypes.c_void_p),
+            offs.ctypes.data_as(ctypes.c_void_p),
+            len(self.op_offsets), op_offs.ctypes.data_as(ctypes.c_void_p),
+            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
+            partial.data_ptr(),
+        )
+        _build.check(lib, code, "gmg_fused_gmres_pack")
+        self._cuda = dict(
+            lib=lib, work=work, vecs=vecs, partial=partial, blocks=blocks,
+            desc=torch.from_numpy(desc).to(self.device),
+        )
+
+    def launch_raw(self, r_flat: torch.Tensor, W_op: torch.Tensor):
+        """(V, H, beta) of the Arnoldi cycle as one cooperative launch."""
+        global LAUNCHES_GMRES
+        self._check(r_flat)
+        self._check_op(W_op)
+        self._check_cuda()
+        if self._cuda is None:
+            self._setup_cuda()
+        c = self._cuda
+        m = self.m
+        r, Wc = r_flat.contiguous(), W_op.contiguous()
+        V = torch.empty((m + 1, r.numel()), dtype=torch.float32, device=self.device)
+        Hc = torch.empty((m, m + 1), dtype=torch.float32, device=self.device)
+        beta = torch.empty((), dtype=torch.float32, device=self.device)
+        code = c["lib"].gmg_fused_gmres_launch(
+            _vp(c["desc"]), _vp(r), _vp(Wc), _vp(V), _vp(Hc), _vp(beta),
+            m, PRECOND_CYCLES, c["blocks"], _build.current_stream(self.device),
+        )
+        _build.check(c["lib"], code, "gmg_fused_gmres_launch")
+        LAUNCHES_GMRES += 1
+        return V, Hc.T, beta
+
+    def raw(self, r_flat: torch.Tensor, W_op: torch.Tensor):
+        if r_flat.device.type == "cpu":
+            return self.plain_raw(r_flat, W_op)
+        if r_flat.device.type == "cuda":
+            return self.launch_raw(r_flat, W_op)
+        raise ValueError(f"unsupported device {r_flat.device}")
+
+    def _correction(self, V, H, beta) -> torch.Tensor:
+        """z = sum_i y_i V[i], y the cycle's least-squares solution."""
+        return lstsq_hessenberg(H, beta) @ V[: self.m]
+
+    def __call__(self, r_flat: torch.Tensor, W_op: torch.Tensor) -> torch.Tensor:
+        return self._correction(*self.raw(r_flat, W_op))
+
+    def plain(self, r_flat: torch.Tensor, W_op: torch.Tensor) -> torch.Tensor:
+        """The whole inner solve through the plain version."""
+        return self._correction(*self.plain_raw(r_flat, W_op))
+
+
+def _in_scope(gmg):
+    """The hierarchy the fused kernels take, or None out of scope
+    (padded or non-2-D hierarchies); raises beyond the kernels' limits."""
     built = _scalar_hierarchy(gmg)
     if built is None:
         return None
@@ -346,4 +545,32 @@ def build_fused_inner_cg(gmg, inner_iters: int, device) -> Optional[FusedInnerCG
             f"(2 to {_MAX_LEVELS}), taps {[l.W.shape[0] for l in lv]} "
             f"(max {_MAX_TAPS})"
         )
-    return FusedInnerCG(lv, (Bry, Brx, Bpy, Bpx), inner_iters, device)
+    return lv, (Bry, Brx, Bpy, Bpx)
+
+
+def build_fused_inner_cg(gmg, inner_iters: int, device, mode: str = "cg") -> Optional[FusedInnerCG]:
+    """The fused inner solve for `gmg`'s hierarchy on `device`, or None
+    out of scope (padded or non-2-D hierarchies)."""
+    built = _in_scope(gmg)
+    if built is None:
+        return None
+    return FusedInnerCG(*built, inner_iters, device, mode=mode)
+
+
+def build_fused_richardson(gmg, n_cycles: int, device) -> Optional[FusedInnerCG]:
+    """Fused chain of n V-cycles as one kernel launch: z_{k+1} = z_k +
+    V(r - A0 z_k). Linear in r, so it preconditions the non-flexible
+    GMRES inner; None out of scope."""
+    return build_fused_inner_cg(gmg, n_cycles, device, mode="richardson")
+
+
+def build_fused_inner_gmres(gmg, m: int, device, op_offsets) -> Optional[FusedInnerGMRES]:
+    """The fused m-step Arnoldi cycle for `gmg`'s hierarchy on `device`,
+    its operator a per-call stencil with taps `op_offsets`; None out of
+    scope (padded or non-2-D hierarchies)."""
+    built = _in_scope(gmg)
+    if built is None:
+        return None
+    if len(op_offsets) > _MAX_TAPS:
+        raise ValueError(f"{len(op_offsets)} operator taps, the kernel takes {_MAX_TAPS}")
+    return FusedInnerGMRES(*built, m, device, op_offsets)

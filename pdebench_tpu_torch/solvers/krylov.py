@@ -5,8 +5,8 @@ vector is a torch tensor on the solve's device. Convergence:
 ||r||_2 <= max(rtol * ||b||_2, atol), the PETSc KSP default the dataset's
 per-case rtol/atol assume.
 
-Port of pdebench_tpu/solvers/krylov.py (cg, refined_solve with the CG
-inner, jacobi_preconditioner).
+Port of pdebench_tpu/solvers/krylov.py (cg, refined_solve with its CG and
+GMRES inners, jacobi_preconditioner).
 """
 
 from __future__ import annotations
@@ -78,22 +78,26 @@ def refined_solve(
     max_outer: int = 60,
     inner_fwd: Optional[Callable] = None,
     inner_bwd: Optional[Callable] = None,
+    inner: str = "cg",
     inner_custom: Optional[Callable] = None,
 ):
-    """Mixed-precision iterative refinement: f32 inner PCG, f64 outer.
+    """Mixed-precision iterative refinement: f32 inner Krylov, f64 outer.
 
     The outer loop computes exact f64 residuals r = b - A64 x and
     corrects x += z, where z approximately solves A z = r with
-    `inner_iters` steps of f32 PCG (A32, preconditioned by M32). Each
-    outer round contracts the error by the inner solve's reduction, so
+    `inner_iters` f32 steps (A32, preconditioned by M32). Each outer
+    round contracts the error by the inner solve's reduction, so
     f64-level accuracy (rtol 1e-10) takes a handful of rounds while the
     iterations run in f32.
 
-    inner_custom: full replacement for the inner solve (the fused
-    GMG-PCG kernel, solvers/gmg_fused.py); receives and returns the
-    inner_fwd-space f32 vector. inner_fwd/inner_bwd: a basis change
-    applied once per outer round (dof -> lattice permutation, so the
-    per-iteration inner work is gather-free).
+    inner: "cg" (SPD: `inner_iters` PCG steps) or "gmres" (one
+    `inner_iters`-step left-preconditioned Arnoldi cycle per outer round:
+    the outer refinement IS the restart; Helmholtz and other indefinite
+    or nonsymmetric systems). inner_custom: full replacement for the
+    inner solve (the fused kernels, solvers/gmg_fused.py); receives and
+    returns the inner_fwd-space f32 vector. inner_fwd/inner_bwd: a basis
+    change applied once per outer round (dof -> lattice permutation, so
+    the per-iteration inner work is gather-free).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -119,7 +123,41 @@ def refined_solve(
             rz = rz_new
         return z
 
-    inner_solve = inner_custom if inner_custom is not None else inner_cg
+    def inner_gmres(r32):
+        """One m-step left-preconditioned Arnoldi cycle in f32.
+
+        Orthogonalization is CGS2 (classical Gram-Schmidt, applied
+        twice): h = V w, w -= V^T h, repeated. Rows of V beyond the
+        current column are exactly zero, so no masking is needed. The
+        (m+1, m) least squares goes through QR with an epsilon-guarded
+        diagonal."""
+        m = inner_iters
+        eps32 = torch.tensor(1e-30, dtype=torch.float32, device=r32.device)
+        g0 = M32(r32)
+        beta = torch.linalg.norm(g0)
+        V = torch.zeros((m + 1, r32.shape[0]), dtype=torch.float32, device=r32.device)
+        H = torch.zeros((m + 1, m), dtype=torch.float32, device=r32.device)
+        V[0] = g0 / torch.where(beta < eps32, eps32, beta)
+        for j in range(m):
+            w = M32(A32(V[j]))
+            h1 = V @ w
+            w = w - V.T @ h1
+            h2 = V @ w
+            w = w - V.T @ h2
+            H[:, j] += h1 + h2
+            hn = torch.linalg.norm(w)
+            H[j + 1, j] = hn
+            V[j + 1] = w / torch.where(hn < eps32, eps32, hn)
+        return V[:m].T @ lstsq_hessenberg(H, beta)
+
+    if inner_custom is not None:
+        inner_solve = inner_custom
+    elif inner == "cg":
+        inner_solve = inner_cg
+    elif inner == "gmres":
+        inner_solve = inner_gmres
+    else:
+        raise ValueError(f"unknown inner {inner!r}")
 
     x = x0
     r = b - A64(x0)
@@ -141,6 +179,21 @@ def refined_solve(
         stag = rn > 0.9 * rn_prev
         rn_prev = rn
     return x, KrylovInfo(k * inner_iters, rn, rn <= tol)
+
+
+def lstsq_hessenberg(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """y minimising ||beta e1 - H y|| for the (m+1, m) Hessenberg matrix
+    of an Arnoldi cycle, in H's dtype: reduced QR, then the triangular
+    solve with diagonal entries below 1e-30 in magnitude raised to 1e-30
+    (a frozen or broken-down cycle leaves exact zeros there)."""
+    eps = torch.tensor(1e-30, dtype=H.dtype, device=H.device)
+    e1 = torch.zeros(H.shape[0], dtype=H.dtype, device=H.device)
+    e1[0] = beta
+    Q, R = torch.linalg.qr(H)
+    rhs = Q.T @ e1
+    diag_r = torch.diagonal(R)
+    Rsafe = R + torch.diag(torch.where(torch.abs(diag_r) < eps, eps, 0.0))
+    return torch.linalg.solve_triangular(Rsafe, rhs[:, None], upper=True)[:, 0]
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:

@@ -243,6 +243,27 @@ def constrain_stencil_weights(
     return W
 
 
+def constrain_step_weights(
+    W: torch.Tensor, offsets, keep: torch.Tensor
+) -> torch.Tensor:
+    """Dirichlet-constrain stencil weight planes on their device: zero
+    rows at masked points, zero taps with masked sources, unit diagonal
+    at masked points. `keep` is the lattice-shaped float32 free-site
+    indicator (1 = free). Equivalent to wrapping the raw apply in
+    where(mask, v, raw(where(mask, 0, v))), but done once so that a
+    fused kernel can take plain weight planes (W: (K, *shape))."""
+    pad = int(max(abs(o) for off in offsets for o in off))
+    kp = F.pad(keep, (pad,) * (2 * keep.dim()))
+    outs = []
+    for k, off in enumerate(offsets):
+        src = kp[tuple(slice(pad + o, pad + o + s) for o, s in zip(off, keep.shape))]
+        Wk = W[k] * keep * src
+        if all(o == 0 for o in off):
+            Wk = Wk + (1.0 - keep)
+        outs.append(Wk)
+    return torch.stack(outs)
+
+
 def lattice_operator_from_local(
     A_local: np.ndarray,
     dofmap: np.ndarray,

@@ -1,0 +1,104 @@
+"""Solve dataset cases with pdebench_tpu_torch on a CUDA card and hold each
+`baseline_error` against the recorded one.
+
+    python3 scripts/torch_sweep_cases.py --pde helmholtz --domain unit_square
+
+For every case of `data/benchmark_v2.jsonl` whose pde type and domain match:
+one `OracleSolver(device="cuda")` solve with the setup caches cleared, its
+`baseline_error` against the last successful record of the case in
+`results/oracle_sweep_progress.jsonl`, the inner route, the inner
+iterations (outer rounds times the route's steps per round), the warm
+solve and `baseline_time`. One line per case, then a summary: the
+worst relative difference, the cases per inner route and their median warm
+solve. A case that raises is reported and counted, and the script exits
+non-zero if any did or any error is off by more than --tol. First line:
+the card's name and power limit.
+
+Imports neither jax nor pdebench_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def recorded_errors():
+    out = {}
+    with open(os.path.join(ROOT, "results", "oracle_sweep_progress.jsonl")) as fh:
+        for line in fh:
+            r = json.loads(line)
+            if r.get("ok") and r.get("baseline_error") is not None:
+                out[r["case_id"]] = float(r["baseline_error"])
+    return out
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--pde", required=True)
+    ap.add_argument("--domain", required=True)
+    ap.add_argument("--tol", type=float, default=1e-5, help="relative error tolerance")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_sweep_cases: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from pdebench_tpu_torch.oracle import OracleSolver, base
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0], flush=True)
+    recorded = recorded_errors()
+    cases = []
+    with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
+        for line in fh:
+            c = json.loads(line)
+            oc = c["oracle_config"]
+            if oc["pde"]["type"] == args.pde and oc["domain"]["type"] == args.domain:
+                cases.append((c["id"], oc))
+    solver = OracleSolver(device="cuda")
+    worst, failed = 0.0, []
+    warm = defaultdict(list)
+    for cid, oc in cases:
+        base.clear_setup_caches()
+        t0 = time.perf_counter()
+        try:
+            res = solver.solve(oc)
+        except Exception as e:  # report every case, count the failure
+            failed.append(cid)
+            print(f"{cid}: FAILED {type(e).__name__}: {e}", flush=True)
+            continue
+        info = res.solver_info
+        inner = info.get("inner")
+        ref = recorded.get(cid)
+        rel = abs(res.baseline_error - ref) / abs(ref) if ref else float("nan")
+        if ref:
+            worst = max(worst, rel)
+            if not rel <= args.tol:
+                failed.append(cid)
+        warm[inner].append(info["t_warm"])
+        print(f"{cid}: dofs {res.num_dofs} baseline_error {res.baseline_error!r} recorded "
+              f"{ref!r} rel {rel:.2e}; inner {inner} iterations {info.get('iterations')}; warm "
+              f"{info['t_warm']:.4f} s, baseline_time {res.baseline_time:.4f} s, whole call "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"{len(cases)} cases, worst relative error difference {worst:.3e} (tol "
+          f"{args.tol:g}), {len(failed)} failed {failed}", flush=True)
+    for inner, ts in sorted(warm.items(), key=lambda kv: str(kv[0])):
+        print(f"  {inner}: {len(ts)} cases, warm solve median {statistics.median(ts):.4f} s "
+              f"({min(ts):.4f}-{max(ts):.4f})", flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -132,3 +132,122 @@ def test_unconverged_ir_on_cuda_raises(dev, monkeypatch):
         cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == "poisson_basic")
     with pytest.raises(RuntimeError, match="did not converge"):
         OracleSolver(device=dev).solve(cfg)
+
+
+HELMHOLTZ = {
+    # case id -> (recorded baseline_error, inner on the card, outer rounds)
+    "helmholtz_basic_k5": (6.517975839100497e-4, "gmres+fused-richardson-cuda", 4),
+    "helmholtz_k12_exponential_mode": (3.1268822007046e-4, "fused-gmres-cuda", 3),
+}
+TOL_LINEAR = 2e-4  # linearity of the Richardson chain (tests/test_gmg_fused.py)
+
+
+def _helmholtz(dev, case_id):
+    """The case's f32 lattice operator with its shifted-Laplacian
+    hierarchy, the true constrained weights and the lattice mask."""
+    from pdebench_tpu_torch.fem.assemble import local_mass, local_stiffness
+    from pdebench_tpu_torch.oracle import helmholtz, scalar
+    from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
+    from pdebench_tpu_torch.solvers.stencil import constrain_step_weights
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+    cfg = scalar.override_bc_with_mms(cfg, cfg["pde"]["manufactured_solution"]["u"])
+    k2 = float(cfg["pde"]["pde_params"]["k"]) ** 2
+    ctx = scalar.setup_scalar(cfg, dev)
+    lat = scalar.maybe_lattice32(ctx, local_stiffness(ctx.cb) - k2 * local_mass(ctx.cb))
+    mask = ctx.mask.cpu().numpy()
+    attach_lattice_gmg(lat, mask, A_override=helmholtz.shifted_laplacian(ctx, k2))
+    keep = torch.as_tensor(
+        1.0 - lat.lattice.embed_np(mask, True).astype(np.float32), device=dev
+    ).reshape(lat.shape)
+    return lat, mask, constrain_step_weights(lat.W, lat.offsets, keep)
+
+
+def _lattice_rhs(lat, mask, seed, dev):
+    r = np.random.default_rng(seed).standard_normal(lat.lattice.n_dof)
+    r[mask] = 0.0
+    return torch.as_tensor(lat.lattice.embed_np(r.astype(np.float32), 0.0), device=dev)
+
+
+def _true_residual(lat, W32c, r_lat, z):
+    Az = stencil_kernel.stencil_apply_2d_torch(
+        F.pad(z.reshape(lat.shape), (lat.pad,) * 4), W32c, lat.offsets, lat.pad
+    ).reshape(-1)
+    return float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
+
+
+@pytest.mark.parametrize("cycles", [1, 2])
+@pytest.mark.parametrize("case_id", sorted(HELMHOLTZ))
+def test_fused_richardson_kernel_matches_plain(dev, case_id, cycles):
+    lat, mask, _ = _helmholtz(dev, case_id)
+    assert lat.gmg.surrogate and not lat.gmg.padded
+    rich = gmg_fused.build_fused_richardson(lat.gmg, cycles, dev)
+    r1, r2 = _lattice_rhs(lat, mask, 3, dev), _lattice_rhs(lat, mask, 4, dev)
+    before = gmg_fused.LAUNCHES_RICHARDSON
+    z1 = rich(r1)
+    assert gmg_fused.LAUNCHES_RICHARDSON == before + 1
+    z_plain = rich.plain(r1)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z1, z_plain, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+    # linear in r: the property the GMRES inner needs from its preconditioner
+    z12 = rich(r1 + 2.0 * r2)
+    torch.testing.assert_close(z12, z1 + 2.0 * rich(r2), rtol=TOL_LINEAR, atol=TOL_LINEAR * scale)
+
+
+@pytest.mark.parametrize("case_id", sorted(HELMHOLTZ))
+def test_fused_gmres_kernel_one_step_matches_plain(dev, case_id):
+    """m = 1: the basis, the Hessenberg column and beta per element."""
+    lat, mask, W32c = _helmholtz(dev, case_id)
+    fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 1, dev, lat.offsets)
+    r = _lattice_rhs(lat, mask, 5, dev)
+    before = gmg_fused.LAUNCHES_GMRES
+    V, H, beta = fg.raw(r, W32c)
+    assert gmg_fused.LAUNCHES_GMRES == before + 1
+    Vp, Hp, bp = fg.plain_raw(r, W32c)
+    for got, want in ((V, Vp), (H, Hp), (beta, bp)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+
+
+@pytest.mark.parametrize("case_id", sorted(HELMHOLTZ))
+def test_fused_gmres_kernel_cycle_reduces_true_residual(dev, case_id):
+    """m = 30: float MGS sums in another order part the two recurrences
+    after a few steps, so the whole cycle is held by its residual against
+    the TRUE operator: no worse than twice the plain version's, below 0.1."""
+    lat, mask, W32c = _helmholtz(dev, case_id)
+    fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
+    r = _lattice_rhs(lat, mask, 6, dev)
+    rel = _true_residual(lat, W32c, r, fg(r, W32c))
+    rel_plain = _true_residual(lat, W32c, r, fg.plain(r, W32c))
+    assert rel < 0.1 and rel <= 2.0 * rel_plain, (rel, rel_plain)
+
+
+def test_helmholtz_oracle_runs_the_kernels(dev):
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    for case_id, (ref_err, inner, outer) in HELMHOLTZ.items():
+        with open(DATA) as fh:
+            cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+        gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
+        res = OracleSolver(device=dev).solve(cfg)
+        assert res.solver_info["inner"] == inner
+        assert res.solver_info["iterations"] == outer * 30
+        launched = gmg_fused.LAUNCHES_RICHARDSON if "richardson" in inner else gmg_fused.LAUNCHES_GMRES
+        assert launched > 0
+        assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
+
+
+def test_unconverged_nonsymmetric_ir_on_cuda_raises(dev, monkeypatch):
+    from pdebench_tpu_torch.oracle import OracleSolver
+    from pdebench_tpu_torch.solvers import dispatch
+
+    def stalled(op, b, *args, **kwargs):
+        return torch.zeros_like(b), 40 * 30, 1.0, False, "fused-gmres-cuda"
+
+    monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh
+                   if json.loads(l)["id"] == "helmholtz_k12_exponential_mode")
+    with pytest.raises(RuntimeError, match="did not converge"):
+        OracleSolver(device=dev).solve(cfg)

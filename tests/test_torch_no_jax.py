@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "pdebench_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|pdebench_tpu)\b|from\s+(jax|pdebench_tpu)\b)",
@@ -28,6 +28,15 @@ def test_package_has_sources():
         assert expected in names
     assert (PKG / "csrc" / "stencil_apply.cu").is_file()
     assert (PKG / "csrc" / "gmg_fused_cg.cu").is_file()
+
+
+def test_helmholtz_slice_sources():
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    for expected in ("oracle/helmholtz.py", "solvers/amg.py", "solvers/krylov.py"):
+        assert expected in names
+    for src in ("gmg_vcycle.cuh", "gmg_fused_gmres.cu"):
+        assert (PKG / "csrc" / src).is_file()
+    assert (ROOT / "scripts" / "torch_profile_solve.py") in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
