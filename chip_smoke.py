@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the shapes of the
-main paths, then drives the two main paths through
+main paths, then drives the three main paths through
 `OracleSolver(device="cuda")` and checks their errors against the
 recorded values:
 
@@ -15,6 +15,10 @@ recorded values:
               `helmholtz_k12_exponential_mode` (161 x 161, k = 12): the
               stencil kernel, the fused Richardson preconditioner and the
               fused Arnoldi cycle
+  Elasticity  `linear_elasticity_nu010` (P2, 121 x 121 nodes) and
+              `linear_elasticity_nu030` (P2, 161 x 161): the stencil
+              kernel (the f64 outer residual, 4 scalar applies per block
+              apply) and the fused block inner CG
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -52,6 +56,12 @@ HELMHOLTZ = {
     # the card, outer rounds of one GMRES(30) cycle each)
     "helmholtz_basic_k5": (6.517975839100497e-4, 1e-6, "gmres+fused-richardson-cuda", 4),
     "helmholtz_k12_exponential_mode": (3.1268822007046e-4, 1e-6, "fused-gmres-cuda", 3),
+}
+ELASTICITY = {
+    # case id -> (recorded baseline_error, relative tolerance, outer
+    # rounds of 25 fused block PCG steps to rtol 1e-10)
+    "linear_elasticity_nu010": (1.5773824748707618e-06, 1e-6, 2),
+    "linear_elasticity_nu030": (3.2893239815322345e-06, 1e-6, 3),
 }
 SOLVES = 3  # whole-case solves per case on each main path
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
@@ -150,6 +160,34 @@ def cg_bound(fused) -> dict:
     return bound(hierarchy_bytes(fused) + 2 * 4 * n0, flops, torch.float32)
 
 
+def block_vcycle_flops(fused) -> int:
+    """Operations of one block (d = 2) V-cycle: as vcycle_flops with 8 per
+    tap and site for a 2 x 2 block apply, 6 per site for a 2 x 2 D
+    product and the transfers and updates on both components."""
+    from pdebench_tpu_torch.solvers.gmg_fused import COARSE_SWEEPS
+
+    shapes = [(W.shape[0], W.shape[-2] * W.shape[-1]) for W in fused.W]
+    total = 6 * shapes[0][1]  # x = D r on level 0
+    for (K, n), (_, nc) in zip(shapes[:-1], shapes[1:]):
+        # r - A x, restriction and x_c = D r_c, prolongation and its add,
+        # post-smoothing x + D (r - A x)
+        total += (8 * K * n + 2 * n) + 2 * (2 * 9 * nc) + 6 * nc + 2 * (2 * 4 * n + n)
+        total += 8 * K * n + 10 * n
+    K, n = shapes[-1]
+    return total + (COARSE_SWEEPS - 1) * (8 * K * n + 10 * n)
+
+
+def block_cg_bound(fused) -> dict:
+    """r read and z written once (two components), the hierarchy read
+    once; per PCG step the block apply, two dots, the updates and a block
+    V-cycle."""
+    K0, n0 = fused.W[0].shape[0], fused.shape[0] * fused.shape[1]
+    v = block_vcycle_flops(fused)
+    step = 8 * K0 * n0 + 4 * n0 + 8 * n0 + v + 4 * n0 + 4 * n0
+    flops = v + 4 * n0 + fused.inner_iters * step
+    return bound(hierarchy_bytes(fused) + 2 * 2 * 4 * n0, flops, torch.float32)
+
+
 def richardson_bound(fused) -> dict:
     n0 = fused.shape[0] * fused.shape[1]
     return bound(hierarchy_bytes(fused) + 2 * 4 * n0, chain_flops(fused, fused.inner_iters), torch.float32)
@@ -223,10 +261,37 @@ def helmholtz_operator(config, device):
     return lat, mask, constrain_step_weights(lat.W, lat.offsets, keep)
 
 
+def elasticity_operator(config, device, rough=False):
+    """The case's f32 block lattice operator with its block GMG
+    hierarchy attached, built through the port's setup path. `rough`
+    multiplies the shear modulus by a cell-wise factor between 1/2 and 2
+    (from a seed): with constant Lame parameters every per-site 2 x 2 tap
+    block is symmetric, so only a rough one shows a transposed block
+    read."""
+    from pdebench_tpu_torch.fem.assemble import local_elasticity
+    from pdebench_tpu_torch.oracle import linear_elasticity, scalar
+    from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, list(pde["manufactured_solution"]["u"]))
+    lam, mu = linear_elasticity.lame_from_params(pde["pde_params"])
+    ctx = scalar.setup_scalar(config, device, ncomp=-1)
+    if rough:
+        n = ctx.mesh.n_cells
+        mu = mu * np.exp(np.random.default_rng(1).uniform(np.log(0.5), np.log(2.0), n))
+    lat = scalar.maybe_block_lattice32(ctx, local_elasticity(ctx.cb, mu, lam))
+    mask = ctx.mask.cpu().numpy()
+    attach_lattice_gmg(lat, mask)
+    return lat, mask
+
+
 def lattice_rhs(lat, mask, rng, device):
-    r = rng.standard_normal(lat.lattice.n_dof)
+    """A random dof residual, zero on constrained dofs, in the lattice's
+    flat layout (site-major, component-minor for block lattices)."""
+    emb = lat.embedding
+    r = rng.standard_normal(emb.n_dof)
     r[mask] = 0.0
-    return torch.as_tensor(lat.lattice.embed_np(r.astype(np.float32), 0.0), device=device)
+    return torch.as_tensor(emb.embed_np(r.astype(np.float32), 0.0), device=device)
 
 
 def allclose_scale(got, want, tol):
@@ -255,6 +320,10 @@ def check_stencil(ops, rng, dev, report):
     for cid, lat in ops.items():
         ny, nx = lat.shape
         for W, tol in ((lat.W_f64, TOL_F64), (lat.W, TOL_F32)):
+            if W.dim() == 5:
+                # a block lattice (K, ny, nx, 2, 2) applies its (a, b)
+                # planes one by one: check the (0 <- 1) coupling plane
+                W = W[..., 0, 1].contiguous()
             u = torch.as_tensor(rng.standard_normal(lat.shape), device=dev).to(W.dtype)
             up = F.pad(u, (lat.pad,) * 4)
             args = (up, W, lat.offsets, lat.pad)
@@ -387,6 +456,99 @@ def check_gmres(ops, rng, dev, report):
             report["gmg_fused_gmres"] = dict(max_abs_err=err_v, ms=ms, plain_ms=plain_ms, **b)
 
 
+def check_block_cg(ops, rng, dev, report):
+    """Kernel #4 on each elasticity case's block hierarchy: one PCG step
+    (the block V-cycle, tightly), the main path's 25 with a true residual
+    against the constrained level 0, and the Richardson mode at 1 and 2
+    cycles with its linearity."""
+    from pdebench_tpu_torch.solvers import gmg_fused
+
+    for cid, (lat, mask) in ops.items():
+        r_lat = lattice_rhs(lat, mask, rng, dev)
+        step = gmg_fused.build_fused_block_inner_cg(lat.gmg, 1, dev)
+        zk, zp = step(r_lat), step.plain(r_lat)  # kernel, plain
+        torch.cuda.synchronize()
+        diff, scale, ok = allclose_scale(zk, zp, TOL_VCYCLE)
+        say("3d", f"fused_block_cg {cid} 1 PCG step: max abs diff {diff:.3e} "
+                  f"(scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
+        if not ok:
+            raise AssertionError(f"fused block V-cycle step disagrees on {cid}: {diff}")
+
+        fused = gmg_fused.build_fused_block_inner_cg(lat.gmg, 25, dev)
+        zk = fused(r_lat)
+        zp = fused.plain(r_lat)
+        torch.cuda.synchronize()
+        diff, scale, ok = allclose_scale(zk, zp, TOL_CG)
+        # the correction must solve the constrained fine block system
+        # (level 0 of the hierarchy, applied by the plain version)
+        r_pl = fused._to_planes(r_lat)
+        rel = float(torch.linalg.norm(r_pl - fused._apply(0, fused._to_planes(zk)))
+                    / torch.linalg.norm(r_pl))
+        ms = median_ms(lambda: fused(r_lat), calls=5, samples=3)
+        plain_ms = median_ms(lambda: fused.plain(r_lat), calls=1, samples=3)
+        b = block_cg_bound(fused)
+        say("3d", f"fused_block_cg {cid} {len(fused.W)} levels {[tuple(W.shape) for W in fused.W]}: "
+                  f"max abs diff {diff:.3e} (scale {scale:.3e}, rtol=atol/scale={TOL_CG:g}) "
+                  f"residual {rel:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
+        if not ok or not rel < 1e-3:
+            raise AssertionError(f"fused block inner CG disagrees on {cid}: {diff}, residual {rel}")
+        if cid == "linear_elasticity_nu010":
+            report["gmg_fused_block_cg"] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
+
+        for cycles in (1, 2):
+            rich = gmg_fused.build_fused_block_inner_cg(lat.gmg, cycles, dev, mode="richardson")
+            r1, r2 = lattice_rhs(lat, mask, rng, dev), lattice_rhs(lat, mask, rng, dev)
+            z1 = rich(r1)
+            zp = rich.plain(r1)
+            torch.cuda.synchronize()
+            diff, scale, ok = allclose_scale(z1, zp, TOL_VCYCLE)
+            lin, _, lin_ok = allclose_scale(rich(r1 + 2.0 * r2), z1 + 2.0 * rich(r2), TOL_LINEAR)
+            say("3d", f"fused_block_richardson {cid} {cycles} cycle(s): max abs diff {diff:.3e} "
+                      f"(scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g}); linearity max abs "
+                      f"diff {lin:.3e} (tol {TOL_LINEAR:g} of scale)")
+            if not ok or not lin_ok:
+                raise AssertionError(f"fused block Richardson disagrees on {cid}, {cycles} "
+                                     f"cycles: {diff}, linearity {lin}")
+
+
+def skew_dinv(fused, rng):
+    """Add an antisymmetric part to every level's 2 x 2 smoother blocks,
+    in place, and return its size relative to max |D|. The diagonal
+    blocks of a symmetric operator are symmetric, so only skewed ones
+    show D[b, a] read for D[a, b]."""
+    for D in fused.D:
+        u = torch.as_tensor(rng.uniform(0.0, 0.2, D.shape[-2:]), dtype=D.dtype, device=D.device)
+        s = D.abs().max() * u
+        D[0, 1] += s
+        D[1, 0] -= s
+    D = fused.D[0]
+    return float((D[0, 1] - D[1, 0]).abs().max() / D.abs().max())
+
+
+def check_block_transpose(lat, mask, rng, dev):
+    """One block PCG step on a hierarchy whose tap blocks are not
+    symmetric per site (a rough shear modulus) and whose smoother blocks
+    are skewed: the check that sees W[k, b, a] read for W[k, a, b], or
+    D[b, a] for D[a, b]."""
+    from pdebench_tpu_torch.solvers import gmg_fused
+
+    W = lat.gmg.levels[0].W
+    asym = float((W - W.transpose(-1, -2)).abs().max() / W.abs().max())
+    r_lat = lattice_rhs(lat, mask, rng, dev)
+    step = gmg_fused.build_fused_block_inner_cg(lat.gmg, 1, dev)
+    skew = skew_dinv(step, rng)
+    zk, zp = step(r_lat), step.plain(r_lat)
+    torch.cuda.synchronize()
+    diff, scale, ok = allclose_scale(zk, zp, TOL_VCYCLE)
+    say("3d", f"fused_block_cg rough-mu {lat.shape} lattice (tap-block asymmetry {asym:.2e} "
+              f"of max |W|, smoother skew {skew:.2e} of max |D|) 1 PCG step: max abs diff "
+              f"{diff:.3e} (scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
+    if not (asym > 1e-2 and skew > 1e-2) or not ok:
+        raise AssertionError(f"fused block V-cycle step on rough mu: asymmetry {asym}, "
+                             f"skew {skew}, diff {diff}")
+
+
 def drive(solver, cases, want, phase):
     """SOLVES whole-case solves per case through OracleSolver, setup
     caches cleared before each; every check of the case must hold."""
@@ -445,7 +607,7 @@ def main() -> int:
              f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # (1) build: one nvcc per source, all started together
-    sources = ("stencil_apply", "gmg_fused_cg", "gmg_fused_gmres")
+    sources = ("stencil_apply", "gmg_fused_cg", "gmg_fused_gmres", "gmg_fused_block_cg")
     t0 = time.perf_counter()
     _build.load_all(sources)
     say("1", f"built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
@@ -454,22 +616,30 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         say("1", f"{name}: " + " | ".join(usage))
 
-    cases = load_cases(set(POISSON) | set(HELMHOLTZ))
+    cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
+    e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
     rng = np.random.default_rng(0)
     report = {}
 
-    # (2) stencil kernel vs plain at both paths' shapes
+    # (2) stencil kernel vs plain at every path's shapes
     check_stencil({cid: lat for cid, (lat, _) in p_ops.items()}
-                  | {cid: lat for cid, (lat, _, _) in h_ops.items()}, rng, dev, report)
-    # (3) fused inner CG, (3b) fused Richardson, (3c) fused Arnoldi vs plain
+                  | {cid: lat for cid, (lat, _, _) in h_ops.items()}
+                  | {cid: lat for cid, (lat, _) in e_ops.items()}, rng, dev, report)
+    # (3) fused inner CG, (3b) fused Richardson, (3c) fused Arnoldi, (3d)
+    # fused block inner CG vs plain
     check_fused_cg(p_ops, rng, dev, report)
     check_richardson(h_ops, rng, dev, report)
     check_gmres(h_ops, rng, dev, report)
+    check_block_cg(e_ops, rng, dev, report)
+    check_block_transpose(
+        *elasticity_operator(cases["linear_elasticity_nu010"], dev, rough=True), rng, dev
+    )
 
-    # (4) the Poisson main path, (5) the Helmholtz main path: OracleSolver
-    # on the card, the counters set to 0 just before each and read after
+    # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
+    # elasticity main path: OracleSolver on the card, the counters set to
+    # 0 just before each and read after
     solver = OracleSolver(device="cuda")
     launches = {}
     paths = (
@@ -477,16 +647,21 @@ def main() -> int:
          ("stencil_apply_2d", "gmg_fused_cg")),
         ("5", {cid: (e, t, i, o, 30) for cid, (e, t, i, o) in HELMHOLTZ.items()},
          ("stencil_apply_2d", "gmg_fused_richardson", "gmg_fused_gmres")),
+        ("6", {cid: (e, t, "fused-block-cg-cuda", o, 25) for cid, (e, t, o) in ELASTICITY.items()},
+         ("stencil_apply_2d", "gmg_fused_block_cg")),
     )
     for phase, want, kernels in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
+        gmg_fused.LAUNCHES_BLOCK = gmg_fused.LAUNCHES_BLOCK_RICHARDSON = 0
         drive(solver, cases, want, phase)
         counts = {
             "stencil_apply_2d": stencil_kernel.LAUNCHES,
             "gmg_fused_cg": gmg_fused.LAUNCHES,
             "gmg_fused_richardson": gmg_fused.LAUNCHES_RICHARDSON,
             "gmg_fused_gmres": gmg_fused.LAUNCHES_GMRES,
+            "gmg_fused_block_cg": gmg_fused.LAUNCHES_BLOCK,
+            "gmg_fused_block_richardson": gmg_fused.LAUNCHES_BLOCK_RICHARDSON,
         }
         say(phase, f"kernel launches on this main path: {counts}")
         for name in kernels:
@@ -500,9 +675,11 @@ def main() -> int:
         # mode "richardson" of the same pallas_call
         "gmg_fused_richardson": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         "gmg_fused_gmres": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
+        "gmg_fused_block_cg": ("gmg_fused_block_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:723"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
-    # multi-tap stencil, a V-cycle chain, a PCG solve or an Arnoldi cycle
+    # multi-tap stencil, a V-cycle chain, a (block) PCG solve or an
+    # Arnoldi cycle
     kernels = [
         dict(name=name, route="cuda", source=f"pdebench_tpu_torch/csrc/{src}",
              replaces=rep, launches=launches[name], library_ms=None, **report[name])

@@ -1,4 +1,4 @@
-"""Quadrature-batched FEM assembly as dense cell-local tensors (scalar part).
+"""Quadrature-batched FEM assembly as dense cell-local tensors.
 
 Assembly stays *regular*: geometry factors (n_cells, nq, ...), local
 matrices (n_cells, nl, nl) from one einsum, and the operator apply as
@@ -11,7 +11,8 @@ the geometry and the constant-coefficient fast paths run in numpy while
 coefficients evaluated onto a device (fem/symbolic.py) keep the einsum
 on that device.
 
-Port of the scalar half of pdebench_tpu/fem/assemble.py.
+Port of the scalar forms and the elasticity forms of
+pdebench_tpu/fem/assemble.py.
 """
 
 from __future__ import annotations
@@ -242,6 +243,83 @@ def local_mass(cb: CellBatch, coef_q=None):
 def local_load(cb: CellBatch, f_q):
     """∫ f v : (n_cells, nl)."""
     return xeinsum("qi,cq->ci", cb.phi, _weights(cb, f_q))
+
+
+def _cellwise(cb: CellBatch, coef) -> Optional[np.ndarray]:
+    """coef as a per-cell (c,) host array, or None if it varies per
+    quadrature point or lives on a device."""
+    if _any_torch(coef):
+        return None
+    a = np.asarray(coef)
+    if a.ndim == 0:
+        return np.full(cb.n_cells, float(a))
+    if a.ndim == 1 and a.shape[0] == cb.n_cells:
+        return a
+    if a.ndim == 2 and a.shape == (cb.n_cells, 1):
+        return a[:, 0]
+    if a.ndim == 2 and np.all(a == a[:, :1]):
+        return a[:, 0]
+    return None
+
+
+def local_elasticity(cb: CellBatch, mu, lam):
+    """∫ 2 mu eps(u):eps(v) + lam div(u) div(v) over blocked vector dofs.
+
+    mu/lam: scalars or (n_cells, nq) fields. Returns (n_cells, nl*d, nl*d)
+    in the interleaved ordering of FunctionSpace.dofmap (node-major,
+    component-minor). Expanded index form:
+      K[(ia),(jb)] = ∫ mu (dphi_i/dx_b dphi_j/dx_a
+                          + delta_ab grad phi_i . grad phi_j)
+                     + lam dphi_i/dx_a dphi_j/dx_b
+    """
+    aff = cb.affine_host()
+    mu_c = _cellwise(cb, mu)
+    lam_c = _cellwise(cb, lam)
+    if aff is not None and mu_c is not None and lam_c is not None:
+        # separated form (see affine_host): with per-cell-constant
+        # geometry AND coefficients, every elasticity term is (per-cell
+        # d^2 x d^2 metric) @ (reference tensor): three GEMMs
+        iJ, detJ = aff
+        c = iJ.shape[0]
+        nq, nl, d = cb.dphi.shape
+        S = cb._ref_tensor(
+            "_S_stiff4",
+            lambda: np.einsum("q,qik,qjl->klij", cb.qw, cb.dphi, cb.dphi),
+        )  # (k, l, i, j)
+        S2 = S.reshape(d * d, nl * nl)
+        wm = (detJ * mu_c)[:, None, None]
+        wl = (detJ * lam_c)[:, None, None]
+        # t2 (grad.grad) term: metric C[k,l] contraction
+        C = np.matmul(iJ.transpose(0, 2, 1), iJ)  # (c, k, l)
+        t2 = (C.reshape(c, d * d) @ S2).reshape(c, nl, nl) * wm
+        # t1: E[(a,b),(k,l)] = iJ[b,k] iJ[a,l];  t3: iJ[a,k] iJ[b,l]
+        E1 = np.einsum("cbk,cal->cabkl", iJ, iJ).reshape(c * d * d, d * d)
+        E3 = np.einsum("cak,cbl->cabkl", iJ, iJ).reshape(c * d * d, d * d)
+        t1 = (E1 @ S2).reshape(c, d, d, nl, nl) * wm[..., None, None]
+        t3 = (E3 @ S2).reshape(c, d, d, nl, nl) * wl[..., None, None]
+        # K[c, (i,a), (j,b)] from t1/t3 [c, a, b, i, j], plus the
+        # delta_ab grad.grad term on the component diagonal
+        K = (t1 + t3).transpose(0, 3, 1, 4, 2)
+        for a in range(d):
+            K[:, :, a, :, a] += t2
+        return np.ascontiguousarray(K).reshape(c, nl * d, nl * d)
+    g = cb.grad_phys()  # (c, q, i, d)
+    wmu = _weights(cb, mu)
+    wlam = _weights(cb, lam)
+    d = g.shape[-1]
+    t1 = xeinsum("cqib,cqja,cq->ciajb", g, g, wmu)
+    t2 = xeinsum("cqid,cqjd,cq->cij", g, g, wmu)
+    t3 = xeinsum("cqia,cqjb,cq->ciajb", g, g, wlam)
+    K = t1 + t3 + xeinsum("cij,ab->ciajb", t2, np.eye(d))
+    c, nl = K.shape[0], K.shape[1]
+    return K.reshape(c, nl * d, nl * d)
+
+
+def local_vector_load(cb: CellBatch, f_q):
+    """∫ f . v with f_q (n_cells, nq, d) -> (n_cells, nl*d) interleaved."""
+    b = xeinsum("qi,cqa,cq->cia", cb.phi, f_q, cb.wdetJ)
+    c, nl, d = b.shape
+    return b.reshape(c, nl * d)
 
 
 # ---------------------------------------------------------------------------

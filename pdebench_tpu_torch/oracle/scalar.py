@@ -140,6 +140,32 @@ def maybe_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
     )
 
 
+def maybe_block_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
+    """Block-stencil (f32) form of a VECTOR operator on a node lattice
+    (structured meshes); None otherwise. The same dimension gate as
+    maybe_lattice32: 3-D stays off on the CPU and raises on CUDA."""
+    if ctx.mesh.dim == 3:
+        if ctx.device.type == "cuda":
+            raise NotImplementedError("3-D lattice routes are not ported to CUDA yet")
+        return None
+    from ..solvers.stencil import block_lattice_operator_from_local
+
+    A_np = (
+        A_local.detach().cpu().numpy()
+        if isinstance(A_local, torch.Tensor)
+        else np.asarray(A_local)
+    )
+    return block_lattice_operator_from_local(
+        A_np,
+        ctx.space.dofmap,
+        ctx.space.ndof,
+        ctx.space.dof_coords,
+        ctx.space.ncomp,
+        device=ctx.device,
+        dtype=torch.float32,
+    )
+
+
 def mms_baseline_error(
     config: Dict[str, Any],
     fem_grid: np.ndarray,

@@ -17,7 +17,10 @@ Maps the dataset's PETSc solver configs (oracle_solver.ksp_type / pc_type
 `solver_info["inner"]` records which inner solve ran; "-cuda" names a
 CUDA kernel, "-torch" its plain version (CPU tensors):
 
-  SPD:          "fused-cg-cuda" / "fused-cg-torch", "stencil-cg"
+  SPD:          "fused-cg-cuda" / "fused-cg-torch" (scalar hierarchies),
+                "fused-block-cg-cuda" / "fused-block-cg-torch" (d = 2 block
+                hierarchies: elasticity), "stencil-cg" (padded
+                hierarchies, or none)
   nonsymmetric: "fused-gmres-cuda" / "fused-gmres-torch" (the whole
                 Arnoldi cycle, surrogate hierarchies of >= 20,000 dofs),
                 "gmres+fused-richardson-cuda" / "-torch" (other surrogate
@@ -40,7 +43,7 @@ import torch
 
 from ..fem.assemble import LocalOperator, constrained_operator, constrained_rhs
 from . import direct as directmod
-from .gmg import LatticeGMG, attach_lattice_gmg
+from .gmg import BlockLatticeGMG, LatticeGMG, attach_lattice_gmg
 from .krylov import jacobi_preconditioner, refined_solve
 from .stencil import constrain_step_weights
 
@@ -67,6 +70,18 @@ def fused_gate(lattice32) -> bool:
     return (
         isinstance(gmg, LatticeGMG)
         and not gmg.padded
+        and len(lattice32.shape) == 2
+    )
+
+
+def fused_block_gate(lattice32) -> bool:
+    """The block kernel's scope: a 2-D BlockLatticeGMG of two components
+    whose hierarchy halves at every level."""
+    gmg = getattr(lattice32, "gmg", None)
+    return (
+        isinstance(gmg, BlockLatticeGMG)
+        and not gmg.padded
+        and gmg.d == 2
         and len(lattice32.shape) == 2
     )
 
@@ -132,6 +147,14 @@ def solve_constrained_ir(
             lambda: build_fused_inner_cg(gmg, inner_iters, dev),
         )
         inner_name = f"fused-cg-{kind}"
+    elif inner == "cg" and fused_block_gate(lattice32):
+        from .gmg_fused import build_fused_block_inner_cg
+
+        inner_custom = _fused(
+            gmg, ("block-cg", inner_iters),
+            lambda: build_fused_block_inner_cg(gmg, inner_iters, dev),
+        )
+        inner_name = f"fused-block-cg-{kind}"
     elif (
         inner == "gmres"
         and gmg.surrogate

@@ -15,6 +15,10 @@ tensors; each holds the math of the Pallas kernel it replaces
   build_fused_inner_gmres  one m-step left-preconditioned Arnoldi cycle
                            with a per-call operator stencil
                            (csrc/gmg_fused_gmres.cu)
+  build_fused_block_inner_cg
+                           the block (d = 2, elasticity) GMG-PCG inner
+                           solve, and its Richardson mode
+                           (csrc/gmg_fused_block_cg.cu)
 
 Shared math: stencil taps read zero outside each level; restriction /
 prolongation are the truncated [1/4, 1/2, 1/4] band and its bilinear
@@ -23,9 +27,14 @@ the kernels); the coarsest solve is an extra level probed one below the
 GMG's last, smoothed by COARSE_SWEEPS damped-Jacobi sweeps (a slightly
 weaker coarse solve than LatticeGMG.precond's dense inverse).
 
+Block hierarchies apply 2 x 2 tap blocks over two component planes,
+smooth with the 2 x 2 point-block inverse diagonal, transfer each
+component with the scalar bands and sweep the probed level with damped
+block-Jacobi.
+
 The numpy hierarchy builders are copied from the reference, without its
-(8, 128) TPU tile padding. Scope: scalar 2-D lattices whose hierarchy
-halves at every level (not `padded`), float32.
+(8, 128) TPU tile padding. Scope: 2-D lattices whose hierarchy halves at
+every level (not `padded`), scalar or d = 2 blocks, float32.
 """
 
 from __future__ import annotations
@@ -52,12 +61,14 @@ _MODES = {"cg": 0, "richardson": 1}  # kModeCG, kModeRichardson
 
 # kernel launches in this process, one count per kernel (the plain
 # versions are not counted): gmg_fused_cg in mode cg, in mode richardson,
-# and gmg_fused_gmres
+# gmg_fused_gmres, and gmg_fused_block_cg in its two modes
 LAUNCHES = 0
 LAUNCHES_RICHARDSON = 0
 LAUNCHES_GMRES = 0
+LAUNCHES_BLOCK = 0
+LAUNCHES_BLOCK_RICHARDSON = 0
 
-# limits of csrc/gmg_fused_cg.cu (kMaxLevels, kMaxTaps)
+# limits of csrc/gmg_vcycle.cuh (kMaxLevels, kMaxTaps)
 _MAX_LEVELS = 8
 _MAX_TAPS = 64
 
@@ -148,14 +159,14 @@ def _scalar_hierarchy(gmg):
     """Scalar 2-D hierarchy for the fused inner solve: the GMG's levels,
     an extra probed coarsest level (smoothed on its stencil instead of a
     dense inverse), and the per-level-pair transfer bands.
-    Returns (lv, Bry, Brx, Bpy, Bpx, static_bytes), or None for padded
-    or non-2-D hierarchies."""
+    Returns (lv, Bry, Brx, Bpy, Bpx, static_bytes), or None for padded,
+    non-2-D or block hierarchies."""
     levels = getattr(gmg, "levels", None)
     if getattr(gmg, "padded", False):
         # identity-padded restriction shapes (even mid-hierarchy axes)
         # break the pure-halving transfer layout assumed here
         return None
-    if not levels or len(levels[0].shape) != 2:
+    if not levels or len(levels[0].shape) != 2 or getattr(gmg, "d", 1) != 1:
         return None
     lv = [
         _Level(
@@ -167,37 +178,109 @@ def _scalar_hierarchy(gmg):
     extra = _probe_extra_coarse(levels)
     if extra is not None:
         lv.append(_Level(*extra))
+    bands = _bands(lv)
+    return (lv,) + bands + (_static_bytes(lv, bands),)
 
+
+def _bands(lv):
+    """The transfer bands (Bry, Brx, Bpy, Bpx) of each level pair."""
     Bry, Brx, Bpy, Bpx = [], [], [], []
     for f in lv[:-1]:
         Bry.append(_restrict_band(f.ny).astype(np.float32))
         Brx.append(_restrict_band(f.nx).astype(np.float32))
         Bpy.append(_prolong_band(f.ny).astype(np.float32))
         Bpx.append(_prolong_band(f.nx).astype(np.float32))
-    static = sum(l.W.nbytes + l.dinv.nbytes for l in lv) + sum(
-        b.nbytes for bl in (Bry, Brx, Bpy, Bpx) for b in bl
+    return Bry, Brx, Bpy, Bpx
+
+
+def _static_bytes(lv, bands) -> int:
+    return sum(l.W.nbytes + l.dinv.nbytes for l in lv) + sum(
+        b.nbytes for bl in bands for b in bl
     )
-    return lv, Bry, Brx, Bpy, Bpx, static
+
+
+class _BlockLevel:
+    """A 2-D block level as the fused inner solve takes it: float32
+    weight planes (K, d, d, ny, nx), W[k, a, b] the (a <- b) plane, and
+    omega * the point-block inverse diagonal (d, d, ny, nx), unpadded."""
+
+    def __init__(self, W, offsets, pad, shape, diag_inv, omega):
+        ny, nx = shape
+        self.ny, self.nx = ny, nx
+        self.pad = pad
+        self.offsets = offsets
+        Wn = np.asarray(W, np.float32)  # (K, ny, nx, d, d)
+        self.W = np.ascontiguousarray(np.moveaxis(Wn, (3, 4), (1, 2)))
+        Dn = omega * np.asarray(diag_inv, np.float32)  # (ny, nx, d, d)
+        self.dinv = np.ascontiguousarray(np.moveaxis(Dn, (2, 3), (0, 1)))
+
+
+def _probe_extra_coarse_block(last, d):
+    """Re-probe one block level below the GMG's last, numpy-only: the
+    block stencil, its point-block inverse diagonal and the damping from
+    8 power steps (gmg._block_level_np). Returns (W, offsets, pad, shape,
+    diag_inv, omega) or None when the last level isn't halvable."""
+    from .gmg import _block_level_np, _coarsen_block_stencil
+
+    if not all((s - 1) % 2 == 0 and s >= 5 for s in last.shape):
+        return None
+    Wc, offs_c, shape_c = _coarsen_block_stencil(
+        _host(last.W).astype(np.float64),
+        [tuple(int(v) for v in o) for o in last.offsets],
+        last.shape,
+        d,
+    )
+    Dinv_c, omega = _block_level_np(Wc, offs_c, shape_c, d)
+    pad_c = int(max(abs(o) for off in offs_c for o in off))
+    return Wc, [tuple(int(v) for v in o) for o in offs_c], pad_c, shape_c, Dinv_c, omega
+
+
+def _block_hierarchy(gmg):
+    """Block 2-D hierarchy for the fused inner solve: the block GMG's
+    levels, an extra probed coarsest level (block-Jacobi swept instead of
+    a dense inverse), and the per-level-pair transfer bands. Returns (lv,
+    Bry, Brx, Bpy, Bpx), or None for padded, non-2-D or d != 2
+    hierarchies."""
+    levels = getattr(gmg, "levels", None)
+    d = getattr(gmg, "d", 0)
+    if getattr(gmg, "padded", False):
+        return None
+    if not levels or len(levels[0].shape) != 2 or d != 2:
+        return None
+    lv = [
+        _BlockLevel(
+            _host(l.W), [tuple(int(v) for v in o) for o in l.offsets], l.pad,
+            l.shape, _host(l.diag_inv), l.omega,
+        )
+        for l in levels
+    ]
+    extra = _probe_extra_coarse_block(levels[-1], d)
+    if extra is not None:
+        lv.append(_BlockLevel(*extra))
+    return (lv,) + _bands(lv)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib_cg() -> ctypes.CDLL:
-    lib = _build.load("gmg_fused_cg")
+def _lib_cg(name: str = "gmg_fused_cg") -> ctypes.CDLL:
+    """The library of a CG-and-Richardson kernel: gmg_fused_cg (scalar)
+    or gmg_fused_block_cg (d = 2 blocks), one C interface."""
+    lib = _build.load(name)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.gmg_fused_cg_desc_bytes.argtypes = []
-    lib.gmg_fused_cg_desc_bytes.restype = i
-    lib.gmg_fused_cg_grid.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    lib.gmg_fused_cg_grid.restype = i
+    fn = lambda suffix: getattr(lib, f"{name}_{suffix}")
+    fn("desc_bytes").argtypes = []
+    fn("desc_bytes").restype = i
+    fn("grid").argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    fn("grid").restype = i
     # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 3 per level),
     # offsets (int32 x 2 per tap), p, Ap, partial
-    lib.gmg_fused_cg_pack.argtypes = [
+    fn("pack").argtypes = [
         vp, i, vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong,
     ]
-    lib.gmg_fused_cg_pack.restype = i
+    fn("pack").restype = i
     # desc, r, z, iters, mode, blocks, stream
-    lib.gmg_fused_cg_launch.argtypes = [vp, vp, vp, i, i, i, vp]
-    lib.gmg_fused_cg_launch.restype = i
+    fn("launch").argtypes = [vp, vp, vp, i, i, i, vp]
+    fn("launch").restype = i
     return lib
 
 
@@ -227,10 +310,17 @@ class _FusedHierarchy:
     """The hierarchy of a fused kernel on `device`, with the plain
     PyTorch V-cycle and V-cycle chain that the kernels' plain versions
     share. Calls on one object must not overlap on different streams:
-    a kernel's work vectors are allocated once, with the hierarchy."""
+    a kernel's work vectors are allocated once, with the hierarchy.
 
-    def __init__(self, lv: List[_Level], bands, device):
+    The plain versions hold a level vector as component planes: (ny, nx)
+    for scalar hierarchies, (ncomp, ny, nx) for block ones; `_to_planes`
+    and `_from_planes` convert from and to the flat lattice vector."""
+
+    ncomp = 1  # components per lattice site
+
+    def __init__(self, lv, bands, device):
         self.shape = (lv[0].ny, lv[0].nx)
+        self.dims = [(l.ny, l.nx) for l in lv]
 
         def t(a):
             return torch.as_tensor(a, device=device)
@@ -246,24 +336,33 @@ class _FusedHierarchy:
 
     # -- plain PyTorch version ------------------------------------------
 
+    def _to_planes(self, r_flat: torch.Tensor) -> torch.Tensor:
+        return r_flat.reshape(self.shape)
+
+    def _from_planes(self, z: torch.Tensor) -> torch.Tensor:
+        return z.reshape(-1)
+
     def _apply(self, l: int, u: torch.Tensor) -> torch.Tensor:
         p = self.pads[l]
         return stencil_apply_2d_torch(
             F.pad(u, (p, p, p, p)), self.W[l], self.offsets[l], p
         )
 
+    def _diag(self, l: int, r: torch.Tensor) -> torch.Tensor:
+        """omega D^-1 r, the smoother's step."""
+        return self.D[l] * r
+
     def _vcycle(self, l: int, r: torch.Tensor) -> torch.Tensor:
-        D = self.D[l]
-        x = D * r
+        x = self._diag(l, r)
         if l == len(self.W) - 1:
             for _ in range(COARSE_SWEEPS - 1):
-                x = x + D * (r - self._apply(l, x))
+                x = x + self._diag(l, r - self._apply(l, x))
             return x
         By, Bx, Py, Px = (b[l] for b in self.bands)
         res = r - self._apply(l, x)
         xc = self._vcycle(l + 1, By @ (res @ Bx.T))
         x = x + Py @ (xc @ Px.T)
-        return x + D * (r - self._apply(l, x))
+        return x + self._diag(l, r - self._apply(l, x))
 
     def _chain(self, v: torch.Tensor, cycles: int) -> torch.Tensor:
         """z = V(v), then cycles - 1 times z += V(v - A0 z): linear in v."""
@@ -275,11 +374,12 @@ class _FusedHierarchy:
     # -- CUDA side ------------------------------------------------------
 
     def _level_arrays(self):
-        """Work vectors (3, n_l) per level and the flat level arrays that
-        pack_levels (csrc/gmg_vcycle.cuh) takes: pointers, dims, taps."""
+        """Work vectors (3, ncomp * n_l) per level and the flat level
+        arrays that pack_levels (csrc/gmg_vcycle.cuh) takes: pointers,
+        dims, taps."""
         work = [
-            torch.zeros((3, W.shape[1] * W.shape[2]), dtype=torch.float32, device=self.device)
-            for W in self.W
+            torch.zeros((3, self.ncomp * ny * nx), dtype=torch.float32, device=self.device)
+            for ny, nx in self.dims
         ]
         ptrs = np.array(
             [
@@ -288,7 +388,9 @@ class _FusedHierarchy:
             ],
             dtype=np.int64,
         )
-        dims = np.array([[W.shape[1], W.shape[2], W.shape[0]] for W in self.W], dtype=np.int32)
+        dims = np.array(
+            [[ny, nx, len(o)] for (ny, nx), o in zip(self.dims, self.offsets)], dtype=np.int32
+        )
         offs = np.array([o for lvl in self.offsets for o in lvl], dtype=np.int32).reshape(-1)
         return work, ptrs, dims, offs
 
@@ -301,10 +403,10 @@ class _FusedHierarchy:
     def _check(self, r_flat: torch.Tensor) -> None:
         if r_flat.device != self.device:
             raise ValueError(f"r on {r_flat.device}, hierarchy on {self.device}")
-        if r_flat.dtype != torch.float32 or r_flat.numel() != self.shape[0] * self.shape[1]:
+        n = self.ncomp * self.shape[0] * self.shape[1]
+        if r_flat.dtype != torch.float32 or r_flat.numel() != n:
             raise ValueError(
-                f"expected {self.shape[0] * self.shape[1]} float32 values, got "
-                f"{r_flat.numel()} {r_flat.dtype}"
+                f"expected {n} float32 values, got {r_flat.numel()} {r_flat.dtype}"
             )
 
     def _check_cuda(self) -> None:
@@ -322,7 +424,9 @@ class FusedInnerCG(_FusedHierarchy):
     runs `plain` (PyTorch); a CUDA tensor runs `launch` (the kernel).
     """
 
-    def __init__(self, lv: List[_Level], bands, inner_iters: int, device, mode: str = "cg"):
+    _kernel = "gmg_fused_cg"
+
+    def __init__(self, lv, bands, inner_iters: int, device, mode: str = "cg"):
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "richardson" and inner_iters < 1:
@@ -334,9 +438,9 @@ class FusedInnerCG(_FusedHierarchy):
     def plain(self, r_flat: torch.Tensor) -> torch.Tensor:
         """The inner solve in PyTorch ops, on the hierarchy's device."""
         self._check(r_flat)
-        r0 = r_flat.reshape(self.shape)
+        r0 = self._to_planes(r_flat)
         if self.mode == "richardson":
-            return self._chain(r0, self.inner_iters).reshape(-1)
+            return self._from_planes(self._chain(r0, self.inner_iters))
         p = self._vcycle(0, r0)
         rz = torch.sum(r0 * p)
         z = torch.zeros_like(r0)
@@ -352,24 +456,28 @@ class FusedInnerCG(_FusedHierarchy):
             beta = rz_new / torch.where(torch.abs(rz) > 0, rz, 1.0)
             p = s + beta * p
             rz = rz_new
-        return z.reshape(-1)
+        return self._from_planes(z)
+
+    def _entry(self, lib, suffix: str):
+        return getattr(lib, f"{self._kernel}_{suffix}")
 
     def _setup_cuda(self):
-        lib = _lib_cg()
+        lib = _lib_cg(self._kernel)
         work, ptrs, dims, offs = self._level_arrays()
-        p = torch.zeros(self.shape[0] * self.shape[1], dtype=torch.float32, device=self.device)
+        n0 = self.ncomp * self.shape[0] * self.shape[1]
+        p = torch.zeros(n0, dtype=torch.float32, device=self.device)
         Ap = torch.zeros_like(p)
-        blocks = self._grid(lib, lib.gmg_fused_cg_grid)
+        blocks = self._grid(lib, self._entry(lib, "grid"))
         partial = torch.zeros(2 * blocks, dtype=torch.float64, device=self.device)
-        desc = np.zeros(lib.gmg_fused_cg_desc_bytes(), dtype=np.uint8)
-        code = lib.gmg_fused_cg_pack(
+        desc = np.zeros(self._entry(lib, "desc_bytes")(), dtype=np.uint8)
+        code = self._entry(lib, "pack")(
             desc.ctypes.data_as(ctypes.c_void_p), len(self.W),
             ptrs.ctypes.data_as(ctypes.c_void_p),
             dims.ctypes.data_as(ctypes.c_void_p),
             offs.ctypes.data_as(ctypes.c_void_p),
             p.data_ptr(), Ap.data_ptr(), partial.data_ptr(),
         )
-        _build.check(lib, code, "gmg_fused_cg_pack")
+        _build.check(lib, code, f"{self._kernel}_pack")
         # the buffers live as long as this object: the descriptor holds
         # their addresses
         self._cuda = dict(
@@ -377,26 +485,30 @@ class FusedInnerCG(_FusedHierarchy):
             blocks=blocks, desc=torch.from_numpy(desc).to(self.device),
         )
 
+    def _count(self) -> None:
+        global LAUNCHES, LAUNCHES_RICHARDSON
+        if self.mode == "richardson":
+            LAUNCHES_RICHARDSON += 1
+        else:
+            LAUNCHES += 1
+
     def launch(self, r_flat: torch.Tensor) -> torch.Tensor:
         """The inner solve as one cooperative kernel launch."""
-        global LAUNCHES, LAUNCHES_RICHARDSON
         self._check(r_flat)
         self._check_cuda()
         if self._cuda is None:
             self._setup_cuda()
         c = self._cuda
-        r = r_flat.contiguous()
+        # the kernel's layout: component planes, contiguous
+        r = self._to_planes(r_flat).contiguous()
         z = torch.empty_like(r)
-        code = c["lib"].gmg_fused_cg_launch(
+        code = self._entry(c["lib"], "launch")(
             _vp(c["desc"]), _vp(r), _vp(z), self.inner_iters, _MODES[self.mode],
             c["blocks"], _build.current_stream(self.device),
         )
-        _build.check(c["lib"], code, "gmg_fused_cg_launch")
-        if self.mode == "richardson":
-            LAUNCHES_RICHARDSON += 1
-        else:
-            LAUNCHES += 1
-        return z
+        _build.check(c["lib"], code, f"{self._kernel}_launch")
+        self._count()
+        return self._from_planes(z)
 
     def __call__(self, r_flat: torch.Tensor) -> torch.Tensor:
         if r_flat.device.type == "cpu":
@@ -404,6 +516,52 @@ class FusedInnerCG(_FusedHierarchy):
         if r_flat.device.type == "cuda":
             return self.launch(r_flat)
         raise ValueError(f"unsupported device {r_flat.device}")
+
+
+class FusedBlockInnerCG(FusedInnerCG):
+    """The block (d = 2) inner solve: fn(r_lat_flat_f32) ->
+    z_lat_flat_f32 on the block lattice's flat layout (site-major,
+    component-minor: stencil.BlockLatticeOperator's embedding), one
+    launch of csrc/gmg_fused_block_cg.cu per call. Modes as
+    FusedInnerCG's. The kernel takes two planar component planes (2, ny,
+    nx): the wrapper converts the vector once per call."""
+
+    ncomp = 2
+    _kernel = "gmg_fused_block_cg"
+
+    def _to_planes(self, r_flat: torch.Tensor) -> torch.Tensor:
+        return r_flat.reshape(self.shape + (2,)).permute(2, 0, 1)
+
+    def _from_planes(self, z: torch.Tensor) -> torch.Tensor:
+        return z.permute(1, 2, 0).reshape(-1)
+
+    def _apply(self, l: int, u: torch.Tensor) -> torch.Tensor:
+        """Block taps on component planes: out_a = sum_k sum_b W[k, a, b]
+        shift(u_b), zero outside the level, summed as the Pallas kernel."""
+        p = self.pads[l]
+        W = self.W[l]
+        ny, nx = u.shape[-2:]
+        up = F.pad(u, (p, p, p, p))
+        o0 = o1 = None
+        for k, (dy, dx) in enumerate(self.offsets[l]):
+            t0 = up[0, p + dy : p + dy + ny, p + dx : p + dx + nx]
+            t1 = up[1, p + dy : p + dy + ny, p + dx : p + dx + nx]
+            c0 = W[k, 0, 0] * t0 + W[k, 0, 1] * t1
+            c1 = W[k, 1, 0] * t0 + W[k, 1, 1] * t1
+            o0 = c0 if o0 is None else o0 + c0
+            o1 = c1 if o1 is None else o1 + c1
+        return torch.stack([o0, o1])
+
+    def _diag(self, l: int, r: torch.Tensor) -> torch.Tensor:
+        D = self.D[l]  # (2, 2, ny, nx), omega folded in
+        return torch.stack([D[0, 0] * r[0] + D[0, 1] * r[1], D[1, 0] * r[0] + D[1, 1] * r[1]])
+
+    def _count(self) -> None:
+        global LAUNCHES_BLOCK, LAUNCHES_BLOCK_RICHARDSON
+        if self.mode == "richardson":
+            LAUNCHES_BLOCK_RICHARDSON += 1
+        else:
+            LAUNCHES_BLOCK += 1
 
 
 class FusedInnerGMRES(_FusedHierarchy):
@@ -532,13 +690,14 @@ class FusedInnerGMRES(_FusedHierarchy):
         return self._correction(*self.plain_raw(r_flat, W_op))
 
 
-def _in_scope(gmg):
+def _in_scope(gmg, hierarchy=_scalar_hierarchy):
     """The hierarchy the fused kernels take, or None out of scope
-    (padded or non-2-D hierarchies); raises beyond the kernels' limits."""
-    built = _scalar_hierarchy(gmg)
+    (padded or non-2-D hierarchies, or the other kind of hierarchy);
+    raises beyond the kernels' limits."""
+    built = hierarchy(gmg)
     if built is None:
         return None
-    lv, Bry, Brx, Bpy, Bpx, _ = built
+    lv, Bry, Brx, Bpy, Bpx = built[:5]  # the scalar one adds static_bytes
     if not 2 <= len(lv) <= _MAX_LEVELS or any(l.W.shape[0] > _MAX_TAPS for l in lv):
         raise ValueError(
             f"hierarchy beyond the kernel's limits: {len(lv)} levels "
@@ -562,6 +721,18 @@ def build_fused_richardson(gmg, n_cycles: int, device) -> Optional[FusedInnerCG]
     V(r - A0 z_k). Linear in r, so it preconditions the non-flexible
     GMRES inner; None out of scope."""
     return build_fused_inner_cg(gmg, n_cycles, device, mode="richardson")
+
+
+def build_fused_block_inner_cg(
+    gmg, inner_iters: int, device, mode: str = "cg"
+) -> Optional[FusedBlockInnerCG]:
+    """The fused block (d = 2) inner solve for a BlockLatticeGMG on
+    `device`, mode "cg" or "richardson" as build_fused_inner_cg; None out
+    of scope (padded, non-2-D or d != 2 hierarchies)."""
+    built = _in_scope(gmg, _block_hierarchy)
+    if built is None:
+        return None
+    return FusedBlockInnerCG(*built, inner_iters, device, mode=mode)
 
 
 def build_fused_inner_gmres(gmg, m: int, device, op_offsets) -> Optional[FusedInnerGMRES]:

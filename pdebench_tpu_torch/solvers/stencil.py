@@ -1,4 +1,4 @@
-"""Lattice stencil operators: gather-free SpMV for structured meshes (scalar).
+"""Lattice stencil operators: gather-free SpMV for structured meshes.
 
 On the structured unit_square / unit_cube meshes the scalar P1/P2/P3 dof
 set IS a regular lattice — the (p*n+1)^d tensor grid — so the assembled
@@ -10,10 +10,13 @@ with a fixed, small offset set o. The apply becomes |o| shifted
 multiply-adds over dense planes: no gathers, no scatters. This module
 builds the weight planes from an assembled CSR matrix whose dof
 coordinates form a lattice and applies them on lattice-shaped tensors.
-The 2-D apply goes through `stencil_kernel.stencil_apply_2d`: the CUDA
-kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
+Vector systems (elasticity) are BLOCK stencils: a d x d block of weight
+planes per offset, applied as d * d scalar stencils over component
+planes. The 2-D apply goes through `stencil_kernel.stencil_apply_2d`: the
+CUDA kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
 
-Port of the scalar half of pdebench_tpu/solvers/stencil.py.
+Port of the constant-operator half of pdebench_tpu/solvers/stencil.py
+(LatticeOperator, BlockLatticeOperator and their builders).
 """
 
 from __future__ import annotations
@@ -136,6 +139,22 @@ def apply_stencil(
     return stencil_kernel.stencil_apply_2d(up, W, offsets, pad)
 
 
+def _site_offsets(lr: np.ndarray, lc: np.ndarray, shape):
+    """The unique offsets (column site - row site, in lattice
+    coordinates) of the entries at flat sites lr -> lc, and each entry's
+    index into them."""
+
+    def unflatten(f):
+        out = []
+        rem = f
+        for s in reversed(shape):  # x first
+            out.append(rem % s)
+            rem = rem // s
+        return np.stack(list(reversed(out)), axis=1)  # (…, y, x)
+
+    return _unique_offsets(unflatten(lc) - unflatten(lr))
+
+
 class LatticeOperator:
     """Stencil form of a lattice-structured sparse matrix."""
 
@@ -152,17 +171,7 @@ class LatticeOperator:
         lr = lattice.inv[coo.row]
         lc = lattice.inv[coo.col]
 
-        # offsets per entry in lattice coordinates
-        def unflatten(f):
-            out = []
-            rem = f
-            for s in reversed(shape):  # x first
-                out.append(rem % s)
-                rem = rem // s
-            return np.stack(list(reversed(out)), axis=1)  # (…, y, x)
-
-        d = unflatten(lc) - unflatten(lr)  # (nnz, dim)
-        offs, o_idx = _unique_offsets(d)
+        offs, o_idx = _site_offsets(lr, lc, shape)
         # bincount accumulation (np.add.at is ~100x slower at 10^7 nnz)
         n_lat = int(np.prod(shape))
         W = np.bincount(
@@ -219,13 +228,140 @@ class LatticeOperator:
         return y[self.inv_j].to(u_flat.dtype)
 
 
+def block_planes(W: torch.Tensor):
+    """The (a, b) weight planes of a block stencil W (K, ny, nx, d, d) as
+    contiguous (K, ny, nx) tensors, planes[a][b] the (a <- b) coupling."""
+    d = W.shape[-1]
+    return [[W[..., a, b].contiguous() for b in range(d)] for a in range(d)]
+
+
+def apply_block_stencil(planes, offsets, pad: int, u: torch.Tensor) -> torch.Tensor:
+    """out[..., a] = sum_b stencil(planes[a][b], u[..., b]) on a (ny, nx, d)
+    array, zero outside the lattice: d * d scalar applies through the
+    stencil kernel's wrapper."""
+    d = len(planes)
+    comps = [u[..., b] for b in range(d)]
+    outs = []
+    for a in range(d):
+        acc = None
+        for b in range(d):
+            y = apply_stencil(planes[a][b], offsets, pad, comps[b])
+            acc = y if acc is None else acc + y
+        outs.append(acc)
+    return torch.stack(outs, dim=-1)
+
+
+class BlockLatticeOperator:
+    """Stencil form of a blocked-interleaved VECTOR lattice matrix.
+
+    Dof (node, component a) sits at node*ncomp + a. The operator is a
+    block stencil W[K, ..., a, b]: out[..., a] = sum_k sum_b
+    W[k, ..., a, b] * shift(u[..., b], off_k), the vector analog of
+    LatticeOperator (elasticity on structured meshes). Lattice vectors
+    are site-major, component-minor: grid_shape = shape + (ncomp,).
+    """
+
+    def __init__(
+        self,
+        A: sps.spmatrix,
+        lattice: Lattice,
+        ncomp: int,
+        device,
+        dtype=torch.float64,
+    ):
+        shape = lattice.shape
+        d = int(ncomp)
+        coo = A.tocoo()
+        node_r, comp_r = coo.row // d, coo.row % d
+        node_c, comp_c = coo.col // d, coo.col % d
+        lr = lattice.inv[node_r]
+        lc = lattice.inv[node_c]
+        offs, o_idx = _site_offsets(lr, lc, shape)
+        # bincount accumulation (np.add.at is ~100x slower at 10^7 nnz)
+        n_lat = int(np.prod(shape))
+        flat = ((o_idx * n_lat + lr) * d + comp_r) * d + comp_c
+        W = np.bincount(
+            flat, weights=coo.data, minlength=len(offs) * n_lat * d * d
+        ).reshape((len(offs),) + shape + (d, d))
+        self._init(
+            W, [tuple(int(v) for v in o) for o in offs], lattice, d, device, dtype
+        )
+
+    @classmethod
+    def from_numpy(
+        cls, W: np.ndarray, offsets, lattice: Lattice, ncomp: int, device,
+        dtype=torch.float64,
+    ) -> "BlockLatticeOperator":
+        """Operator from given float64 block weights (K,)+shape+(d, d),
+        e.g. the reference package's, so both packages run on the same
+        stencil."""
+        op = cls.__new__(cls)
+        op._init(
+            np.asarray(W, dtype=np.float64),
+            [tuple(int(v) for v in o) for o in offsets],
+            lattice, int(ncomp), device, dtype,
+        )
+        return op
+
+    def _init(self, W: np.ndarray, offsets, lattice: Lattice, d: int, device, dtype):
+        shape = lattice.shape
+        self.lattice = lattice
+        self.ncomp = d
+        self.offsets = offsets
+        self.pad = int(max(abs(o) for off in offsets for o in off)) if offsets else 0
+        self.W = torch.tensor(W, device=device).to(dtype)
+        self.device = self.W.device
+        # exact f64 weights for the refinement outer (see LatticeOperator)
+        self.W_f64 = torch.tensor(W, dtype=torch.float64, device=self.device)
+        self.dtype = dtype
+        self.shape = shape
+        # dof <-> (lattice-major, component-minor) injection: flat
+        # lattice-dof index = lattice_pos * d + comp; absent sites of
+        # masked lattices get the n sentinel (embedded as the fill)
+        n = lattice.n_dof * d
+        lat_flat = lattice.inv[np.arange(n) // d] * d + np.arange(n) % d
+        perm = np.full(int(np.prod(shape)) * d, n, dtype=np.int64)
+        perm[lat_flat] = np.arange(n)
+        self.block_lattice = Lattice(
+            shape=shape + (d,), perm=perm, inv=lat_flat, n_dof=n,
+            masked=lattice.masked,
+        )
+        self.inv_j = torch.as_tensor(lat_flat, device=self.device)
+        self.grid_shape = shape + (d,)
+        self.gmg = None
+        # the (a, b) planes of both weight sets, made contiguous once
+        self.planes = block_planes(self.W)
+        self.planes_f64 = block_planes(self.W_f64)
+
+    @property
+    def embedding(self) -> Lattice:
+        """The (node, comp) dof <-> flat-grid-vector injection."""
+        return self.block_lattice
+
+    def apply_grid(self, u: torch.Tensor) -> torch.Tensor:
+        """u: (..., d) lattice-shaped; returns the same shape."""
+        return self.apply_grid_w(self.W, u)
+
+    def apply_grid_w(self, W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Block stencil apply with the operator's own weights, W being
+        self.W or self.W_f64."""
+        assert W is self.W or W is self.W_f64
+        planes = self.planes_f64 if W is self.W_f64 else self.planes
+        return apply_block_stencil(planes, self.offsets, self.pad, u)
+
+    def __call__(self, u_flat: torch.Tensor) -> torch.Tensor:
+        u_lat = self.block_lattice.embed(u_flat.to(self.W.dtype), 0).reshape(self.grid_shape)
+        y = self.apply_grid(u_lat).reshape(-1)
+        return y[self.inv_j].to(u_flat.dtype)
+
+
 def constrain_stencil_weights(
-    W: np.ndarray, offsets, mask_lat: np.ndarray
+    W: np.ndarray, offsets, mask_lat: np.ndarray, d: int = 1
 ) -> np.ndarray:
-    """Dirichlet-constrain scalar stencil weights directly (no CSR round
-    trip): zero rows at masked points, zero taps whose source is masked,
-    unit diagonal at masked points. W: (K, *shape); mask_lat: node mask
-    in lattice shape."""
+    """Dirichlet-constrain stencil weights directly (no CSR round trip):
+    zero rows at masked points, zero taps whose source is masked, unit
+    diagonal (block) at masked points. W: (K, *shape) scalar or (K,
+    *shape, d, d) block; mask_lat: node mask in lattice shape."""
     W = np.array(W, dtype=np.float64, copy=True)
     shape = mask_lat.shape
     pad = int(max(abs(o) for off in offsets for o in off)) if offsets else 0
@@ -239,7 +375,7 @@ def constrain_stencil_weights(
         W[k][mask_lat] = 0.0
         W[k][mp[sl]] = 0.0
     if diag_k is not None:
-        W[diag_k][mask_lat] = 1.0
+        W[diag_k][mask_lat] = 1.0 if d == 1 else np.eye(d)
     return W
 
 
@@ -288,5 +424,32 @@ def lattice_operator_from_local(
     # periodic identifications create wrap-around offsets (pad ~ n); the
     # stencil/GMG machinery assumes compact stencils
     if op.pad > 8:
+        return None
+    return op
+
+
+def block_lattice_operator_from_local(
+    A_local: np.ndarray,
+    dofmap: np.ndarray,
+    ndof: int,
+    scalar_dof_coords: np.ndarray,
+    ncomp: int,
+    device,
+    dtype=torch.float64,
+) -> Optional[BlockLatticeOperator]:
+    """BlockLatticeOperator from blocked host cell-local matrices, or None
+    if the nodes don't form a lattice."""
+    lat = detect_lattice(scalar_dof_coords)
+    if lat is None:
+        return None
+    nl = A_local.shape[1]
+    dm = np.asarray(dofmap, dtype=np.int64)
+    rows = np.repeat(dm, nl, axis=1).reshape(-1)
+    cols = np.tile(dm, (1, nl)).reshape(-1)
+    A = sps.coo_matrix(
+        (np.asarray(A_local).reshape(-1), (rows, cols)), shape=(ndof, ndof)
+    ).tocsr()
+    op = BlockLatticeOperator(A, lat, ncomp, device, dtype=dtype)
+    if op.pad > 8:  # wrap-around offsets (periodic meshes)
         return None
     return op

@@ -2,8 +2,8 @@
 
     python3 scripts/torch_profile_solve.py [case_id ...]
 
-For each dataset case (default: helmholtz_basic_k5 and
-helmholtz_k12_exponential_mode): one OracleSolver(device="cuda") solve to
+For each dataset case (default: the six cases of chip_smoke.py's main
+paths, Poisson, Helmholtz and elasticity): one OracleSolver(device="cuda") solve to
 build the kernels and warm every cache, then a second solve whose warm
 linear solve (the oracle's second `solve_linear` call, the one
 `t_warm` times) runs under torch.profiler. Prints per case the wall time of
@@ -28,7 +28,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEFAULT = ("helmholtz_basic_k5", "helmholtz_k12_exponential_mode")
+DEFAULT = (
+    "poisson_basic", "poisson_p3_variable_kappa_mild",
+    "helmholtz_basic_k5", "helmholtz_k12_exponential_mode",
+    "linear_elasticity_nu010", "linear_elasticity_nu030",
+)
 
 
 def busy_seconds(prof) -> float:

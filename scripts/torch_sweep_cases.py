@@ -2,16 +2,21 @@
 `baseline_error` against the recorded one.
 
     python3 scripts/torch_sweep_cases.py --pde helmholtz --domain unit_square
+    python3 scripts/torch_sweep_cases.py --case poisson_basic --case ...
 
-For every case of `data/benchmark_v2.jsonl` whose pde type and domain match:
-one `OracleSolver(device="cuda")` solve with the setup caches cleared, its
-`baseline_error` against the last successful record of the case in
-`results/oracle_sweep_progress.jsonl`, the inner route, the inner
-iterations (outer rounds times the route's steps per round), the warm
-solve and `baseline_time`. One line per case, then a summary: the
+For every case of `data/benchmark_v2.jsonl` whose pde type and domain match
+(or every case named with --case): one `OracleSolver(device="cuda")` solve
+with the setup caches cleared, its `baseline_error` against the last
+successful record of the case in `results/oracle_sweep_progress.jsonl`,
+the inner route, the inner iterations (outer rounds times the route's
+steps per round), the routes of all its linear solves (the reference
+re-solve's included, with `rerouted` for a direct request sent through the
+lattice IR and `failed` for an IR that did not converge), the warm solve
+and `baseline_time`. One line per case, then a summary: the
 worst relative difference, the cases per inner route and their median warm
-solve. A case that raises is reported and counted, and the script exits
-non-zero if any did or any error is off by more than --tol. First line:
+solve. A case that raises, whose error is off by more than --tol, or any
+of whose solves records an unconverged IR (`iterative_failed`) is counted
+as failed, and the script then exits non-zero. First line:
 the card's name and power limit.
 
 Imports neither jax nor pdebench_tpu.
@@ -20,6 +25,7 @@ Imports neither jax nor pdebench_tpu.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -43,12 +49,35 @@ def recorded_errors():
     return out
 
 
+def record_routes(pde: str, seen: list) -> None:
+    """Append the solver_info of every solve_linear call of the pde's
+    oracle module to `seen`."""
+    module = importlib.import_module(f"pdebench_tpu_torch.oracle.{pde}")
+    inner = module.solve_linear
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen.append(out[1])
+        return out
+
+    module.solve_linear = recording
+
+
+def route(info) -> str:
+    flags = [f for f, on in (("rerouted", "direct_rerouted" in info),
+                              ("failed", "iterative_failed" in info)) if on]
+    return info.get("inner", "?") + (f" ({', '.join(flags)})" if flags else "")
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pde", required=True)
-    ap.add_argument("--domain", required=True)
+    ap.add_argument("--pde")
+    ap.add_argument("--domain")
+    ap.add_argument("--case", action="append", default=[], help="a case id (repeatable)")
     ap.add_argument("--tol", type=float, default=1e-5, help="relative error tolerance")
     args = ap.parse_args(argv)
+    if not args.case and not (args.pde and args.domain):
+        ap.error("give --pde and --domain, or --case")
     if not torch.cuda.is_available():
         print("torch_sweep_cases: no CUDA device", file=sys.stderr)
         return 1
@@ -65,19 +94,27 @@ def main(argv) -> int:
         for line in fh:
             c = json.loads(line)
             oc = c["oracle_config"]
-            if oc["pde"]["type"] == args.pde and oc["domain"]["type"] == args.domain:
+            if c["id"] in args.case or (
+                oc["pde"]["type"] == args.pde and oc["domain"]["type"] == args.domain
+            ):
                 cases.append((c["id"], oc))
     solver = OracleSolver(device="cuda")
     worst, failed = 0.0, []
     warm = defaultdict(list)
+    seen, recording = [], set()
     for cid, oc in cases:
+        if oc["pde"]["type"] not in recording:
+            record_routes(oc["pde"]["type"], seen)
+            recording.add(oc["pde"]["type"])
+        seen.clear()
         base.clear_setup_caches()
         t0 = time.perf_counter()
         try:
             res = solver.solve(oc)
         except Exception as e:  # report every case, count the failure
             failed.append(cid)
-            print(f"{cid}: FAILED {type(e).__name__}: {e}", flush=True)
+            print(f"{cid}: FAILED {type(e).__name__}: {e}; routes before it "
+                  f"{[route(i) for i in seen]}", flush=True)
             continue
         info = res.solver_info
         inner = info.get("inner")
@@ -85,11 +122,16 @@ def main(argv) -> int:
         rel = abs(res.baseline_error - ref) / abs(ref) if ref else float("nan")
         if ref:
             worst = max(worst, rel)
-            if not rel <= args.tol:
-                failed.append(cid)
+        if (ref and not rel <= args.tol) or any("iterative_failed" in i for i in seen):
+            failed.append(cid)
         warm[inner].append(info["t_warm"])
+        routes = []
+        for r in map(route, seen):
+            if r not in routes:
+                routes.append(r)
         print(f"{cid}: dofs {res.num_dofs} baseline_error {res.baseline_error!r} recorded "
-              f"{ref!r} rel {rel:.2e}; inner {inner} iterations {info.get('iterations')}; warm "
+              f"{ref!r} rel {rel:.2e}; inner {inner} iterations {info.get('iterations')}; "
+              f"routes {routes}; warm "
               f"{info['t_warm']:.4f} s, baseline_time {res.baseline_time:.4f} s, whole call "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     print(f"{len(cases)} cases, worst relative error difference {worst:.3e} (tol "

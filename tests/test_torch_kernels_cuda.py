@@ -251,3 +251,143 @@ def test_unconverged_nonsymmetric_ir_on_cuda_raises(dev, monkeypatch):
                    if json.loads(l)["id"] == "helmholtz_k12_exponential_mode")
     with pytest.raises(RuntimeError, match="did not converge"):
         OracleSolver(device=dev).solve(cfg)
+
+
+ELASTICITY = {
+    # case id -> (recorded baseline_error, outer rounds of 25 block PCG steps)
+    "linear_elasticity_nu010": (1.5773824748707618e-06, 2),
+    "linear_elasticity_nu030": (3.2893239815322345e-06, 3),
+}
+
+
+def _elasticity(dev, case_id, rough=False):
+    """The case's f32 block lattice operator with its block GMG hierarchy
+    and the dof mask; `rough` scales the shear modulus cell by cell (a
+    factor between 1/2 and 2), which makes the per-site tap blocks
+    non-symmetric."""
+    from pdebench_tpu_torch.fem.assemble import local_elasticity
+    from pdebench_tpu_torch.oracle import linear_elasticity, scalar
+    from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+    cfg = scalar.override_bc_with_mms(cfg, list(cfg["pde"]["manufactured_solution"]["u"]))
+    lam, mu = linear_elasticity.lame_from_params(cfg["pde"]["pde_params"])
+    ctx = scalar.setup_scalar(cfg, dev, ncomp=-1)
+    if rough:
+        mu = mu * np.exp(np.random.default_rng(1).uniform(np.log(0.5), np.log(2.0), ctx.mesh.n_cells))
+    lat = scalar.maybe_block_lattice32(ctx, local_elasticity(ctx.cb, mu, lam))
+    mask = ctx.mask.cpu().numpy()
+    attach_lattice_gmg(lat, mask)
+    return lat, mask
+
+
+def _block_rhs(lat, mask, seed, dev):
+    r = np.random.default_rng(seed).standard_normal(lat.embedding.n_dof)
+    r[mask] = 0.0
+    return torch.as_tensor(lat.embedding.embed_np(r.astype(np.float32), 0.0), device=dev)
+
+
+@pytest.mark.parametrize("iters,tol", [(1, TOL_VCYCLE), (25, TOL_CG)])
+@pytest.mark.parametrize("case_id", sorted(ELASTICITY))
+def test_fused_block_cg_kernel_matches_plain(dev, case_id, iters, tol):
+    """1 PCG step (the block V-cycle per element) and the main path's 25."""
+    lat, mask = _elasticity(dev, case_id)
+    assert not lat.gmg.padded
+    inner = gmg_fused.build_fused_block_inner_cg(lat.gmg, iters, dev)
+    r = _block_rhs(lat, mask, 7, dev)
+    before = gmg_fused.LAUNCHES_BLOCK
+    z = inner(r)
+    assert gmg_fused.LAUNCHES_BLOCK == before + 1
+    z_plain = inner.plain(r)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * scale)
+    if iters == 25:
+        r_pl = inner._to_planes(r)
+        rel = float(torch.linalg.norm(r_pl - inner._apply(0, inner._to_planes(z))) / torch.linalg.norm(r_pl))
+        assert rel < 1e-3, rel
+
+
+def test_fused_block_cg_kernel_reads_blocks_untransposed(dev):
+    """Constant Lame parameters give symmetric per-site tap blocks; on a
+    rough shear modulus they are not, and one PCG step tells W[k, a, b]
+    from W[k, b, a]. The smoother blocks of a symmetric operator are
+    symmetric whatever the coefficients: skewed on every level, they tell
+    D[a, b] from D[b, a]."""
+    lat, mask = _elasticity(dev, "linear_elasticity_nu010", rough=True)
+    W = lat.gmg.levels[0].W
+    assert float((W - W.transpose(-1, -2)).abs().max()) > 1e-2 * float(W.abs().max())
+    step = gmg_fused.build_fused_block_inner_cg(lat.gmg, 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for D in step.D:
+        s = D.abs().max() * 0.2 * torch.rand(D.shape[-2:], generator=gen, device=dev)
+        D[0, 1] += s
+        D[1, 0] -= s
+    r = _block_rhs(lat, mask, 10, dev)
+    z, z_plain = step(r), step.plain(r)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z, z_plain, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+
+
+@pytest.mark.parametrize("cycles", [1, 2])
+@pytest.mark.parametrize("case_id", sorted(ELASTICITY))
+def test_fused_block_richardson_kernel_matches_plain(dev, case_id, cycles):
+    lat, mask = _elasticity(dev, case_id)
+    rich = gmg_fused.build_fused_block_inner_cg(lat.gmg, cycles, dev, mode="richardson")
+    r1, r2 = _block_rhs(lat, mask, 8, dev), _block_rhs(lat, mask, 9, dev)
+    before = gmg_fused.LAUNCHES_BLOCK_RICHARDSON
+    z1 = rich(r1)
+    assert gmg_fused.LAUNCHES_BLOCK_RICHARDSON == before + 1
+    z_plain = rich.plain(r1)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z1, z_plain, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+    torch.testing.assert_close(rich(r1 + 2.0 * r2), z1 + 2.0 * rich(r2), rtol=TOL_LINEAR, atol=TOL_LINEAR * scale)
+
+
+def test_elasticity_oracle_runs_the_kernels(dev):
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    ref_err, outer = ELASTICITY["linear_elasticity_nu010"]
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh
+                   if json.loads(l)["id"] == "linear_elasticity_nu010")
+    stencil_kernel.LAUNCHES = gmg_fused.LAUNCHES_BLOCK = 0
+    res = OracleSolver(device=dev).solve(cfg)
+    assert res.solver_info["inner"] == "fused-block-cg-cuda"
+    assert res.solver_info["iterations"] == outer * 25
+    assert stencil_kernel.LAUNCHES > 0 and gmg_fused.LAUNCHES_BLOCK > 0
+    assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
+
+
+def test_rerouted_direct_request_whose_ir_stalls_raises_on_cuda(dev):
+    """helmholtz_no_exact_gaussian_source_k15: its reference re-solve asks
+    for preonly/lu and is rerouted through the lattice IR, which stalls.
+    On CUDA tensors the solve raises; it never moves to the host LU after
+    a kernel's IR failed."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh
+                   if json.loads(l)["id"] == "helmholtz_no_exact_gaussian_source_k15")
+    with pytest.raises(RuntimeError, match="did not converge"):
+        OracleSolver(device=dev).solve(cfg)
+
+
+@pytest.mark.parametrize("ksp", ["preonly", "cg"])
+def test_stalled_ir_on_cuda_raises_whatever_the_request(dev, monkeypatch, ksp):
+    """poisson_high_contrast_no_exact with its lattice IR stalled: a
+    preonly request and an iterative one both raise on the card."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+    from pdebench_tpu_torch.solvers import dispatch
+
+    def stalled(op, b, *args, **kwargs):
+        return torch.zeros_like(b), 40 * 25, 1.0, False, "fused-cg-cuda"
+
+    monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh
+                   if json.loads(l)["id"] == "poisson_high_contrast_no_exact")
+    cfg["oracle_solver"] = dict(cfg["oracle_solver"], ksp_type=ksp)
+    cfg.pop("reference_config")
+    with pytest.raises(RuntimeError, match="did not converge"):
+        OracleSolver(device=dev).solve(cfg)

@@ -39,6 +39,11 @@ def test_helmholtz_slice_sources():
     assert (ROOT / "scripts" / "torch_profile_solve.py") in SOURCES
 
 
+def test_elasticity_slice_sources():
+    assert PKG / "oracle" / "linear_elasticity.py" in SOURCES
+    assert (PKG / "csrc" / "gmg_fused_block_cg.cu").is_file()
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_import(path):
     hits = _FORBIDDEN.findall(path.read_text())
