@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the shapes of the
-main paths, then drives the three main paths through
+main paths, then drives the four main paths through
 `OracleSolver(device="cuda")` and checks their errors against the
 recorded values:
 
@@ -19,6 +19,13 @@ recorded values:
               `linear_elasticity_nu030` (P2, 161 x 161): the stencil
               kernel (the f64 outer residual, 4 scalar applies per block
               apply) and the fused block inner CG
+  3-D         `poisson_3d_smooth_trig` (P2, 33^3 lattice, 65 taps) and
+              `poisson_3d_kappa_expr` (P2, 29^3): the fused inner CG;
+              `helmholtz_3d_k1_trig` (P2, 33^3, k = 1): the fused Arnoldi
+              cycle; the same case at mesh resolution 12 (25^3): the fused
+              Richardson preconditioner; the stencil kernel on 3-D
+              lattices (the f64 outer residual, and the f32 applies of the
+              PyTorch GMRES)
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -33,6 +40,7 @@ pdebench_tpu.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -63,6 +71,27 @@ ELASTICITY = {
     "linear_elasticity_nu010": (1.5773824748707618e-06, 1e-6, 2),
     "linear_elasticity_nu030": (3.2893239815322345e-06, 1e-6, 3),
 }
+# 3-D lattices: case id -> (baseline_error, relative tolerance, inner on
+# the card, outer rounds, steps per round). The errors are the recorded
+# ones, except for "helmholtz_3d_k1_trig@12": that case at mesh resolution
+# 12 (15,625 dofs, between the 8,000 of the shifted-Laplacian hierarchy
+# and the 20,000 of the whole fused Arnoldi cycle, where no dataset case
+# sits), held to the reference's CPU run of the same configuration on its
+# lattice route (PDEBENCH_TPU_FORCE_STENCIL=1; tests/test_torch_lattice3d.py
+# checks the number). A tuple of rounds allows each. Witness
+# (scripts/torch_ir_rounds.py; PERF.md, PR 4): on one right-hand side the
+# rounds are fixed, but the card assembles the load vector with
+# index_add_, whose atomics sum in no fixed order; kernel #6 ends
+# helmholtz_3d_k1_trig's second round at 1.3x to 2.2x the residual of its
+# plain version on the same vector, close enough to the tolerance that
+# those last bits decide between 2 and 3 rounds (the plain version takes
+# 2 on every vector measured).
+LATTICE_3D = {
+    "poisson_3d_smooth_trig": (2.4147996840258627e-4, 1e-6, "fused-cg-cuda", 2, 25),
+    "poisson_3d_kappa_expr": (3.7355568479364103e-4, 1e-6, "fused-cg-cuda", 2, 25),
+    "helmholtz_3d_k1_trig": (2.416098792334167e-4, 1e-6, "fused-gmres-cuda", (2, 3), 30),
+    "helmholtz_3d_k1_trig@12": (1.4542538224140384e-4, 1e-6, "gmres+fused-richardson-cuda", 2, 30),
+}
 SOLVES = 3  # whole-case solves per case on each main path
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
 TOL_F32 = 1e-5
@@ -81,6 +110,9 @@ TOL_LINEAR = 2e-4
 # the plain version's
 RESID_MAX = 0.1
 RESID_RATIO = 2.0
+# residuals below this are float32 Gram-Schmidt rounding (k = 1 in 3-D
+# reaches ~1e-6), where no ratio holds: the ratio is taken to the larger
+RESID_FLOOR = 1e-5
 ARNOLDI_STEPS = 30
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, float32 and float64 outside the
@@ -130,15 +162,17 @@ def _taps_flops(K: int, n: int) -> int:
 
 def vcycle_flops(fused) -> int:
     """Operations of one V-cycle on a fused hierarchy: per level, x = D r,
-    r - A x, restriction (9 taps per coarse point), prolongation and its
-    add (at most 4 taps per fine point), post-smoothing x + D (r - A x);
-    on the coarsest level, x = D r and COARSE_SWEEPS - 1 Jacobi sweeps."""
+    r - A x, restriction (9 taps per coarse point, 27 in 3-D),
+    prolongation and its add (at most 4 taps per fine point, 8 in 3-D),
+    post-smoothing x + D (r - A x); on the coarsest level, x = D r and
+    COARSE_SWEEPS - 1 Jacobi sweeps."""
     from pdebench_tpu_torch.solvers.gmg_fused import COARSE_SWEEPS
 
     total = 0
-    shapes = [(W.shape[0], W.shape[1] * W.shape[2]) for W in fused.W]
+    dim = len(fused.shape)
+    shapes = [(W.shape[0], W[0].numel()) for W in fused.W]
     for (K, n), (_, nc) in zip(shapes[:-1], shapes[1:]):
-        total += n + (_taps_flops(K, n) + n) + 2 * 9 * nc + (2 * 4 * n + n)
+        total += n + (_taps_flops(K, n) + n) + 2 * 3**dim * nc + (2 * 2**dim * n + n)
         total += _taps_flops(K, n) + 3 * n
     K, n = shapes[-1]
     return total + n + (COARSE_SWEEPS - 1) * (_taps_flops(K, n) + 3 * n)
@@ -149,12 +183,12 @@ def hierarchy_bytes(fused) -> int:
 
 
 def chain_flops(fused, cycles: int) -> int:
-    K0, n0 = fused.W[0].shape[0], fused.shape[0] * fused.shape[1]
+    K0, n0 = fused.W[0].shape[0], fused.sites
     return cycles * vcycle_flops(fused) + (cycles - 1) * (_taps_flops(K0, n0) + 2 * n0)
 
 
 def cg_bound(fused) -> dict:
-    K0, n0 = fused.W[0].shape[0], fused.shape[0] * fused.shape[1]
+    K0, n0 = fused.W[0].shape[0], fused.sites
     step = _taps_flops(K0, n0) + 4 * n0 + 6 * n0 + vcycle_flops(fused)
     flops = vcycle_flops(fused) + 2 * n0 + fused.inner_iters * step
     return bound(hierarchy_bytes(fused) + 2 * 4 * n0, flops, torch.float32)
@@ -189,7 +223,7 @@ def block_cg_bound(fused) -> dict:
 
 
 def richardson_bound(fused) -> dict:
-    n0 = fused.shape[0] * fused.shape[1]
+    n0 = fused.sites
     return bound(hierarchy_bytes(fused) + 2 * 4 * n0, chain_flops(fused, fused.inner_iters), torch.float32)
 
 
@@ -200,7 +234,7 @@ def gmres_bound(fg) -> dict:
     and an axpy each), two norms and the scaling of V[j+1]."""
     from pdebench_tpu_torch.solvers.gmg_fused import PRECOND_CYCLES
 
-    m, n0, Kop = fg.m, fg.shape[0] * fg.shape[1], len(fg.op_offsets)
+    m, n0, Kop = fg.m, fg.sites, len(fg.op_offsets)
     precond = chain_flops(fg, PRECOND_CYCLES)
     flops = precond + 3 * n0
     for j in range(m):
@@ -213,13 +247,19 @@ def gmres_bound(fg) -> dict:
 
 
 def load_cases(ids):
+    """Configs by id; "<case>@<n>" is the case at mesh resolution n."""
     cases = {}
     with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
         for line in fh:
             c = json.loads(line)
-            if c["id"] in ids:
-                cases[c["id"]] = c["oracle_config"]
-    return cases
+            cases[c["id"]] = c["oracle_config"]
+    out = {}
+    for key in ids:
+        cid, _, res = key.partition("@")
+        out[key] = copy.deepcopy(cases[cid])
+        if res:
+            out[key]["mesh"]["resolution"] = int(res)
+    return out
 
 
 def poisson_operator(config, device):
@@ -302,12 +342,15 @@ def allclose_scale(got, want, tol):
     return diff, scale, bool(torch.allclose(got, want, rtol=tol, atol=tol * scale))
 
 
-def true_residual(lat, W, r_lat, z):
+def true_residual(lat, W, r_lat, z, offsets=None, pad=None):
+    """||r - W z|| / ||r|| on a 2-D or 3-D lattice; the taps are the
+    lattice's unless given."""
     from pdebench_tpu_torch.solvers import stencil_kernel
 
-    Az = stencil_kernel.stencil_apply_2d_torch(
-        F.pad(z.reshape(lat.shape), (lat.pad,) * 4), W, lat.offsets, lat.pad
-    ).reshape(-1)
+    offsets = lat.offsets if offsets is None else offsets
+    pad = lat.pad if pad is None else pad
+    up = F.pad(z.reshape(lat.shape), (pad,) * (2 * len(lat.shape)))
+    Az = stencil_kernel.stencil_apply_torch(up, W, offsets, pad).reshape(-1)
     return float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
 
 
@@ -315,45 +358,51 @@ def true_residual(lat, W, r_lat, z):
 
 
 def check_stencil(ops, rng, dev, report):
+    """The stencil kernel on each lattice, f64 (the outer residual) and
+    f32; reported under stencil_apply_2d and stencil_apply_3d, at the
+    first case of each dimension."""
     from pdebench_tpu_torch.solvers import stencil_kernel
 
+    kernel, plain = stencil_kernel.stencil_apply, stencil_kernel.stencil_apply_torch
     for cid, lat in ops.items():
-        ny, nx = lat.shape
+        dim = len(lat.shape)
+        name = f"stencil_apply_{dim}d"
+        n = int(np.prod(lat.shape))
         for W, tol in ((lat.W_f64, TOL_F64), (lat.W, TOL_F32)):
             if W.dim() == 5:
                 # a block lattice (K, ny, nx, 2, 2) applies its (a, b)
                 # planes one by one: check the (0 <- 1) coupling plane
                 W = W[..., 0, 1].contiguous()
             u = torch.as_tensor(rng.standard_normal(lat.shape), device=dev).to(W.dtype)
-            up = F.pad(u, (lat.pad,) * 4)
+            up = F.pad(u, (lat.pad,) * (2 * dim))
             args = (up, W, lat.offsets, lat.pad)
-            yk = stencil_kernel.stencil_apply_2d(*args)  # CUDA tensors: the kernel
-            yp = stencil_kernel.stencil_apply_2d_torch(*args)
+            yk = kernel(*args)  # CUDA tensors: the kernel
+            yp = plain(*args)
             torch.cuda.synchronize()
             err = float((yk - yp).abs().max() / yp.abs().max())
-            ms = median_ms(lambda: stencil_kernel.stencil_apply_2d(*args))
-            plain_ms = median_ms(lambda: stencil_kernel.stencil_apply_2d_torch(*args))
+            ms = median_ms(lambda: kernel(*args))
+            plain_ms = median_ms(lambda: plain(*args))
             K = len(lat.offsets)
             b = bound(
-                (up.numel() + W.numel() + ny * nx) * W.element_size(),
-                _taps_flops(K, ny * nx), W.dtype,
+                (up.numel() + W.numel() + n) * W.element_size(), _taps_flops(K, n), W.dtype,
             )
-            tag = f"{ny}x{nx} K={K} pad={lat.pad} {str(W.dtype)[6:]}"
-            say("2", f"stencil_apply_2d {cid} {tag}: max rel diff {err:.3e} (tol {tol:g}); "
+            tag = f"{'x'.join(map(str, lat.shape))} K={K} pad={lat.pad} {str(W.dtype)[6:]}"
+            say("2", f"{name} {cid} {tag}: max rel diff {err:.3e} (tol {tol:g}); "
                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.2e} ms "
                      f"({b['bound_by']})")
             if not err <= tol:
                 raise AssertionError(f"stencil kernel disagrees at {tag}: {err}")
-            if cid == "poisson_basic" and W.dtype == torch.float64:
-                report["stencil_apply_2d"] = dict(
+            if name not in report and W.dtype == torch.float64:
+                report[name] = dict(
                     max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms, **b
                 )
 
 
-def check_fused_cg(ops, rng, dev, report):
+def check_fused_cg(ops, rng, dev, report, report_as):
     """One PCG step (the V-cycle's arithmetic, tightly), then the main
-    path's 25 on each Poisson case's own hierarchy."""
-    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+    path's 25 on each Poisson case's own hierarchy; the readings of the
+    case report_as names go into the kernels line under that name."""
+    from pdebench_tpu_torch.solvers import gmg_fused
 
     for cid, (lat, mask) in ops.items():
         r_lat = lattice_rhs(lat, mask, rng, dev)
@@ -373,10 +422,7 @@ def check_fused_cg(ops, rng, dev, report):
         diff, scale, ok = allclose_scale(zk, zp, TOL_CG)
         # the correction must solve the constrained fine system
         W0 = lat.gmg.levels[0]
-        Az = stencil_kernel.stencil_apply_2d_torch(
-            F.pad(zk.reshape(lat.shape), (W0.pad,) * 4), W0.W, W0.offsets, W0.pad,
-        ).reshape(-1)
-        rel = float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
+        rel = true_residual(lat, W0.W, r_lat, zk, W0.offsets, W0.pad)
         ms = median_ms(lambda: fused(r_lat), calls=5, samples=3)
         plain_ms = median_ms(lambda: fused.plain(r_lat), calls=1, samples=3)
         b = cg_bound(fused)
@@ -386,11 +432,11 @@ def check_fused_cg(ops, rng, dev, report):
                  f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
         if not ok or not rel < 1e-3:
             raise AssertionError(f"fused inner CG disagrees on {cid}: {diff}, residual {rel}")
-        if cid == "poisson_basic":
-            report["gmg_fused_cg"] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
+        if cid in report_as:
+            report[report_as[cid]] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
 
 
-def check_richardson(ops, rng, dev, report):
+def check_richardson(ops, rng, dev, report, report_as):
     """Kernel #3 on each Helmholtz case's surrogate hierarchy: 1 and 2
     cycles per element, linearity, times at the main path's 2 cycles."""
     from pdebench_tpu_torch.solvers import gmg_fused
@@ -416,11 +462,11 @@ def check_richardson(ops, rng, dev, report):
         b = richardson_bound(rich)
         say("3b", f"fused_richardson {cid} 2 cycles: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
                   f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
-        if cid == "helmholtz_basic_k5":
-            report["gmg_fused_richardson"] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
+        if cid in report_as:
+            report[report_as[cid]] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
 
 
-def check_gmres(ops, rng, dev, report):
+def check_gmres(ops, rng, dev, report, report_as):
     """Kernel #6 on each Helmholtz case's hierarchy with the TRUE
     constrained weights: one step per element, then the whole cycle by
     its true-operator residual, times at the main path's m = 30."""
@@ -448,12 +494,12 @@ def check_gmres(ops, rng, dev, report):
         b = gmres_bound(fg)
         say("3c", f"fused_gmres {cid} m={ARNOLDI_STEPS} {len(fg.W)} levels: true-operator "
                   f"residual kernel {rel:.3e}, plain {rel_plain:.3e} (kernel below {RESID_MAX:g} "
-                  f"and {RESID_RATIO:g}x plain); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"and {RESID_RATIO:g}x max(plain, {RESID_FLOOR:g})); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                   f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
-        if not (rel < RESID_MAX and rel <= RESID_RATIO * rel_plain):
+        if not (rel < RESID_MAX and rel <= RESID_RATIO * max(rel_plain, RESID_FLOOR)):
             raise AssertionError(f"fused Arnoldi cycle on {cid}: residual {rel} vs plain {rel_plain}")
-        if cid == "helmholtz_k12_exponential_mode":
-            report["gmg_fused_gmres"] = dict(max_abs_err=err_v, ms=ms, plain_ms=plain_ms, **b)
+        if cid in report_as:
+            report[report_as[cid]] = dict(max_abs_err=err_v, ms=ms, plain_ms=plain_ms, **b)
 
 
 def check_block_cg(ops, rng, dev, report):
@@ -569,13 +615,15 @@ def drive(solver, cases, want, phase):
                        f"warm solve {info['t_warm']:.4f} s, cold {info['t_cold']:.4f} s; "
                        f"inner {info.get('inner')}, outer {outer}, residual "
                        f"{info.get('residual')}")
-            if grid.shape != (50, 50) or not np.isfinite(grid).all():
-                raise AssertionError(f"{cid}: bad grid {grid.shape}")
+            g = cases[cid]["output"]["grid"]
+            shape = tuple(g[k] for k in ("nz", "ny", "nx") if k in g)
+            if grid.shape != shape or not np.isfinite(grid).all():
+                raise AssertionError(f"{cid}: bad grid {grid.shape}, expected {shape}")
             if not rel <= tol:
                 raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
             if info.get("inner") != inner_want or "iterative_failed" in info:
                 raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
-            if outer != outer_want:
+            if outer not in (outer_want if isinstance(outer_want, tuple) else (outer_want,)):
                 raise AssertionError(f"{cid}: {outer} outer rounds, expected {outer_want}")
             warm.append(info["t_warm"])
             total.append(res.baseline_time)
@@ -616,47 +664,68 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         say("1", f"{name}: " + " | ".join(usage))
 
-    cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY))
+    cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
+    # 3-D kernel forms: kernel #2 on both Poisson hierarchies (33^3, 29^3),
+    # #6 on helmholtz_3d_k1_trig's 33^3 surrogate hierarchy, #3 on the
+    # 25^3 one of the same case at mesh resolution 12 (the main path's
+    # only kernel #3 route in 3-D) and, as an extra check, on the 33^3 one
+    p3_ops = {cid: poisson_operator(cases[cid], dev)
+              for cid in ("poisson_3d_smooth_trig", "poisson_3d_kappa_expr")}
+    h3_ops = {cid: helmholtz_operator(cases[cid], dev)
+              for cid in ("helmholtz_3d_k1_trig", "helmholtz_3d_k1_trig@12")}
     rng = np.random.default_rng(0)
     report = {}
 
-    # (2) stencil kernel vs plain at every path's shapes
+    # (2) stencil kernel vs plain at every path's shapes, 2-D and 3-D
     check_stencil({cid: lat for cid, (lat, _) in p_ops.items()}
                   | {cid: lat for cid, (lat, _, _) in h_ops.items()}
-                  | {cid: lat for cid, (lat, _) in e_ops.items()}, rng, dev, report)
+                  | {cid: lat for cid, (lat, _) in e_ops.items()}
+                  | {cid: lat for cid, (lat, _) in p3_ops.items()}
+                  | {cid: lat for cid, (lat, _, _) in h3_ops.items()}, rng, dev, report)
     # (3) fused inner CG, (3b) fused Richardson, (3c) fused Arnoldi, (3d)
-    # fused block inner CG vs plain
-    check_fused_cg(p_ops, rng, dev, report)
-    check_richardson(h_ops, rng, dev, report)
-    check_gmres(h_ops, rng, dev, report)
+    # fused block inner CG vs plain; 2-D, then the 3-D forms
+    check_fused_cg(p_ops, rng, dev, report, {"poisson_basic": "gmg_fused_cg"})
+    check_richardson(h_ops, rng, dev, report, {"helmholtz_basic_k5": "gmg_fused_richardson"})
+    check_gmres(h_ops, rng, dev, report, {"helmholtz_k12_exponential_mode": "gmg_fused_gmres"})
+    check_fused_cg(p3_ops, rng, dev, report, {"poisson_3d_smooth_trig": "gmg_fused_cg_3d"})
+    check_richardson(h3_ops, rng, dev, report, {"helmholtz_3d_k1_trig@12": "gmg_fused_richardson_3d"})
+    check_gmres({"helmholtz_3d_k1_trig": h3_ops["helmholtz_3d_k1_trig"]}, rng, dev, report,
+                {"helmholtz_3d_k1_trig": "gmg_fused_gmres_3d"})
     check_block_cg(e_ops, rng, dev, report)
     check_block_transpose(
         *elasticity_operator(cases["linear_elasticity_nu010"], dev, rough=True), rng, dev
     )
 
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
-    # elasticity main path: OracleSolver on the card, the counters set to
-    # 0 just before each and read after
+    # elasticity main path, (7) the 3-D main path: OracleSolver on the
+    # card, the counters set to 0 just before each and read after; each
+    # path maps its entries of the kernels line to the counters they read
+    # (one stencil kernel: stencil_apply_2d and _3d are its launches on
+    # the 2-D and the 3-D paths)
     solver = OracleSolver(device="cuda")
     launches = {}
     paths = (
         ("4", {cid: (e, t, "fused-cg-cuda", o, 25) for cid, (e, t, o) in POISSON.items()},
-         ("stencil_apply_2d", "gmg_fused_cg")),
+         {"stencil_apply_2d": "stencil_apply", "gmg_fused_cg": "gmg_fused_cg"}),
         ("5", {cid: (e, t, i, o, 30) for cid, (e, t, i, o) in HELMHOLTZ.items()},
-         ("stencil_apply_2d", "gmg_fused_richardson", "gmg_fused_gmres")),
+         {"stencil_apply_2d": "stencil_apply", "gmg_fused_richardson": "gmg_fused_richardson",
+          "gmg_fused_gmres": "gmg_fused_gmres"}),
         ("6", {cid: (e, t, "fused-block-cg-cuda", o, 25) for cid, (e, t, o) in ELASTICITY.items()},
-         ("stencil_apply_2d", "gmg_fused_block_cg")),
+         {"stencil_apply_2d": "stencil_apply", "gmg_fused_block_cg": "gmg_fused_block_cg"}),
+        ("7", LATTICE_3D,
+         {"stencil_apply_3d": "stencil_apply", "gmg_fused_cg_3d": "gmg_fused_cg",
+          "gmg_fused_richardson_3d": "gmg_fused_richardson", "gmg_fused_gmres_3d": "gmg_fused_gmres"}),
     )
-    for phase, want, kernels in paths:
+    for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
         gmg_fused.LAUNCHES_BLOCK = gmg_fused.LAUNCHES_BLOCK_RICHARDSON = 0
         drive(solver, cases, want, phase)
         counts = {
-            "stencil_apply_2d": stencil_kernel.LAUNCHES,
+            "stencil_apply": stencil_kernel.LAUNCHES,
             "gmg_fused_cg": gmg_fused.LAUNCHES,
             "gmg_fused_richardson": gmg_fused.LAUNCHES_RICHARDSON,
             "gmg_fused_gmres": gmg_fused.LAUNCHES_GMRES,
@@ -664,18 +733,26 @@ def main() -> int:
             "gmg_fused_block_richardson": gmg_fused.LAUNCHES_BLOCK_RICHARDSON,
         }
         say(phase, f"kernel launches on this main path: {counts}")
-        for name in kernels:
-            if counts[name] < 1:
-                raise AssertionError(f"{name} never launched on main path {phase}: {counts}")
-            launches[name] = launches.get(name, 0) + counts[name]
+        for entry, counter in entries.items():
+            if counts[counter] < 1:
+                raise AssertionError(f"{counter} never launched on main path {phase}: {counts}")
+            launches[entry] = launches.get(entry, 0) + counts[counter]
 
     meta = {
         "stencil_apply_2d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
+        # the same kernel on 3-D lattices; the reference applies 3-D
+        # stencils in XLA (LatticeOperator.apply_grid_w), not in Pallas
+        "stencil_apply_3d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil.py:744"),
         "gmg_fused_cg": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         # mode "richardson" of the same pallas_call
         "gmg_fused_richardson": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         "gmg_fused_gmres": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
         "gmg_fused_block_cg": ("gmg_fused_block_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:723"),
+        # the 3-D forms of the same pallas_calls (slab-packed `_Level3`
+        # levels in the reference, native (nz, ny, nx) levels here)
+        "gmg_fused_cg_3d": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        "gmg_fused_richardson_3d": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        "gmg_fused_gmres_3d": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a V-cycle chain, a (block) PCG solve or an

@@ -124,10 +124,8 @@ __device__ void vcycle2_to_fine(const Level* lv, int nlev,
       F.t[nf + idx] = ldw(F.r + nf + idx) - a1;
     }
     grid.sync();
-    for (int idx = tid; idx < nc; idx += stride) {
-      const int i = idx / C.nx, j = idx - (idx / C.nx) * C.nx;
-      set_rhs2(C, idx, restrict_at(F, F.t, i, j), restrict_at(F, F.t + nf, i, j));
-    }
+    for (int idx = tid; idx < nc; idx += stride)
+      set_rhs2(C, idx, restrict_at(F, C, F.t, idx), restrict_at(F, C, F.t + nf, idx));
     grid.sync();
   }
   {
@@ -161,9 +159,8 @@ __device__ void vcycle2_to_fine(const Level* lv, int nlev,
     const Level& C = lv[l + 1];
     const int nf = F.ny * F.nx, nc = C.ny * C.nx;
     for (int idx = tid; idx < nf; idx += stride) {
-      const int i = idx / F.nx, j = idx - (idx / F.nx) * F.nx;
-      F.x[idx] = ldw(F.x + idx) + prolong_at(C, C.t, i, j);
-      F.x[nf + idx] = ldw(F.x + nf + idx) + prolong_at(C, C.t + nc, i, j);
+      F.x[idx] = ldw(F.x + idx) + prolong_at(F, C, C.t, idx);
+      F.x[nf + idx] = ldw(F.x + nf + idx) + prolong_at(F, C, C.t + nc, idx);
     }
     grid.sync();
     if (l == 0) break;  // the caller's stage post-smooths level 0
@@ -319,6 +316,8 @@ int gmg_fused_block_cg_pack(void* out, int nlev, const long long* ptrs,
   *H = Hier{};
   const int e = pack_levels(H->lv, nlev, ptrs, dims, offs);
   if (e != 0) return e;
+  for (int l = 0; l < nlev; ++l)  // 2-D block levels only
+    if (H->lv[l].nz != 1) return (int)cudaErrorInvalidValue;
   H->p = reinterpret_cast<float*>(p);
   H->Ap = reinterpret_cast<float*>(Ap);
   H->partial = reinterpret_cast<double*>(partial);

@@ -3,10 +3,12 @@
 //
 // Replaces the Pallas kernel pdebench_tpu/solvers/gmg_fused.py
 // `build_fused_inner_gmres` (pl.pallas_call at :1269; kernel body
-// `_kernel`, :1121-1245), 2-D scalar lattices, with the per-call operator
-// input (`step_offsets`): the Arnoldi operator is the stencil W_op with
-// its own taps, the preconditioner M is a chain of `cycles` V-cycles on the
-// hierarchy (z = V(v); z += V(v - A0 z)), A0 the hierarchy's level 0. On
+// `_kernel`, :1121-1245), 2-D and 3-D scalar lattices (the 3-D form: the
+// slab-packed `_Level3` levels and operator, :1058-1065, :1289-1322), with
+// the per-call operator input (`step_offsets`): the Arnoldi operator is
+// the stencil W_op with its own taps, the preconditioner M is a chain of
+// `cycles` V-cycles on the hierarchy (z = V(v); z += V(v - A0 z)), A0 the
+// hierarchy's level 0. On
 // a lattice residual r it writes the basis V (m+1 planes), the Arnoldi
 // Hessenberg matrix column by column (Hc, m rows of m+1) and beta:
 //
@@ -41,6 +43,15 @@
 // block holds the same h, hn and alive, deterministically and without
 // atomics. Work vectors written in the kernel are read through L2
 // (__ldcg).
+//
+// In 3-D (P2 tetrahedra, 33^3 to 57^3 sites) a stage is no longer short:
+// the fine apply reads 65 weight planes (9.3 MB at 33^3, 48 MB at 57^3)
+// and the operator W_op as many again, so the fine-level stages are bound
+// by L2 / HBM bytes rather than by the barrier alone, and at 57^3 the
+// hierarchy, W_op and the 31-plane basis (23 MB) do not fit in L2. The
+// design is unchanged: the levels keep their (nz, ny, nx) layout and every
+// stage walks the flat site index (coalesced), where the Pallas kernel
+// flattens them into slab-packed planes for its 2-D rolls.
 
 #include "gmg_vcycle.cuh"
 
@@ -81,7 +92,7 @@ gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
   const Level& L0 = H.lv[0];
-  const int n0 = L0.ny * L0.nx;
+  const int n0 = sites(L0);
   const int G = gridDim.x;
   double* const pmgs[2] = {H.partial, H.partial + G};
   double* const pw = H.partial + 2 * G;
@@ -121,8 +132,7 @@ gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
     const float* vj = V + (size_t)j * n0;
     // the preconditioner's input W_op V[j]
     for (int idx = tid; idx < n0; idx += stride) {
-      const int i = idx / L0.nx, jj = idx - (idx / L0.nx) * L0.nx;
-      const float a = apply_at(H.op, vj, i, jj);
+      const float a = apply_at(H.op, vj, idx);
       H.Av[idx] = a;
       L0.r[idx] = a;
       L0.x[idx] = __ldg(L0.D + idx) * a;
@@ -183,7 +193,7 @@ int gmg_fused_gmres_grid(int fine_points, int* blocks) {
 
 // Fill a host buffer of gmg_fused_gmres_desc_bytes() bytes: the levels
 // (ptrs, dims, offs as pack_levels takes them), the operator's taps
-// (op_K pairs (dy, dx) in op_offs; its shape is level 0's) and the work
+// (op_K triples (dz, dy, dx) in op_offs; its shape is level 0's) and the work
 // vectors Av, z1, w (level-0 size) and partial (kSlots * blocks doubles).
 int gmg_fused_gmres_pack(void* out, int nlev, const long long* ptrs,
                          const int* dims, const int* offs, int op_K,
@@ -196,6 +206,7 @@ int gmg_fused_gmres_pack(void* out, int nlev, const long long* ptrs,
   if (op_K < 1) return (int)cudaErrorInvalidValue;
   e = set_taps(H->op, op_K, op_offs);
   if (e != 0) return e;
+  H->op.nz = H->lv[0].nz;
   H->op.ny = H->lv[0].ny;
   H->op.nx = H->lv[0].nx;
   H->Av = reinterpret_cast<float*>(Av);
@@ -206,9 +217,9 @@ int gmg_fused_gmres_pack(void* out, int nlev, const long long* ptrs,
   return 0;
 }
 
-// One Arnoldi cycle of m steps on r with the operator Wop (op_K, ny, nx):
-// V (m+1, ny, nx), Hc (m, m+1), beta (1 float) are written. desc: the
-// packed descriptor in device memory; blocks from gmg_fused_gmres_grid.
+// One Arnoldi cycle of m steps on r with the operator Wop (op_K, nz, ny,
+// nx): V (m+1, nz, ny, nx), Hc (m, m+1), beta (1 float) are written.
+// desc: the packed descriptor in device memory; blocks from gmg_fused_gmres_grid.
 int gmg_fused_gmres_launch(const void* desc, const float* r,
                            const float* Wop, float* V, float* Hc,
                            float* beta, int m, int cycles, int blocks,

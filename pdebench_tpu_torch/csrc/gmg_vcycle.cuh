@@ -1,16 +1,21 @@
 // Multigrid V-cycle device code shared by the fused GMG kernels
 // (gmg_fused_cg.cu, gmg_fused_gmres.cu), for Hopper (sm_90a).
 //
-// A hierarchy is levels 0..L-1 of a 2-D scalar lattice; level l+1 halves
-// level l ((n - 1) / 2 + 1 points per axis). One V-cycle on the level-0
+// A hierarchy is levels 0..L-1 of a 2-D or 3-D scalar lattice; level l+1
+// halves level l ((n - 1) / 2 + 1 points per axis). A level is (nz, ny, nx)
+// sites, x fastest; a 2-D level has nz = 1 and every tap dz = 0, and sums
+// in the same order as a 2-D-only code would. One V-cycle on the level-0
 // right-hand side r, with x = D r already set, is: at level l < L-1,
 // t = r - A x; r_c = R t; V at l+1; x += P x_c; x = x + D (r - A x). The
 // coarsest level takes x = D r followed by COARSE_SWEEPS - 1 Jacobi
 // sweeps x += D (r - A x). D holds omega times the inverse diagonal.
 // Stencil taps read zero outside the level (the Pallas kernels' rolls over
 // zero pads). R is the tensor product of the truncated [1/4, 1/2, 1/4]
-// band at even fine points and P its bilinear transpose (the Pallas
-// banded matmuls), here as direct 3 x 3 stencils.
+// band per axis at even fine points and P its bi- or trilinear transpose
+// (the Pallas banded matmuls; in 3-D the kron(Bz, By) row band of the
+// slab-packed `_Level3` planes), here as direct 3 x 3 (x 3) stencils. Every
+// stage loops over the flat site index, so loads stay coalesced whatever
+// nx is.
 //
 // Every function here runs inside a cooperative launch: a grid-stride
 // loop per stage, grid.sync() between stages. Work vectors written in the
@@ -28,85 +33,141 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kMaxTaps = 64;
+constexpr int kMaxTaps = 128;  // a 3-D P2 fine level has 65
 constexpr int kThreads = 256;
 constexpr int kCoarseSweeps = 10;  // COARSE_SWEEPS of the Pallas kernels
 
 struct Level {
-  const float* W;  // (K, ny, nx) stencil weights
-  const float* D;  // (ny, nx) omega * inverse diagonal
+  const float* W;  // (K, nz, ny, nx) stencil weights
+  const float* D;  // (nz, ny, nx) omega * inverse diagonal
   float* r;        // level right-hand side
   float* x;        // smoother iterate
   float* t;        // scratch; holds the level's V-cycle result (l > 0)
-  int ny, nx, K;
+  int nz, ny, nx, K;
+  signed char dz[kMaxTaps];
   signed char dy[kMaxTaps];
   signed char dx[kMaxTaps];
 };
 
 __device__ __forceinline__ float ldw(const float* a) { return __ldcg(a); }
 
+__device__ __forceinline__ int sites(const Level& L) {
+  return L.nz * L.ny * L.nx;
+}
+
+// (z, y, x) of flat site idx (the branch on nz is uniform across the
+// grid: one division fewer on 2-D levels)
+__device__ __forceinline__ void site_of(const Level& L, int idx, int& k,
+                                        int& i, int& j) {
+  const int q = idx / L.nx;
+  j = idx - q * L.nx;
+  if (L.nz == 1) {
+    k = 0;
+    i = q;
+  } else {
+    k = q / L.ny;
+    i = q - k * L.ny;
+  }
+}
+
+// (A u) at flat site idx, taps in order, zero outside the level
 __device__ __forceinline__ float apply_at(const Level& L, const float* u,
-                                          int i, int j) {
-  const int n = L.ny * L.nx;
-  const int idx = i * L.nx + j;
+                                          int idx) {
+  const int n = sites(L);
   float acc = 0.f;
+  if (L.nz == 1) {
+    // a 2-D level: no z index, no z bound (the branch is uniform across
+    // the grid, so 2-D levels pay no per-tap cost for the third axis)
+    const int i = idx / L.nx, j = idx - i * L.nx;
+    for (int k = 0; k < L.K; ++k) {
+      const int ii = i + L.dy[k], jj = j + L.dx[k];
+      if (ii >= 0 && ii < L.ny && jj >= 0 && jj < L.nx)
+        acc += __ldg(L.W + k * n + idx) * ldw(u + ii * L.nx + jj);
+    }
+    return acc;
+  }
+  int k0, i, j;
+  site_of(L, idx, k0, i, j);
   for (int k = 0; k < L.K; ++k) {
-    const int ii = i + L.dy[k], jj = j + L.dx[k];
-    if (ii >= 0 && ii < L.ny && jj >= 0 && jj < L.nx)
-      acc += __ldg(L.W + k * n + idx) * ldw(u + ii * L.nx + jj);
+    const int kk = k0 + L.dz[k], ii = i + L.dy[k], jj = j + L.dx[k];
+    if (kk >= 0 && kk < L.nz && ii >= 0 && ii < L.ny && jj >= 0 && jj < L.nx)
+      acc += __ldg(L.W + k * n + idx) * ldw(u + (kk * L.ny + ii) * L.nx + jj);
   }
   return acc;
 }
 
-// full weighting at fine point (2ic, 2jc), zero outside the fine level;
-// summed along x first, then y (the Pallas By @ (res @ Bx^T) order)
-__device__ __forceinline__ float restrict_at(const Level& F, const float* t,
-                                             int ic, int jc) {
+// full weighting at fine site (2kc, 2ic, 2jc) for coarse site idx of C,
+// zero outside the fine level F; summed along x first, then y, then z
+// (the Pallas kernel sums By @ (res @ Bx^T), its By the kron'd z-y band
+// in 3-D). A 2-D level (nz = 1) has no z sum: its weight is 1.
+__device__ __forceinline__ float restrict_at(const Level& F, const Level& C,
+                                             const float* t, int idx) {
   const float w[3] = {0.25f, 0.5f, 0.25f};
+  int kc, ic, jc;
+  site_of(C, idx, kc, ic, jc);
+  const int zr = F.nz > 1 ? 1 : 0;
   float acc = 0.f;
-  for (int a = -1; a <= 1; ++a) {
-    const int i = 2 * ic + a;
-    if (i < 0 || i >= F.ny) continue;
-    float row = 0.f;
-    for (int b = -1; b <= 1; ++b) {
-      const int j = 2 * jc + b;
-      if (j < 0 || j >= F.nx) continue;
-      row += w[b + 1] * ldw(t + i * F.nx + j);
+  for (int c = -zr; c <= zr; ++c) {
+    const int kf = 2 * kc + c;
+    if (kf < 0 || kf >= F.nz) continue;
+    float plane = 0.f;
+    for (int a = -1; a <= 1; ++a) {
+      const int i = 2 * ic + a;
+      if (i < 0 || i >= F.ny) continue;
+      float row = 0.f;
+      for (int b = -1; b <= 1; ++b) {
+        const int j = 2 * jc + b;
+        if (j < 0 || j >= F.nx) continue;
+        row += w[b + 1] * ldw(t + (kf * F.ny + i) * F.nx + j);
+      }
+      plane += w[a + 1] * row;
     }
-    acc += w[a + 1] * row;
+    acc += (zr ? w[c + 1] : 1.f) * plane;
   }
   return acc;
 }
 
-// bilinear interpolation of the coarse field at fine point (i, j)
-__device__ __forceinline__ float prolong_at(const Level& C, const float* xc,
-                                            int i, int j) {
-  int ci[2], cj[2];
-  float wi[2], wj[2];
-  int ni, nj;
-  if (i % 2 == 0) { ci[0] = i / 2; wi[0] = 1.f; ni = 1; }
-  else { ci[0] = (i - 1) / 2; ci[1] = (i + 1) / 2; wi[0] = wi[1] = 0.5f; ni = 2; }
-  if (j % 2 == 0) { cj[0] = j / 2; wj[0] = 1.f; nj = 1; }
-  else { cj[0] = (j - 1) / 2; cj[1] = (j + 1) / 2; wj[0] = wj[1] = 0.5f; nj = 2; }
+// coarse indices and weights of fine index i along one axis: the even
+// point itself, or the average of its two neighbours
+__device__ __forceinline__ int lin_taps(int i, int* ci, float* wi) {
+  if (i % 2 == 0) { ci[0] = i / 2; wi[0] = 1.f; return 1; }
+  ci[0] = (i - 1) / 2; ci[1] = (i + 1) / 2; wi[0] = wi[1] = 0.5f;
+  return 2;
+}
+
+// tri- (bi-) linear interpolation of the coarse field of C at fine site
+// idx of F
+__device__ __forceinline__ float prolong_at(const Level& F, const Level& C,
+                                            const float* xc, int idx) {
+  int k, i, j;
+  site_of(F, idx, k, i, j);
+  int ck[2], ci[2], cj[2];
+  float wk[2], wi[2], wj[2];
+  const int nk = lin_taps(k, ck, wk), ni = lin_taps(i, ci, wi),
+            nj = lin_taps(j, cj, wj);
   float acc = 0.f;
-  for (int a = 0; a < ni; ++a) {
-    if (ci[a] >= C.ny) continue;
-    float row = 0.f;
-    for (int b = 0; b < nj; ++b) {
-      if (cj[b] >= C.nx) continue;
-      row += wj[b] * ldw(xc + ci[a] * C.nx + cj[b]);
+  for (int c = 0; c < nk; ++c) {
+    if (ck[c] >= C.nz) continue;
+    float plane = 0.f;
+    for (int a = 0; a < ni; ++a) {
+      if (ci[a] >= C.ny) continue;
+      float row = 0.f;
+      for (int b = 0; b < nj; ++b) {
+        if (cj[b] >= C.nx) continue;
+        row += wj[b] * ldw(xc + (ck[c] * C.ny + ci[a]) * C.nx + cj[b]);
+      }
+      plane += wi[a] * row;
     }
-    acc += wi[a] * row;
+    acc += wk[c] * plane;
   }
   return acc;
 }
 
 // post-smoothing value x + D (r - A x) at point idx of level F
 __device__ __forceinline__ float smooth_at(const Level& F, int idx) {
-  const int i = idx / F.nx, j = idx - (idx / F.nx) * F.nx;
   const float r = ldw(F.r + idx);
   const float x = ldw(F.x + idx);
-  return x + __ldg(F.D + idx) * (r - apply_at(F, F.x, i, j));
+  return x + __ldg(F.D + idx) * (r - apply_at(F, F.x, idx));
 }
 
 // block sum of v, valid in thread 0; sh holds at least 32 doubles
@@ -159,15 +220,12 @@ __device__ void vcycle_to_fine(const Level* lv, int nlev,
   for (int l = 0; l < nlev - 1; ++l) {
     const Level& F = lv[l];
     const Level& C = lv[l + 1];
-    const int nf = F.ny * F.nx, nc = C.ny * C.nx;
-    for (int idx = tid; idx < nf; idx += stride) {
-      const int i = idx / F.nx, j = idx - (idx / F.nx) * F.nx;
-      F.t[idx] = ldw(F.r + idx) - apply_at(F, F.x, i, j);
-    }
+    const int nf = sites(F), nc = sites(C);
+    for (int idx = tid; idx < nf; idx += stride)
+      F.t[idx] = ldw(F.r + idx) - apply_at(F, F.x, idx);
     grid.sync();
     for (int idx = tid; idx < nc; idx += stride) {
-      const int i = idx / C.nx, j = idx - (idx / C.nx) * C.nx;
-      const float rc = restrict_at(F, F.t, i, j);
+      const float rc = restrict_at(F, C, F.t, idx);
       C.r[idx] = rc;
       C.x[idx] = __ldg(C.D + idx) * rc;
     }
@@ -177,15 +235,13 @@ __device__ void vcycle_to_fine(const Level* lv, int nlev,
     // coarsest level: one block, block barriers between Jacobi sweeps
     const Level& C = lv[nlev - 1];
     if (blockIdx.x == 0) {
-      const int n = C.ny * C.nx;
+      const int n = sites(C);
       float* src = C.x;
       float* dst = C.t;
       for (int s = 0; s < kCoarseSweeps - 1; ++s) {
-        for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-          const int i = idx / C.nx, j = idx - (idx / C.nx) * C.nx;
+        for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
           dst[idx] = ldw(src + idx) + __ldg(C.D + idx) *
-                     (ldw(C.r + idx) - apply_at(C, src, i, j));
-        }
+                     (ldw(C.r + idx) - apply_at(C, src, idx));
         __syncthreads();
         float* tmp = src; src = dst; dst = tmp;
       }
@@ -199,11 +255,9 @@ __device__ void vcycle_to_fine(const Level* lv, int nlev,
   for (int l = nlev - 2; l >= 0; --l) {
     const Level& F = lv[l];
     const Level& C = lv[l + 1];
-    const int nf = F.ny * F.nx;
-    for (int idx = tid; idx < nf; idx += stride) {
-      const int i = idx / F.nx, j = idx - (idx / F.nx) * F.nx;
-      F.x[idx] = ldw(F.x + idx) + prolong_at(C, C.t, i, j);
-    }
+    const int nf = sites(F);
+    for (int idx = tid; idx < nf; idx += stride)
+      F.x[idx] = ldw(F.x + idx) + prolong_at(F, C, C.t, idx);
     grid.sync();
     if (l == 0) break;  // the caller's stage post-smooths level 0
     for (int idx = tid; idx < nf; idx += stride) F.t[idx] = smooth_at(F, idx);
@@ -222,7 +276,7 @@ __device__ void chain_to_last(const Level* lv, int nlev, const float* v,
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
   const Level& L0 = lv[0];
-  const int n0 = L0.ny * L0.nx;
+  const int n0 = sites(L0);
   for (int c = 0; c < cycles - 1; ++c) {
     vcycle_to_fine(lv, nlev, grid);
     for (int idx = tid; idx < n0; idx += stride) {
@@ -231,8 +285,7 @@ __device__ void chain_to_last(const Level* lv, int nlev, const float* v,
     }
     grid.sync();
     for (int idx = tid; idx < n0; idx += stride) {
-      const int i = idx / L0.nx, j = idx - (idx / L0.nx) * L0.nx;
-      const float res = ldw(v + idx) - apply_at(L0, z, i, j);
+      const float res = ldw(v + idx) - apply_at(L0, z, idx);
       L0.r[idx] = res;
       L0.x[idx] = __ldg(L0.D + idx) * res;
     }
@@ -250,24 +303,26 @@ __device__ __forceinline__ float chain_result_at(const Level& L0,
 
 // ---- host side --------------------------------------------------------
 
-// Tap offsets (dy, dx) of a level, K pairs; cudaError_t.
+// Tap offsets (dz, dy, dx) of a level, K triples; cudaError_t.
 inline int set_taps(Level& L, int K, const int* offs) {
   if (K < 0 || K > kMaxTaps) return (int)cudaErrorInvalidValue;
   L.K = K;
   for (int k = 0; k < K; ++k) {
-    const int dy = offs[2 * k], dx = offs[2 * k + 1];
-    if (dy < -127 || dy > 127 || dx < -127 || dx > 127)
-      return (int)cudaErrorInvalidValue;
-    L.dy[k] = (signed char)dy;
-    L.dx[k] = (signed char)dx;
+    for (int a = 0; a < 3; ++a)
+      if (offs[3 * k + a] < -127 || offs[3 * k + a] > 127)
+        return (int)cudaErrorInvalidValue;
+    L.dz[k] = (signed char)offs[3 * k + 0];
+    L.dy[k] = (signed char)offs[3 * k + 1];
+    L.dx[k] = (signed char)offs[3 * k + 2];
   }
   return 0;
 }
 
 // Level descriptors from flat host arrays. ptrs: 5 device pointers per
-// level (W, D, r, x, t); dims: 3 ints per level (ny, nx, K); offs: 2 * K
-// ints per level, (dy, dx) per tap, levels concatenated. At least two
-// levels: the level-0 post-smoothing is the callers' own stage.
+// level (W, D, r, x, t); dims: 4 ints per level (nz, ny, nx, K); offs:
+// 3 * K ints per level, (dz, dy, dx) per tap, levels concatenated (a 2-D
+// level: nz = 1, dz = 0). At least two levels: the level-0 post-smoothing
+// is the callers' own stage.
 inline int pack_levels(Level* lv, int nlev, const long long* ptrs,
                        const int* dims, const int* offs) {
   if (nlev < 2 || nlev > kMaxLevels) return (int)cudaErrorInvalidValue;
@@ -279,13 +334,15 @@ inline int pack_levels(Level* lv, int nlev, const long long* ptrs,
     L.r = reinterpret_cast<float*>(ptrs[5 * l + 2]);
     L.x = reinterpret_cast<float*>(ptrs[5 * l + 3]);
     L.t = reinterpret_cast<float*>(ptrs[5 * l + 4]);
-    L.ny = dims[3 * l + 0];
-    L.nx = dims[3 * l + 1];
-    if (L.ny < 1 || L.nx < 1) return (int)cudaErrorInvalidValue;
-    if (l > 0 && (L.ny != (lv[l - 1].ny - 1) / 2 + 1 ||
+    L.nz = dims[4 * l + 0];
+    L.ny = dims[4 * l + 1];
+    L.nx = dims[4 * l + 2];
+    if (L.nz < 1 || L.ny < 1 || L.nx < 1) return (int)cudaErrorInvalidValue;
+    if (l > 0 && (L.nz != (lv[l - 1].nz - 1) / 2 + 1 ||
+                  L.ny != (lv[l - 1].ny - 1) / 2 + 1 ||
                   L.nx != (lv[l - 1].nx - 1) / 2 + 1))
       return (int)cudaErrorInvalidValue;
-    const int e = set_taps(L, dims[3 * l + 2], offs + 2 * o);
+    const int e = set_taps(L, dims[4 * l + 3], offs + 3 * o);
     if (e != 0) return e;
     o += L.K;
   }

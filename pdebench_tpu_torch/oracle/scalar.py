@@ -115,14 +115,11 @@ def maybe_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
     """Stencil (f32) form of a scalar operator when dofs form a lattice
     (structured unit_square/unit_cube meshes); None otherwise.
 
-    2-D lattices are taken everywhere. 3-D lattices stay off on the CPU,
-    as in the reference's CPU branch, and raise on CUDA: their stencil
-    and fused-kernel routes are not ported yet.
+    2-D and 3-D lattices are taken on every device. (The reference keeps
+    3-D lattices off on its CPU branch, which leads to AMG; the port has
+    no AMG, and pins the reference to the lattice route in its CPU parity
+    tests with PDEBENCH_TPU_FORCE_STENCIL=1.)
     """
-    if ctx.mesh.dim == 3:
-        if ctx.device.type == "cuda":
-            raise NotImplementedError("3-D lattice routes are not ported to CUDA yet")
-        return None
     from ..solvers.stencil import lattice_operator_from_local
 
     A_np = (
@@ -142,8 +139,9 @@ def maybe_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
 
 def maybe_block_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
     """Block-stencil (f32) form of a VECTOR operator on a node lattice
-    (structured meshes); None otherwise. The same dimension gate as
-    maybe_lattice32: 3-D stays off on the CPU and raises on CUDA."""
+    (structured meshes); None otherwise. 3-D block lattices have no
+    kernel (the reference's block levels are 2-D only): they stay off on
+    the CPU and raise on CUDA."""
     if ctx.mesh.dim == 3:
         if ctx.device.type == "cuda":
             raise NotImplementedError("3-D lattice routes are not ported to CUDA yet")

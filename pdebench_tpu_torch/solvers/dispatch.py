@@ -28,8 +28,9 @@ CUDA kernel, "-torch" its plain version (CPU tensors):
                 hierarchies), "gmres+jacobi" (no hierarchy)
   host:         "host-lu"
 
-Unstructured iterative routes (AMG, Jacobi Krylov on cell operators) are
-not ported yet.
+The routes and names are the same on 2-D and 3-D scalar lattices; block
+lattices are 2-D only. Unstructured iterative routes (AMG, Jacobi Krylov
+on cell operators) are not ported yet.
 
 Port of the stencil-IR route of pdebench_tpu/solvers/dispatch.py.
 """
@@ -63,14 +64,16 @@ MAX_OUTER = 40
 
 
 def fused_gate(lattice32) -> bool:
-    """The port's scope for the fused kernels: a scalar 2-D LatticeGMG
-    whose hierarchy halves at every level. No memory budget: the
-    hierarchy sits in L2 / device memory, not in on-chip scratch."""
+    """The port's scope for the fused kernels: a scalar 2-D or 3-D
+    LatticeGMG whose hierarchy halves at every level. No memory budget:
+    the hierarchy sits in L2 / device memory, not in on-chip scratch (the
+    reference's Pallas builders return None above their VMEM budgets,
+    which every 3-D dataset hierarchy exceeds)."""
     gmg = getattr(lattice32, "gmg", None)
     return (
         isinstance(gmg, LatticeGMG)
         and not gmg.padded
-        and len(lattice32.shape) == 2
+        and len(lattice32.shape) in (2, 3)
     )
 
 

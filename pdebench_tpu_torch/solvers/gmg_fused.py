@@ -1,10 +1,10 @@
 """Fused GMG kernels of the refinement's inner solve: one CUDA launch each.
 
 The mixed-precision refinement's inner step (krylov.refined_solve) runs
-multigrid V-cycles on a 2-D stencil hierarchy. Each builder here wraps one
-hand-written kernel (a cooperative persistent launch whose hierarchy
-stays in L2) for CUDA tensors, and its plain PyTorch version for CPU
-tensors; each holds the math of the Pallas kernel it replaces
+multigrid V-cycles on a 2-D or 3-D stencil hierarchy. Each builder here
+wraps one hand-written kernel (a cooperative persistent launch whose
+hierarchy stays in L2) for CUDA tensors, and its plain PyTorch version
+for CPU tensors; each holds the math of the Pallas kernel it replaces
 (pdebench_tpu/solvers/gmg_fused.py):
 
   build_fused_inner_cg     mode "cg": `inner_iters` GMG-PCG steps, the
@@ -21,11 +21,12 @@ tensors; each holds the math of the Pallas kernel it replaces
                            (csrc/gmg_fused_block_cg.cu)
 
 Shared math: stencil taps read zero outside each level; restriction /
-prolongation are the truncated [1/4, 1/2, 1/4] band and its bilinear
-transpose (banded matmuls in the plain versions, direct 3x3 stencils in
-the kernels); the coarsest solve is an extra level probed one below the
-GMG's last, smoothed by COARSE_SWEEPS damped-Jacobi sweeps (a slightly
-weaker coarse solve than LatticeGMG.precond's dense inverse).
+prolongation are the truncated [1/4, 1/2, 1/4] band per axis and its
+bi- or trilinear transpose (banded matmuls in the plain versions, direct
+3x3 or 3x3x3 stencils in the kernels); the coarsest solve is an extra
+level probed one below the GMG's last, smoothed by COARSE_SWEEPS
+damped-Jacobi sweeps (a slightly weaker coarse solve than
+LatticeGMG.precond's dense inverse).
 
 Block hierarchies apply 2 x 2 tap blocks over two component planes,
 smooth with the 2 x 2 point-block inverse diagonal, transfer each
@@ -33,8 +34,11 @@ component with the scalar bands and sweep the probed level with damped
 block-Jacobi.
 
 The numpy hierarchy builders are copied from the reference, without its
-(8, 128) TPU tile padding. Scope: 2-D lattices whose hierarchy halves at
-every level (not `padded`), scalar or d = 2 blocks, float32.
+(8, 128) TPU tile padding; 3-D levels keep their (nz, ny, nx) layout,
+where the reference flattens them into slab-packed planes (`_Level3`)
+for the TPU's 2-D rolls and banded matmuls. Scope: lattices whose
+hierarchy halves at every level (not `padded`): scalar 2-D or 3-D, or
+2-D d = 2 blocks; float32.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .krylov import lstsq_hessenberg
-from .stencil_kernel import stencil_apply_2d_torch
+from .stencil_kernel import stencil_apply_torch
 
 COARSE_SWEEPS = 10
 # the Arnoldi cycle's preconditioner: chained V-cycles per step
@@ -68,9 +72,10 @@ LAUNCHES_GMRES = 0
 LAUNCHES_BLOCK = 0
 LAUNCHES_BLOCK_RICHARDSON = 0
 
-# limits of csrc/gmg_vcycle.cuh (kMaxLevels, kMaxTaps)
+# limits of csrc/gmg_vcycle.cuh (kMaxLevels, kMaxTaps): a 3-D P2 fine
+# level has 65 taps
 _MAX_LEVELS = 8
-_MAX_TAPS = 64
+_MAX_TAPS = 128
 
 
 def _restrict_band(n_f: int) -> np.ndarray:
@@ -102,12 +107,15 @@ def _prolong_band(n_f: int) -> np.ndarray:
 
 
 class _Level:
-    """A 2-D level as the fused inner solve takes it: float32 weight
-    planes (K, ny, nx) and omega * inverse diagonal (ny, nx), unpadded."""
+    """A scalar level as the fused inner solve takes it, unpadded: float32
+    weight planes (K,) + shape and omega * inverse diagonal of `shape`,
+    (ny, nx) or (nz, ny, nx) (the port's counterpart of the reference's
+    _Level and _Level3; a 2-D level has nz = 1)."""
 
     def __init__(self, W, offsets, pad, shape, diag_inv, omega):
-        ny, nx = shape
-        self.ny, self.nx = ny, nx
+        self.shape = tuple(int(s) for s in shape)
+        self.ny, self.nx = self.shape[-2:]
+        self.nz = self.shape[0] if len(self.shape) == 3 else 1
         self.pad = pad
         self.offsets = offsets
         self.W = np.asarray(W, np.float32)
@@ -156,17 +164,17 @@ def _probe_extra_coarse(levels):
 
 
 def _scalar_hierarchy(gmg):
-    """Scalar 2-D hierarchy for the fused inner solve: the GMG's levels,
-    an extra probed coarsest level (smoothed on its stencil instead of a
-    dense inverse), and the per-level-pair transfer bands.
-    Returns (lv, Bry, Brx, Bpy, Bpx, static_bytes), or None for padded,
-    non-2-D or block hierarchies."""
+    """Scalar 2-D or 3-D hierarchy for the fused inner solve: the GMG's
+    levels, an extra probed coarsest level (smoothed on its stencil
+    instead of a dense inverse), and the per-level-pair transfer bands.
+    Returns (lv, Bry, Brx, Bpy, Bpx, Brz, Bpz) (the z bands empty in
+    2-D), or None for padded or block hierarchies."""
     levels = getattr(gmg, "levels", None)
     if getattr(gmg, "padded", False):
         # identity-padded restriction shapes (even mid-hierarchy axes)
         # break the pure-halving transfer layout assumed here
         return None
-    if not levels or len(levels[0].shape) != 2 or getattr(gmg, "d", 1) != 1:
+    if not levels or len(levels[0].shape) not in (2, 3) or getattr(gmg, "d", 1) != 1:
         return None
     lv = [
         _Level(
@@ -178,25 +186,25 @@ def _scalar_hierarchy(gmg):
     extra = _probe_extra_coarse(levels)
     if extra is not None:
         lv.append(_Level(*extra))
-    bands = _bands(lv)
-    return (lv,) + bands + (_static_bytes(lv, bands),)
+    return (lv,) + _bands(lv)
 
 
 def _bands(lv):
-    """The transfer bands (Bry, Brx, Bpy, Bpx) of each level pair."""
-    Bry, Brx, Bpy, Bpx = [], [], [], []
+    """The transfer bands of each level pair, one restriction and one
+    prolongation band per axis: (Bry, Brx, Bpy, Bpx, Brz, Bpz), the z
+    lists empty for 2-D levels. Applied to a (nz, ny, nx) level they
+    compute what the reference's kron(Bz, By) row band and Bx column band
+    compute on its slab-packed planes (gmg_fused.py:242-265)."""
+    Bry, Brx, Bpy, Bpx, Brz, Bpz = [], [], [], [], [], []
     for f in lv[:-1]:
         Bry.append(_restrict_band(f.ny).astype(np.float32))
         Brx.append(_restrict_band(f.nx).astype(np.float32))
         Bpy.append(_prolong_band(f.ny).astype(np.float32))
         Bpx.append(_prolong_band(f.nx).astype(np.float32))
-    return Bry, Brx, Bpy, Bpx
-
-
-def _static_bytes(lv, bands) -> int:
-    return sum(l.W.nbytes + l.dinv.nbytes for l in lv) + sum(
-        b.nbytes for bl in bands for b in bl
-    )
+        if len(f.shape) == 3:
+            Brz.append(_restrict_band(f.nz).astype(np.float32))
+            Bpz.append(_prolong_band(f.nz).astype(np.float32))
+    return Bry, Brx, Bpy, Bpx, Brz, Bpz
 
 
 class _BlockLevel:
@@ -206,7 +214,8 @@ class _BlockLevel:
 
     def __init__(self, W, offsets, pad, shape, diag_inv, omega):
         ny, nx = shape
-        self.ny, self.nx = ny, nx
+        self.shape = (ny, nx)
+        self.nz, self.ny, self.nx = 1, ny, nx
         self.pad = pad
         self.offsets = offsets
         Wn = np.asarray(W, np.float32)  # (K, ny, nx, d, d)
@@ -257,7 +266,7 @@ def _block_hierarchy(gmg):
     extra = _probe_extra_coarse_block(levels[-1], d)
     if extra is not None:
         lv.append(_BlockLevel(*extra))
-    return (lv,) + _bands(lv)
+    return (lv,) + _bands(lv)[:4]
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,8 +280,8 @@ def _lib_cg(name: str = "gmg_fused_cg") -> ctypes.CDLL:
     fn("desc_bytes").restype = i
     fn("grid").argtypes = [i, ctypes.POINTER(ctypes.c_int)]
     fn("grid").restype = i
-    # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 3 per level),
-    # offsets (int32 x 2 per tap), p, Ap, partial
+    # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 4 per level),
+    # offsets (int32 x 3 per tap), p, Ap, partial
     fn("pack").argtypes = [
         vp, i, vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong,
@@ -306,6 +315,24 @@ def _vp(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _taps3(offsets) -> np.ndarray:
+    """Flat int32 (dz, dy, dx) per tap, as the kernels take taps; a 2-D
+    tap (dy, dx) has dz = 0."""
+    return np.array([(0,) * (3 - len(o)) + tuple(o) for o in offsets], dtype=np.int32).reshape(-1)
+
+
+def _apply_taps(W: torch.Tensor, offsets, pad: int, u: torch.Tensor) -> torch.Tensor:
+    """The plain stencil apply of a 2-D or 3-D level, zero outside it."""
+    return stencil_apply_torch(F.pad(u, (pad,) * (2 * u.dim())), W, offsets, pad)
+
+
+def _transfer(Bz, By, Bx, u: torch.Tensor) -> torch.Tensor:
+    """A transfer band per axis applied to a level vector: By @ (u @ Bx^T)
+    on each z-plane, then Bz along z (None on 2-D levels)."""
+    out = By @ (u @ Bx.T)
+    return out if Bz is None else torch.tensordot(Bz, out, dims=1)
+
+
 class _FusedHierarchy:
     """The hierarchy of a fused kernel on `device`, with the plain
     PyTorch V-cycle and V-cycle chain that the kernels' plain versions
@@ -313,14 +340,16 @@ class _FusedHierarchy:
     a kernel's work vectors are allocated once, with the hierarchy.
 
     The plain versions hold a level vector as component planes: (ny, nx)
-    for scalar hierarchies, (ncomp, ny, nx) for block ones; `_to_planes`
-    and `_from_planes` convert from and to the flat lattice vector."""
+    or (nz, ny, nx) for scalar hierarchies, (ncomp, ny, nx) for block
+    ones; `_to_planes` and `_from_planes` convert from and to the flat
+    lattice vector."""
 
     ncomp = 1  # components per lattice site
 
     def __init__(self, lv, bands, device):
-        self.shape = (lv[0].ny, lv[0].nx)
-        self.dims = [(l.ny, l.nx) for l in lv]
+        self.shape = lv[0].shape  # (ny, nx) or (nz, ny, nx)
+        self.sites = int(np.prod(self.shape))
+        self.dims = [(l.nz, l.ny, l.nx) for l in lv]
 
         def t(a):
             return torch.as_tensor(a, device=device)
@@ -331,7 +360,8 @@ class _FusedHierarchy:
         self.D = [t(l.dinv) for l in lv]
         self.offsets = [[tuple(int(v) for v in o) for o in l.offsets] for l in lv]
         self.pads = [int(l.pad) for l in lv]
-        self.bands = [[t(b) for b in bl] for bl in bands]  # Bry, Brx, Bpy, Bpx
+        # Bry, Brx, Bpy, Bpx, and for 3-D levels Brz, Bpz
+        self.bands = [[t(b) for b in bl] for bl in bands]
         self._cuda = None
 
     # -- plain PyTorch version ------------------------------------------
@@ -343,10 +373,7 @@ class _FusedHierarchy:
         return z.reshape(-1)
 
     def _apply(self, l: int, u: torch.Tensor) -> torch.Tensor:
-        p = self.pads[l]
-        return stencil_apply_2d_torch(
-            F.pad(u, (p, p, p, p)), self.W[l], self.offsets[l], p
-        )
+        return _apply_taps(self.W[l], self.offsets[l], self.pads[l], u)
 
     def _diag(self, l: int, r: torch.Tensor) -> torch.Tensor:
         """omega D^-1 r, the smoother's step."""
@@ -358,10 +385,11 @@ class _FusedHierarchy:
             for _ in range(COARSE_SWEEPS - 1):
                 x = x + self._diag(l, r - self._apply(l, x))
             return x
-        By, Bx, Py, Px = (b[l] for b in self.bands)
+        By, Bx, Py, Px = (b[l] for b in self.bands[:4])
+        Bz, Pz = (b[l] for b in self.bands[4:]) if len(self.shape) == 3 else (None, None)
         res = r - self._apply(l, x)
-        xc = self._vcycle(l + 1, By @ (res @ Bx.T))
-        x = x + Py @ (xc @ Px.T)
+        xc = self._vcycle(l + 1, _transfer(Bz, By, Bx, res))
+        x = x + _transfer(Pz, Py, Px, xc)
         return x + self._diag(l, r - self._apply(l, x))
 
     def _chain(self, v: torch.Tensor, cycles: int) -> torch.Tensor:
@@ -376,10 +404,11 @@ class _FusedHierarchy:
     def _level_arrays(self):
         """Work vectors (3, ncomp * n_l) per level and the flat level
         arrays that pack_levels (csrc/gmg_vcycle.cuh) takes: pointers,
-        dims, taps."""
+        dims (nz, ny, nx, K), taps (dz, dy, dx); a 2-D level has nz = 1
+        and dz = 0."""
         work = [
-            torch.zeros((3, self.ncomp * ny * nx), dtype=torch.float32, device=self.device)
-            for ny, nx in self.dims
+            torch.zeros((3, self.ncomp * nz * ny * nx), dtype=torch.float32, device=self.device)
+            for nz, ny, nx in self.dims
         ]
         ptrs = np.array(
             [
@@ -389,21 +418,21 @@ class _FusedHierarchy:
             dtype=np.int64,
         )
         dims = np.array(
-            [[ny, nx, len(o)] for (ny, nx), o in zip(self.dims, self.offsets)], dtype=np.int32
+            [list(d) + [len(o)] for d, o in zip(self.dims, self.offsets)], dtype=np.int32
         )
-        offs = np.array([o for lvl in self.offsets for o in lvl], dtype=np.int32).reshape(-1)
+        offs = _taps3(o for lvl in self.offsets for o in lvl)
         return work, ptrs, dims, offs
 
     def _grid(self, lib, fn) -> int:
         blocks = ctypes.c_int(0)
         with torch.cuda.device(self.device):
-            _build.check(lib, fn(self.shape[0] * self.shape[1], ctypes.byref(blocks)), fn.__name__)
+            _build.check(lib, fn(self.sites, ctypes.byref(blocks)), fn.__name__)
         return blocks.value
 
     def _check(self, r_flat: torch.Tensor) -> None:
         if r_flat.device != self.device:
             raise ValueError(f"r on {r_flat.device}, hierarchy on {self.device}")
-        n = self.ncomp * self.shape[0] * self.shape[1]
+        n = self.ncomp * self.sites
         if r_flat.dtype != torch.float32 or r_flat.numel() != n:
             raise ValueError(
                 f"expected {n} float32 values, got {r_flat.numel()} {r_flat.dtype}"
@@ -464,7 +493,7 @@ class FusedInnerCG(_FusedHierarchy):
     def _setup_cuda(self):
         lib = _lib_cg(self._kernel)
         work, ptrs, dims, offs = self._level_arrays()
-        n0 = self.ncomp * self.shape[0] * self.shape[1]
+        n0 = self.ncomp * self.sites
         p = torch.zeros(n0, dtype=torch.float32, device=self.device)
         Ap = torch.zeros_like(p)
         blocks = self._grid(lib, self._entry(lib, "grid"))
@@ -568,8 +597,8 @@ class FusedInnerGMRES(_FusedHierarchy):
     """fn(r_lat_flat_f32, W_op) -> z_lat_flat_f32: one m-step
     left-preconditioned Arnoldi cycle, the preconditioner a chain of
     PRECOND_CYCLES V-cycles on the hierarchy, the operator the stencil
-    W_op (K_op, ny, nx) with the taps `op_offsets` given at build (for a
-    surrogate hierarchy the TRUE constrained system, never level 0).
+    W_op (K_op,) + level-0 shape with the taps `op_offsets` given at build
+    (for a surrogate hierarchy the TRUE constrained system, never level 0).
 
     `raw` returns the cycle's basis V (m+1, n), Hessenberg matrix H
     (m+1, m) and beta: `plain_raw` (PyTorch) for a CPU tensor, one kernel
@@ -609,7 +638,7 @@ class FusedInnerGMRES(_FusedHierarchy):
         V[0] = g0 / torch.maximum(beta, eps)
         alive = torch.ones((), **f32)
         for j in range(m):
-            Av = stencil_apply_2d_torch(F.pad(V[j], (p, p, p, p)), W_op, self.op_offsets, p)
+            Av = _apply_taps(W_op, self.op_offsets, p, V[j])
             u = alive * self._chain(Av, PRECOND_CYCLES)
             w = u
             for i in range(j + 1):
@@ -626,13 +655,13 @@ class FusedInnerGMRES(_FusedHierarchy):
     def _setup_cuda(self):
         lib = _lib_gmres()
         work, ptrs, dims, offs = self._level_arrays()
-        n0 = self.shape[0] * self.shape[1]
+        n0 = self.sites
         vecs = torch.zeros((3, n0), dtype=torch.float32, device=self.device)  # Av, z1, w
         blocks = self._grid(lib, lib.gmg_fused_gmres_grid)
         partial = torch.zeros(
             lib.gmg_fused_gmres_partial_slots() * blocks, dtype=torch.float64, device=self.device
         )
-        op_offs = np.array(self.op_offsets, dtype=np.int32).reshape(-1)
+        op_offs = _taps3(self.op_offsets)
         desc = np.zeros(lib.gmg_fused_gmres_desc_bytes(), dtype=np.uint8)
         code = lib.gmg_fused_gmres_pack(
             desc.ctypes.data_as(ctypes.c_void_p), len(self.W),
@@ -691,25 +720,25 @@ class FusedInnerGMRES(_FusedHierarchy):
 
 
 def _in_scope(gmg, hierarchy=_scalar_hierarchy):
-    """The hierarchy the fused kernels take, or None out of scope
-    (padded or non-2-D hierarchies, or the other kind of hierarchy);
+    """The hierarchy the fused kernels take as (levels, bands), or None
+    out of scope (padded hierarchies, or the other kind of hierarchy);
     raises beyond the kernels' limits."""
     built = hierarchy(gmg)
     if built is None:
         return None
-    lv, Bry, Brx, Bpy, Bpx = built[:5]  # the scalar one adds static_bytes
+    lv, bands = built[0], built[1:]
     if not 2 <= len(lv) <= _MAX_LEVELS or any(l.W.shape[0] > _MAX_TAPS for l in lv):
         raise ValueError(
             f"hierarchy beyond the kernel's limits: {len(lv)} levels "
             f"(2 to {_MAX_LEVELS}), taps {[l.W.shape[0] for l in lv]} "
             f"(max {_MAX_TAPS})"
         )
-    return lv, (Bry, Brx, Bpy, Bpx)
+    return lv, bands
 
 
 def build_fused_inner_cg(gmg, inner_iters: int, device, mode: str = "cg") -> Optional[FusedInnerCG]:
     """The fused inner solve for `gmg`'s hierarchy on `device`, or None
-    out of scope (padded or non-2-D hierarchies)."""
+    out of scope (padded or block hierarchies)."""
     built = _in_scope(gmg)
     if built is None:
         return None
@@ -738,7 +767,7 @@ def build_fused_block_inner_cg(
 def build_fused_inner_gmres(gmg, m: int, device, op_offsets) -> Optional[FusedInnerGMRES]:
     """The fused m-step Arnoldi cycle for `gmg`'s hierarchy on `device`,
     its operator a per-call stencil with taps `op_offsets`; None out of
-    scope (padded or non-2-D hierarchies)."""
+    scope (padded or block hierarchies)."""
     built = _in_scope(gmg)
     if built is None:
         return None

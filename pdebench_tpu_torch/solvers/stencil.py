@@ -12,8 +12,9 @@ builds the weight planes from an assembled CSR matrix whose dof
 coordinates form a lattice and applies them on lattice-shaped tensors.
 Vector systems (elasticity) are BLOCK stencils: a d x d block of weight
 planes per offset, applied as d * d scalar stencils over component
-planes. The 2-D apply goes through `stencil_kernel.stencil_apply_2d`: the
-CUDA kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
+planes. The 2-D and 3-D (unit_cube) applies go through
+`stencil_kernel.stencil_apply`: the CUDA kernel for CUDA tensors, its
+plain PyTorch version for CPU tensors.
 
 Port of the constant-operator half of pdebench_tpu/solvers/stencil.py
 (LatticeOperator, BlockLatticeOperator and their builders).
@@ -132,11 +133,10 @@ def apply_stencil(
 ) -> torch.Tensor:
     """y[p] = sum_k W[k, p] * u[p + offsets[k]], zero outside the lattice,
     through the fused stencil kernel's wrapper (CUDA kernel on CUDA
-    tensors, plain version on CPU tensors). 2-D only so far."""
-    if u.dim() != 2:
-        raise NotImplementedError("3-D lattice stencils are not ported yet")
-    up = F.pad(u, (pad, pad, pad, pad))
-    return stencil_kernel.stencil_apply_2d(up, W, offsets, pad)
+    tensors, plain version on CPU tensors)."""
+    if u.dim() not in (2, 3):
+        raise ValueError(f"expected a 2-D or 3-D lattice field, got {tuple(u.shape)}")
+    return stencil_kernel.stencil_apply(F.pad(u, (pad,) * (2 * u.dim())), W, offsets, pad)
 
 
 def _site_offsets(lr: np.ndarray, lc: np.ndarray, shape):

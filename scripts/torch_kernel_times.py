@@ -1,0 +1,103 @@
+"""CUDA-event times of the fused GMG kernels at the main paths' shapes.
+
+    python3 scripts/torch_kernel_times.py [--root DIR] [--3d]
+
+Builds the operators and hierarchies of chip_smoke.py's 2-D cases (with
+--3d also its 3-D ones) through the `chip_smoke.py` of the checkout at DIR
+(default: this script's own), imports `pdebench_tpu_torch` from there too,
+and times each fused kernel on a random lattice residual: kernel #2 (25
+PCG steps), #3 (a chain of 2 V-cycles), #6 (an m = 30 Arnoldi cycle) and
+#4 (25 block PCG steps), each the median over 5 runs of back-to-back calls
+between two CUDA events; and the stencil kernel (`stencil_apply_2d`) on
+each 2-D lattice in float64 and float32 (on an elasticity lattice, one of
+its (a, b) planes), over runs of 20 calls. Two checkouts run in one call, in turns (parent,
+change, change, parent), compare two versions of the kernels on one card.
+Prints the card's name and power limit, then one JSON line
+{"root": DIR, "ms": {"<kernel> <case>": ms, ...}}.
+
+Imports neither jax nor pdebench_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE, help="checkout whose package and chip_smoke.py run")
+    ap.add_argument("--3d", dest="three_d", action="store_true", help="time the 3-D cases too")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda")
+    poisson = ["poisson_basic", "poisson_p3_variable_kappa_mild"]
+    helmholtz = ["helmholtz_basic_k5", "helmholtz_k12_exponential_mode"]
+    elasticity = ["linear_elasticity_nu010", "linear_elasticity_nu030"]
+    if args.three_d:
+        poisson += ["poisson_3d_smooth_trig", "poisson_3d_kappa_expr"]
+        helmholtz += ["helmholtz_3d_k1_trig"]
+    cases = cs.load_cases(set(poisson + helmholtz + elasticity))
+    rng = np.random.default_rng(0)
+    ms = {}
+
+    def time_it(key, fn, calls=5):
+        ms[key] = cs.median_ms(fn, calls=calls, samples=5)
+        print(f"{key}: {ms[key]:.4f} ms", flush=True)
+
+    def time_stencil(cid, lat):
+        if len(lat.shape) != 2:
+            return
+        for W in (lat.W_f64, lat.W):
+            W = W[..., 0, 1].contiguous() if W.dim() == 5 else W
+            u = torch.as_tensor(rng.standard_normal(lat.shape), device=dev).to(W.dtype)
+            up = F.pad(u, (lat.pad,) * 4)
+            time_it(f"stencil_apply_2d {cid} {str(W.dtype)[6:]}",
+                    lambda: stencil_kernel.stencil_apply_2d(up, W, lat.offsets, lat.pad), calls=20)
+
+    for cid in poisson:
+        lat, mask = cs.poisson_operator(cases[cid], dev)
+        time_stencil(cid, lat)
+        r = cs.lattice_rhs(lat, mask, rng, dev)
+        fused = gmg_fused.build_fused_inner_cg(lat.gmg, 25, dev)
+        time_it(f"gmg_fused_cg {cid}", lambda: fused(r))
+    for cid in helmholtz:
+        lat, mask, W32c = cs.helmholtz_operator(cases[cid], dev)
+        time_stencil(cid, lat)
+        r = cs.lattice_rhs(lat, mask, rng, dev)
+        rich = gmg_fused.build_fused_richardson(lat.gmg, 2, dev)
+        time_it(f"gmg_fused_richardson {cid}", lambda: rich(r))
+        fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
+        time_it(f"gmg_fused_gmres {cid}", lambda: fg.raw(r, W32c))
+    for cid in elasticity:
+        lat, mask = cs.elasticity_operator(cases[cid], dev)
+        time_stencil(cid, lat)
+        r = cs.lattice_rhs(lat, mask, rng, dev)
+        block = gmg_fused.build_fused_block_inner_cg(lat.gmg, 25, dev)
+        time_it(f"gmg_fused_block_cg {cid}", lambda: block(r))
+    print(json.dumps({"root": args.root, "ms": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

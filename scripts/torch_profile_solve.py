@@ -2,8 +2,9 @@
 
     python3 scripts/torch_profile_solve.py [case_id ...]
 
-For each dataset case (default: the six cases of chip_smoke.py's main
-paths, Poisson, Helmholtz and elasticity): one OracleSolver(device="cuda") solve to
+For each dataset case (default: the nine dataset cases of chip_smoke.py's
+main paths, Poisson, Helmholtz and elasticity in 2-D, Poisson and Helmholtz
+in 3-D): one OracleSolver(device="cuda") solve to
 build the kernels and warm every cache, then a second solve whose warm
 linear solve (the oracle's second `solve_linear` call, the one
 `t_warm` times) runs under torch.profiler. Prints per case the wall time of
@@ -32,6 +33,7 @@ DEFAULT = (
     "poisson_basic", "poisson_p3_variable_kappa_mild",
     "helmholtz_basic_k5", "helmholtz_k12_exponential_mode",
     "linear_elasticity_nu010", "linear_elasticity_nu030",
+    "poisson_3d_smooth_trig", "poisson_3d_kappa_expr", "helmholtz_3d_k1_trig",
 )
 
 

@@ -53,7 +53,7 @@ def test_stencil_kernel_matches_plain(dev, n, p, dtype):
     before = stencil_kernel.LAUNCHES
     y = stencil_kernel.stencil_apply_2d(up, W, offs, p)
     assert stencil_kernel.LAUNCHES == before + 1
-    y_plain = stencil_kernel.stencil_apply_2d_torch(up, W, offs, p)
+    y_plain = stencil_kernel.stencil_apply_torch(up, W, offs, p)
     assert y.dtype == dtype and y.device == W.device
     err = float((y - y_plain).abs().max() / y_plain.abs().max())
     assert err <= TOL[dtype], err
@@ -68,7 +68,7 @@ def _case_gmg(dev, case_id):
         cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
     cfg = scalar.override_bc_with_mms(cfg, cfg["pde"]["manufactured_solution"]["u"])
     ctx = scalar.setup_scalar(cfg, dev)
-    kappa = base.coefficient_fn(cfg["pde"]["coefficients"]["kappa"], 2, dev)
+    kappa = base.coefficient_fn(cfg["pde"]["coefficients"]["kappa"], ctx.dim, dev)
     lat = scalar.maybe_lattice32(ctx, local_stiffness(ctx.cb, kappa(ctx.qpts())))
     mask = ctx.mask.cpu().numpy()
     attach_lattice_gmg(lat, mask)
@@ -171,9 +171,9 @@ def _lattice_rhs(lat, mask, seed, dev):
 
 
 def _true_residual(lat, W32c, r_lat, z):
-    Az = stencil_kernel.stencil_apply_2d_torch(
-        F.pad(z.reshape(lat.shape), (lat.pad,) * 4), W32c, lat.offsets, lat.pad
-    ).reshape(-1)
+    """||r - A z|| / ||r|| with A the stencil W32c on a 2-D or 3-D lattice."""
+    up = F.pad(z.reshape(lat.shape), (lat.pad,) * (2 * len(lat.shape)))
+    Az = stencil_kernel.stencil_apply_torch(up, W32c, lat.offsets, lat.pad).reshape(-1)
     return float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
 
 
@@ -391,3 +391,119 @@ def test_stalled_ir_on_cuda_raises_whatever_the_request(dev, monkeypatch, ksp):
     cfg.pop("reference_config")
     with pytest.raises(RuntimeError, match="did not converge"):
         OracleSolver(device=dev).solve(cfg)
+
+
+# -- 3-D lattices (unit_cube P2: 65 fine taps) ------------------------------
+
+RESID_FLOOR = 1e-5  # true-operator residual of a float32 Arnoldi cycle
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stencil_kernel_3d_matches_plain(dev, dtype):
+    """The kernel on a 33^3 lattice with the 65 taps of a P2 stencil."""
+    from pdebench_tpu_torch.fem.assemble import cell_batch, local_stiffness
+    from pdebench_tpu_torch.fem.mesh import unit_cube_mesh
+    from pdebench_tpu_torch.fem.spaces import FunctionSpace
+    from pdebench_tpu_torch.solvers.stencil import lattice_operator_from_local
+
+    V = FunctionSpace(unit_cube_mesh(2), 2)
+    op = lattice_operator_from_local(
+        local_stiffness(cell_batch(V.mesh, 2)), V.dofmap_scalar, V.ndof, V.dof_coords, "cpu"
+    )
+    offs, p = op.offsets, op.pad
+    assert len(offs) == 65
+    rng = np.random.default_rng(1)
+    W = torch.as_tensor(rng.standard_normal((65, 33, 33, 33)), device=dev).to(dtype)
+    up = F.pad(torch.as_tensor(rng.standard_normal((33, 33, 33)), device=dev).to(dtype), (p,) * 6)
+    before = stencil_kernel.LAUNCHES
+    y = stencil_kernel.stencil_apply(up, W, offs, p)
+    assert stencil_kernel.LAUNCHES == before + 1
+    y_plain = stencil_kernel.stencil_apply_torch(up, W, offs, p)
+    err = float((y - y_plain).abs().max() / y_plain.abs().max())
+    assert err <= TOL[dtype], err
+POISSON_3D = {
+    # case id -> (recorded baseline_error, outer rounds of 25 fused PCG steps)
+    "poisson_3d_kappa_expr": (3.7355568479364103e-4, 2),
+    "poisson_3d_smooth_trig": (2.4147996840258627e-4, 2),
+}
+
+
+@pytest.mark.parametrize("iters,tol", [(1, TOL_VCYCLE), (25, TOL_CG)])
+@pytest.mark.parametrize("case_id", sorted(POISSON_3D))
+def test_fused_cg_kernel_3d_matches_plain(dev, case_id, iters, tol):
+    """Kernel #2 on a 3-D hierarchy whose fine level has 65 taps: one PCG
+    step (the 3-D V-cycle per element) and the main path's 25."""
+    lat, mask = _case_gmg(dev, case_id)
+    assert len(lat.shape) == 3 and len(lat.offsets) == 65 and not lat.gmg.padded
+    inner = gmg_fused.build_fused_inner_cg(lat.gmg, iters, dev)
+    r = _lattice_rhs(lat, mask, 12, dev)
+    before = gmg_fused.LAUNCHES
+    z = inner(r)
+    assert gmg_fused.LAUNCHES == before + 1
+    z_plain = inner.plain(r)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * scale)
+    if iters == 25:
+        lv0 = lat.gmg.levels[0]
+        assert _true_residual(lat, lv0.W, r, z) < 1e-3
+
+
+@pytest.mark.parametrize("cycles", [1, 2])
+def test_fused_richardson_kernel_3d_matches_plain(dev, cycles):
+    lat, mask, _ = _helmholtz(dev, "helmholtz_3d_k1_trig")
+    assert len(lat.shape) == 3 and lat.gmg.surrogate and not lat.gmg.padded
+    rich = gmg_fused.build_fused_richardson(lat.gmg, cycles, dev)
+    r1, r2 = _lattice_rhs(lat, mask, 13, dev), _lattice_rhs(lat, mask, 14, dev)
+    before = gmg_fused.LAUNCHES_RICHARDSON
+    z1 = rich(r1)
+    assert gmg_fused.LAUNCHES_RICHARDSON == before + 1
+    z_plain = rich.plain(r1)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z1, z_plain, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+    torch.testing.assert_close(rich(r1 + 2.0 * r2), z1 + 2.0 * rich(r2), rtol=TOL_LINEAR, atol=TOL_LINEAR * scale)
+
+
+def test_fused_gmres_kernel_3d_matches_plain(dev):
+    """m = 1 per element on V, H and beta; m = 30 by its true-operator
+    residual (65 operator taps, the TRUE constrained weights)."""
+    lat, mask, W32c = _helmholtz(dev, "helmholtz_3d_k1_trig")
+    assert W32c.shape == (65,) + lat.shape
+    r = _lattice_rhs(lat, mask, 15, dev)
+    one = gmg_fused.build_fused_inner_gmres(lat.gmg, 1, dev, lat.offsets)
+    before = gmg_fused.LAUNCHES_GMRES
+    got = one.raw(r, W32c)
+    assert gmg_fused.LAUNCHES_GMRES == before + 1
+    for g, w in zip(got, one.plain_raw(r, W32c)):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+    # at k = 1 both cycles reach ~1e-6, where float32 Gram-Schmidt sets
+    # the residual and no ratio holds: below RESID_FLOOR they pass
+    fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
+    rel = _true_residual(lat, W32c, r, fg(r, W32c))
+    rel_plain = _true_residual(lat, W32c, r, fg.plain(r, W32c))
+    assert rel < 0.1 and rel <= 2.0 * max(rel_plain, RESID_FLOOR), (rel, rel_plain)
+
+
+def test_3d_oracle_runs_the_kernels(dev):
+    """The 3-D main path: kernel #2 for Poisson, kernel #6 for Helmholtz
+    (35,937 dofs, above the 20,000 of the whole fused Arnoldi cycle)."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    # helmholtz_3d_k1_trig takes 2 or 3 rounds: kernel #6 ends its second
+    # round near the tolerance, and the last bits of the load vector
+    # (index_add_'s atomics) decide the side (scripts/torch_ir_rounds.py)
+    want = {
+        "poisson_3d_kappa_expr": (POISSON_3D["poisson_3d_kappa_expr"][0], "fused-cg-cuda", (2 * 25,)),
+        "helmholtz_3d_k1_trig": (2.416098792334167e-4, "fused-gmres-cuda", (2 * 30, 3 * 30)),
+    }
+    for case_id, (ref_err, inner, iterations) in want.items():
+        with open(DATA) as fh:
+            cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+        gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_GMRES = stencil_kernel.LAUNCHES = 0
+        res = OracleSolver(device=dev).solve(cfg)
+        assert res.solver_info["inner"] == inner
+        assert res.solver_info["iterations"] in iterations
+        assert (gmg_fused.LAUNCHES if "cg" in inner else gmg_fused.LAUNCHES_GMRES) > 0
+        assert stencil_kernel.LAUNCHES > 0  # the f64 outer residual
+        assert res.reference.shape == (25, 25, 25)
+        assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
