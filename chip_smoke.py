@@ -26,6 +26,12 @@ recorded values:
               Richardson preconditioner; the stencil kernel on 3-D
               lattices (the f64 outer residual, and the f32 applies of the
               PyTorch GMRES)
+  Navier-     `navier_stokes_low_re` (nu = 1, Stokes init) and
+  Stokes      `navier_stokes_basic` (nu = 0.1, continuation), P2-P1 at
+              resolution 48 (97 x 97 velocity nodes, 21,219 dofs): the
+              whole-device Newton, its saddle FGMRES preconditioned by the
+              fused dynamic-weight block V-cycle (97/49/25/13 hierarchy
+              rebuilt from every Newton step's convected Jacobian)
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -91,6 +97,15 @@ LATTICE_3D = {
     "poisson_3d_kappa_expr": (3.7355568479364103e-4, 1e-6, "fused-cg-cuda", 2, 25),
     "helmholtz_3d_k1_trig": (2.416098792334167e-4, 1e-6, "fused-gmres-cuda", (2, 3), 30),
     "helmholtz_3d_k1_trig@12": (1.4542538224140384e-4, 1e-6, "gmres+fused-richardson-cuda", 2, 30),
+}
+# Navier-Stokes: case id -> (recorded baseline_error, relative
+# tolerance). A Newton stop at rtol 1e-10 may move the solution by ~1e-10,
+# an error of ~3e-6 by up to ~3e-5 relative; the card reads 3.95e-10 and
+# 2.06e-8 on every solve (its sums run in a fixed order), so 1e-6 holds
+# with a margin of 50 over the larger
+NAVIER_STOKES = {
+    "navier_stokes_low_re": (3.041429902434237e-06, 1e-6),
+    "navier_stokes_basic": (3.0425996199305986e-06, 1e-6),
 }
 SOLVES = 3  # whole-case solves per case on each main path
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
@@ -220,6 +235,21 @@ def block_cg_bound(fused) -> dict:
     step = 8 * K0 * n0 + 4 * n0 + 8 * n0 + v + 4 * n0 + 4 * n0
     flops = v + 4 * n0 + fused.inner_iters * step
     return bound(hierarchy_bytes(fused) + 2 * 2 * 4 * n0, flops, torch.float32)
+
+
+def dyn_block_bound(lv, cycles: int) -> dict:
+    """Kernel #5 on levels lv [(W, D)]: every level's W and D read once, r
+    read and z written once (two components); operations of `cycles`
+    block V-cycles on those levels and the fine-level residual and update
+    between cycles."""
+    from types import SimpleNamespace
+
+    W0 = lv[0][0]
+    K0, n0 = W0.shape[0], W0.shape[-2] * W0.shape[-1]
+    v = block_vcycle_flops(SimpleNamespace(W=[W for W, _ in lv]))
+    flops = cycles * v + (cycles - 1) * (8 * K0 * n0 + 4 * n0)
+    nbytes = sum(W.numel() * 4 + D.numel() * 4 for W, D in lv) + 2 * 2 * 4 * n0
+    return bound(nbytes, flops, torch.float32)
 
 
 def richardson_bound(fused) -> dict:
@@ -595,6 +625,131 @@ def check_block_transpose(lat, mask, rng, dev):
                              f"skew {skew}, diff {diff}")
 
 
+def random_block_weights(offsets, shape, rng):
+    """Random block weights (K, *shape, 2, 2) on a lattice's taps, not
+    symmetric per site and skewed in their diagonal blocks: taps reaching
+    outside the lattice zero, diagonal blocks dominant (a stable
+    block-Jacobi smoother)."""
+    K = len(offsets)
+    W = rng.standard_normal((K,) + tuple(shape) + (2, 2))
+    grids = np.meshgrid(*[np.arange(n) for n in shape], indexing="ij")
+    for k, off in enumerate(offsets):
+        ok = np.ones(shape, dtype=bool)
+        for g, o, n in zip(grids, off, shape):
+            ok &= (g + o >= 0) & (g + o < n)
+        W[k][~ok] = 0.0
+        if all(o == 0 for o in off):
+            # dominant, and skewed: D[0, 1] and D[1, 0] differ by ~4K
+            W[k] += 4 * K * np.eye(2) + 2 * K * np.array([[0.0, 1.0], [-1.0, 0.0]])
+    return W
+
+
+def check_dyn_block(prob, rng, dev, report):
+    """Kernel #5 on a Navier-Stokes case's hierarchy (the main path's
+    shapes), against its plain version at 1 and 2 cycles, on weight sets
+    called one after another on the same spec: the convected Jacobian at
+    the Stokes solution (its per-site blocks are not symmetric: N1 carries
+    du_a/dx_b), the Jacobian at twice that state, a skewed random block
+    stencil, then the first set again. A kernel that kept a stale weight
+    set, or read W[k, b, a] or D[b, a], fails one of them."""
+    from pdebench_tpu_torch.solvers import gmg_fused
+
+    sst, spec = prob.sst, prob.spec
+    x1 = prob.stokes_direct(prob.nu)
+    wm = sst.wmapA
+    W_rand = random_block_weights(wm.offsets, sst.fine, rng)
+    sets = [
+        ("J(Stokes)", wm.weights(prob.jacobian(x1, prob.nu)).float()),
+        ("J(2 x Stokes)", wm.weights(prob.jacobian(2.0 * x1, prob.nu)).float()),
+        ("skewed random", torch.as_tensor(W_rand, dtype=torch.float32, device=dev)),
+    ]
+    levels = [(name, prob.levels(W)) for name, W in sets]
+    levels.append(("J(Stokes) again", levels[0][1]))
+    # asymmetry of the fine level's 2 x 2 tap blocks and smoother blocks:
+    # max |T[0, 1] - T[1, 0]| / max (|T[0, 1]| + |T[1, 0]|), 0 for symmetric
+    # blocks, 1 for antisymmetric ones
+    def asymmetry(T, a):
+        t01, t10 = T.select(a, 0).select(a, 1), T.select(a, 1).select(a, 0)
+        return float((t01 - t10).abs().max() / (t01.abs() + t10.abs()).max())
+
+    asym = {name: [asymmetry(lv[0][0], 1), asymmetry(lv[0][1], 0)] for name, lv in levels[:3]}
+    keep = prob.keep_node32[..., None]
+    for cycles in (1, 2):
+        fused = gmg_fused.build_fused_dyn_block_vcycle(spec, cycles, dev)
+        r = (torch.as_tensor(rng.standard_normal(sst.fine + (2,)), dtype=torch.float32,
+                             device=dev) * keep).reshape(-1)
+        outs = []
+        for name, lv in levels:
+            zk, zp = fused(r, lv), fused.plain(r, lv)  # kernel, plain
+            torch.cuda.synchronize()
+            diff, scale, ok = allclose_scale(zk, zp, TOL_VCYCLE)
+            outs.append(zp)
+            say("3e", f"fused_dyn_block_vcycle {cycles} cycle(s) {len(lv)} levels "
+                      f"{[tuple(W.shape) for W, _ in lv]} {name}: max abs diff {diff:.3e} "
+                      f"(scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
+            if not ok:
+                raise AssertionError(f"fused dyn block V-cycle disagrees on {name}, "
+                                     f"{cycles} cycles: {diff}")
+            if name == "J(Stokes)" and cycles == 1:
+                err = diff
+        # the weight sets must part the outputs, or a stale set would not show
+        apart = float((outs[0] - outs[1]).abs().max() / outs[0].abs().max())
+        say("3e", f"fused_dyn_block_vcycle {cycles} cycle(s): J(Stokes) and J(2 x Stokes) "
+                  f"outputs {apart:.3e} apart (of scale); asymmetry of the fine W and D "
+                  f"blocks {asym}")
+        if not (apart > 1e-2 and min(asym["skewed random"]) > 0.1):
+            raise AssertionError(f"weight sets too close to tell apart: {apart}, {asym}")
+    fused = gmg_fused.build_fused_dyn_block_vcycle(spec, 1, dev)
+    lv = levels[0][1]
+    ms = median_ms(lambda: fused(r, lv), calls=20, samples=5)
+    plain_ms = median_ms(lambda: fused.plain(r, lv), calls=2, samples=3)
+    b = dyn_block_bound(lv, 1)
+    say("3e", f"fused_dyn_block_vcycle 1 cycle (the main path's): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
+    report["gmg_fused_dyn_block_vcycle"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+
+
+def drive_ns(solver, cases, want, phase):
+    """SOLVES whole-case Navier-Stokes solves per case through
+    OracleSolver, setup caches cleared before each: the error within its
+    tolerance of the record, a finite grid of the case's shape, the fused
+    route, no failed linear solve."""
+    from pdebench_tpu_torch.oracle import base
+    from pdebench_tpu_torch.solvers import gmg_fused
+
+    for cid, (ref_err, tol) in want.items():
+        warm, total = [], []
+        for _ in range(SOLVES):
+            base.clear_setup_caches()
+            before = gmg_fused.LAUNCHES_DYN_BLOCK
+            res = solver.solve(cases[cid])
+            info = res.solver_info
+            grid = np.asarray(res.reference)
+            rel = abs(res.baseline_error - ref_err) / ref_err
+            say(phase, f"{cid}: baseline_error {res.baseline_error!r} (recorded "
+                       f"{ref_err!r}, rel {rel:.2e}, tol {tol:g}); baseline_time "
+                       f"{res.baseline_time:.4f} s, t_setup {info['t_setup']:.4f} s, "
+                       f"warm solve {info['t_warm']:.4f} s, cold {info['t_cold']:.4f} s; "
+                       f"inner {info.get('inner')}, linear solves {info['iterations']}, "
+                       f"Krylov iterations {info['kry_its']}, residual {info['residual']!r}; "
+                       f"kernel #5 launches in this solve (cold and warm runs) "
+                       f"{gmg_fused.LAUNCHES_DYN_BLOCK - before}")
+            g = cases[cid]["output"]["grid"]
+            shape = (g["ny"], g["nx"])
+            if grid.shape != shape or not np.isfinite(grid).all():
+                raise AssertionError(f"{cid}: bad grid {grid.shape}, expected {shape}")
+            if not rel <= tol:
+                raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
+            if info.get("inner") != "newton-fgmres+fused-dyn-vcycle-cuda" or "iterative_failed" in info:
+                raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
+            warm.append(info["t_warm"])
+            total.append(res.baseline_time)
+        say(phase, f"{cid} over {SOLVES} solves: warm solve median "
+                   f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
+                   f"baseline_time median {statistics.median(total):.4f} s "
+                   f"({min(total):.4f}-{max(total):.4f})")
+
+
 def drive(solver, cases, want, phase):
     """SOLVES whole-case solves per case through OracleSolver, setup
     caches cleared before each; every check of the case must hold."""
@@ -655,7 +810,8 @@ def main() -> int:
              f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # (1) build: one nvcc per source, all started together
-    sources = ("stencil_apply", "gmg_fused_cg", "gmg_fused_gmres", "gmg_fused_block_cg")
+    sources = ("stencil_apply", "gmg_fused_cg", "gmg_fused_gmres", "gmg_fused_block_cg",
+               "gmg_fused_dyn_block")
     t0 = time.perf_counter()
     _build.load_all(sources)
     say("1", f"built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
@@ -664,7 +820,8 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         say("1", f"{name}: " + " | ".join(usage))
 
-    cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D))
+    cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D)
+                       | set(NAVIER_STOKES))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
@@ -698,9 +855,17 @@ def main() -> int:
     check_block_transpose(
         *elasticity_operator(cases["linear_elasticity_nu010"], dev, rough=True), rng, dev
     )
+    # (3e) kernel #5 on navier_stokes_basic's hierarchy, with PyTorch's
+    # default cuDNN TF32 setting from here on: the port's coarsening must
+    # not depend on it
+    torch.backends.cudnn.allow_tf32 = True
+    from pdebench_tpu_torch.oracle.navier_stokes import NavierStokesProblem
+
+    check_dyn_block(NavierStokesProblem(cases["navier_stokes_basic"], dev), rng, dev, report)
 
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
-    # elasticity main path, (7) the 3-D main path: OracleSolver on the
+    # elasticity main path, (7) the 3-D main path, (8) the Navier-Stokes
+    # main path: OracleSolver on the
     # card, the counters set to 0 just before each and read after; each
     # path maps its entries of the kernels line to the counters they read
     # (one stencil kernel: stencil_apply_2d and _3d are its launches on
@@ -718,12 +883,14 @@ def main() -> int:
         ("7", LATTICE_3D,
          {"stencil_apply_3d": "stencil_apply", "gmg_fused_cg_3d": "gmg_fused_cg",
           "gmg_fused_richardson_3d": "gmg_fused_richardson", "gmg_fused_gmres_3d": "gmg_fused_gmres"}),
+        ("8", NAVIER_STOKES, {"gmg_fused_dyn_block_vcycle": "gmg_fused_dyn_block"}),
     )
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
         gmg_fused.LAUNCHES_BLOCK = gmg_fused.LAUNCHES_BLOCK_RICHARDSON = 0
-        drive(solver, cases, want, phase)
+        gmg_fused.LAUNCHES_DYN_BLOCK = 0
+        (drive_ns if phase == "8" else drive)(solver, cases, want, phase)
         counts = {
             "stencil_apply": stencil_kernel.LAUNCHES,
             "gmg_fused_cg": gmg_fused.LAUNCHES,
@@ -731,6 +898,7 @@ def main() -> int:
             "gmg_fused_gmres": gmg_fused.LAUNCHES_GMRES,
             "gmg_fused_block_cg": gmg_fused.LAUNCHES_BLOCK,
             "gmg_fused_block_richardson": gmg_fused.LAUNCHES_BLOCK_RICHARDSON,
+            "gmg_fused_dyn_block": gmg_fused.LAUNCHES_DYN_BLOCK,
         }
         say(phase, f"kernel launches on this main path: {counts}")
         for entry, counter in entries.items():
@@ -753,10 +921,11 @@ def main() -> int:
         "gmg_fused_cg_3d": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         "gmg_fused_richardson_3d": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         "gmg_fused_gmres_3d": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
+        "gmg_fused_dyn_block_vcycle": ("gmg_fused_dyn_block.cu", "pdebench_tpu/solvers/gmg_fused.py:934"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
-    # multi-tap stencil, a V-cycle chain, a (block) PCG solve or an
-    # Arnoldi cycle
+    # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or
+    # an Arnoldi cycle
     kernels = [
         dict(name=name, route="cuda", source=f"pdebench_tpu_torch/csrc/{src}",
              replaces=rep, launches=launches[name], library_ms=None, **report[name])

@@ -1,5 +1,7 @@
 // Multigrid V-cycle device code shared by the fused GMG kernels
-// (gmg_fused_cg.cu, gmg_fused_gmres.cu), for Hopper (sm_90a).
+// (gmg_fused_cg.cu, gmg_fused_gmres.cu; the levels, transfers and host
+// packing also by the block kernels through gmg_block_vcycle.cuh), for
+// Hopper (sm_90a).
 //
 // A hierarchy is levels 0..L-1 of a 2-D or 3-D scalar lattice; level l+1
 // halves level l ((n - 1) / 2 + 1 points per axis). A level is (nz, ny, nx)
@@ -321,11 +323,13 @@ inline int set_taps(Level& L, int K, const int* offs) {
 // Level descriptors from flat host arrays. ptrs: 5 device pointers per
 // level (W, D, r, x, t); dims: 4 ints per level (nz, ny, nx, K); offs:
 // 3 * K ints per level, (dz, dy, dx) per tap, levels concatenated (a 2-D
-// level: nz = 1, dz = 0). At least two levels: the level-0 post-smoothing
-// is the callers' own stage.
+// level: nz = 1, dz = 0). At least `min_levels` levels: two where the
+// caller post-smooths level 0 as its own stage after vcycle_to_fine; a
+// caller that takes one level reads a one-level V-cycle (the coarsest
+// sweeps alone) from lv[0].t.
 inline int pack_levels(Level* lv, int nlev, const long long* ptrs,
-                       const int* dims, const int* offs) {
-  if (nlev < 2 || nlev > kMaxLevels) return (int)cudaErrorInvalidValue;
+                       const int* dims, const int* offs, int min_levels = 2) {
+  if (nlev < min_levels || nlev > kMaxLevels) return (int)cudaErrorInvalidValue;
   int o = 0;
   for (int l = 0; l < nlev; ++l) {
     Level& L = lv[l];

@@ -11,7 +11,7 @@ the geometry and the constant-coefficient fast paths run in numpy while
 coefficients evaluated onto a device (fem/symbolic.py) keep the einsum
 on that device.
 
-Port of the scalar forms and the elasticity forms of
+Port of the scalar, elasticity and Taylor-Hood forms of
 pdebench_tpu/fem/assemble.py.
 """
 
@@ -338,6 +338,30 @@ def scatter_add(
     return out.index_add_(0, dofmap.reshape(-1), cell_vals.reshape(-1))
 
 
+class GatherSum:
+    """scatter_add with a fixed summation order: (n_cells, nl) local
+    contributions -> (ndof,) global vector, each dof the sum of its
+    gathered contributions (index lists built once on the host from the
+    dofmap). Same values as scatter_add up to rounding, the same on every
+    call: index_add_'s atomics on CUDA vary the last bits from call to
+    call, and a Newton loop's step and Krylov counts with them."""
+
+    def __init__(self, dofmap: np.ndarray, ndof: int, device):
+        self.ndof = int(ndof)
+        flat = np.asarray(dofmap, dtype=np.int64).reshape(-1)
+        order = np.argsort(flat, kind="stable")
+        counts = np.bincount(flat, minlength=int(ndof))
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        seg = np.full((int(ndof), max(int(counts.max()), 1)), len(flat), dtype=np.int64)
+        rows = np.repeat(np.arange(int(ndof)), counts)
+        seg[rows, np.arange(len(flat)) - start[rows]] = order
+        self.seg = torch.as_tensor(seg, device=device)
+
+    def __call__(self, cell_vals: torch.Tensor) -> torch.Tensor:
+        src = torch.cat([cell_vals.reshape(-1), cell_vals.new_zeros(1)])
+        return src[self.seg].sum(dim=1)
+
+
 class LocalOperator:
     """Global linear operator stored as cell-local dense matrices.
 
@@ -410,3 +434,45 @@ def constrained_rhs(
     gz = torch.where(mask, g, 0.0)
     r = b - apply_A(gz)
     return torch.where(mask, g, r)
+
+
+# ---------------------------------------------------------------------------
+# Taylor-Hood (mixed velocity / pressure) forms
+# ---------------------------------------------------------------------------
+
+
+def local_vector_laplacian(cb: CellBatch, coef=1.0) -> np.ndarray:
+    """∫ coef grad(u):grad(v) over blocked vector dofs (component-diagonal).
+
+    K[(ia),(jb)] = delta_ab * coef * ∫ grad phi_i . grad phi_j, interleaved
+    ordering: the nu * inner(grad(u), grad(v)) block of Stokes and of the
+    Navier-Stokes Jacobian."""
+    Ks = local_stiffness(cb) * coef  # (c, nl, nl)
+    d = cb.dphi.shape[-1]
+    K = np.einsum("cij,ab->ciajb", Ks, np.eye(d))
+    c, nl = Ks.shape[0], Ks.shape[1]
+    return K.reshape(c, nl * d, nl * d)
+
+
+def local_divergence(cb: CellBatch, psi: np.ndarray) -> np.ndarray:
+    """Pressure-velocity coupling G[(ia), j] = -∫ psi_j dphi_i/dx_a.
+
+    psi: (nq, nlp) pressure basis at the SAME quadrature points. The
+    saddle system is [[A, G], [G^T, 0]] (a = ... - p div v - q div u)."""
+    psi = np.asarray(psi)
+    aff = cb.affine_host()
+    if aff is not None:
+        iJ, detJ = aff  # (c, d, k), (c,)
+        nq, nl, d = cb.dphi.shape
+        nlp = psi.shape[-1]
+        T = np.einsum("q,qik,qj->kij", cb.qw, cb.dphi, psi).reshape(d, nl * nlp)
+        G = -(iJ.reshape(-1, d) @ T).reshape(len(detJ), d, nl, nlp) * detJ[
+            :, None, None, None
+        ]
+        return np.ascontiguousarray(G.transpose(0, 2, 1, 3)).reshape(
+            len(detJ), nl * d, nlp
+        )
+    g = cb.grad_phys()  # (c, q, i, d)
+    G = -np.einsum("cqia,qj,cq->ciaj", g, psi, cb.wdetJ, optimize=True)
+    c, nl, d, nlp = G.shape
+    return G.reshape(c, nl * d, nlp)

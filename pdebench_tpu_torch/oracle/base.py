@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import json
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -236,6 +236,27 @@ def exact_grid_vector_magnitude(
     if mask_from is not None:
         mag = np.where(np.isnan(mask_from), np.nan, mag)
     return mag
+
+
+def interpolate_nodal(
+    space: FunctionSpace,
+    exprs: Union[ExprLike, Sequence[ExprLike]],
+    t: Optional[float] = None,
+) -> np.ndarray:
+    """Nodal interpolation: evaluate expression(s) at dof coordinates
+    (equispaced Lagrange nodes). Returns (ndof,) blocked for vector
+    spaces (host numpy)."""
+    dim = space.mesh.dim
+
+    def at_nodes(e):
+        fn = symbolic.lambdify_numpy(e, dim, with_time=t is not None)
+        return fn(space.dof_coords, t) if t is not None else fn(space.dof_coords)
+
+    if isinstance(exprs, (list, tuple)):
+        return np.stack([at_nodes(e) for e in exprs], axis=1).reshape(-1)
+    if space.ncomp != 1:
+        raise ValueError("scalar expression on vector space")
+    return at_nodes(exprs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,196 @@
+"""Shared Taylor-Hood (mixed velocity/pressure) machinery.
+
+Layout: the mixed unknown is one flat vector x = [u_blocked ; p], with
+velocity dofs interleaved (node-major, component-minor) followed by
+pressure dofs. The coupled operator is applied matrix-free from
+cell-local blocks (A velocity block, G coupling):
+
+    r_u = A u + G p        r_p = G^T u
+
+Dirichlet velocity rows and one pinned pressure dof are eliminated
+symmetrically (constrained_operator). The direct path assembles a global
+CSR on the host and factorizes with SuperLU.
+
+Port of the parts of pdebench_tpu/oracle/mixed.py that the Navier-Stokes
+oracle runs: the context and its setup, the cell-batched saddle apply,
+the host CSR and the lumped pressure-mass Schur diagonal of
+`saddle_gmg_precond_parts` (its scalar-GMG velocity preconditioner
+belongs to the Stokes slice).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from ..fem import refelem, sampling
+from ..fem.assemble import CellBatch, cell_batch
+from ..fem.mesh import Mesh
+from ..fem.spaces import FunctionSpace
+from . import base
+
+
+@dataclass
+class TaylorHoodContext:
+    config: Dict[str, Any]
+    device: torch.device
+    mesh: Mesh
+    V: FunctionSpace  # velocity (vector, degree_u)
+    Q: FunctionSpace  # pressure (scalar, degree_p)
+    cb: CellBatch  # tabulated at degree_u quadrature
+    psi: np.ndarray  # (nq, nlp) pressure basis at the same points
+    grid: Dict[str, Any]
+    loc: sampling.PointLocation
+    mask: torch.Tensor  # (N,) combined Dirichlet + pressure-pin mask
+    g: torch.Tensor  # (N,) constrained values
+    pin_dof: int
+    t_setup: float
+
+    @property
+    def dim(self) -> int:
+        return self.mesh.dim
+
+    @property
+    def N(self) -> int:
+        return self.V.ndof + self.Q.ndof
+
+    def qpts(self) -> np.ndarray:
+        return self.cb.qpts
+
+    def sample_velocity_magnitude(self, x) -> np.ndarray:
+        u = np.asarray(x)[: self.V.ndof]
+        return sampling.sample_on_grid(self.V, u, self.grid, loc=self.loc)
+
+
+def setup_taylor_hood(
+    config: Dict[str, Any], device, pin_pressure: bool = True
+) -> TaylorHoodContext:
+    device = torch.device(device)
+    t_start = time.perf_counter()
+    fem_cfg = config.get("fem", {})
+    deg_u = int(fem_cfg.get("degree_u", 2))
+    deg_p = int(fem_cfg.get("degree_p", 1))
+    grid = config["output"]["grid"]
+
+    def _build_geom():
+        mesh_ = base.build_mesh(config["domain"], config.get("mesh", {}))
+        V_ = FunctionSpace(mesh_, deg_u, ncomp=mesh_.dim)
+        Q_ = FunctionSpace(mesh_, deg_p)
+        tables = refelem.element_tables(mesh_.cell_type, deg_u, 2 * deg_u + 2)
+        psi_, _ = refelem.tabulate(mesh_.cell_type, deg_p, tables.qpoints)
+        pts, _ = sampling.grid_points(grid)
+        loc_ = sampling.locate_points(mesh_, pts)
+        return mesh_, V_, Q_, np.asarray(psi_), loc_
+
+    mesh, V, Q, psi, loc = base.memo_geometry(
+        ["th-geom", config["domain"], config.get("mesh", {}), deg_u, deg_p, grid],
+        _build_geom,
+    )
+
+    # velocity Dirichlet
+    bc_dofs, bc_values, _ = base.dirichlet_dofs_values(V, config.get("bc", {}))
+    N = V.ndof + Q.ndof
+    mask = np.zeros(N, dtype=bool)
+    g = np.zeros(N)
+    mask[bc_dofs] = True
+    g[bc_dofs] = bc_values
+
+    # pressure point-fixing at the dof nearest the origin
+    pin = -1
+    if pin_pressure:
+        pin = int(np.argmin(np.linalg.norm(Q.dof_coords, axis=1)))
+        mask[V.ndof + pin] = True
+        g[V.ndof + pin] = 0.0
+
+    cb = base.memo_geometry(
+        ["th-cb", config["domain"], config.get("mesh", {}), deg_u],
+        lambda: cell_batch(mesh, deg_u),
+    )
+    mask_t = torch.as_tensor(mask, device=device)
+    g_t = torch.as_tensor(g, device=device)
+    base.synchronize(device)
+    return TaylorHoodContext(
+        config=config, device=device, mesh=mesh, V=V, Q=Q, cb=cb, psi=psi,
+        grid=grid, loc=loc, mask=mask_t, g=g_t, pin_dof=pin,
+        t_setup=time.perf_counter() - t_start,
+    )
+
+
+def saddle_apply(
+    A_loc: torch.Tensor,
+    G_loc: torch.Tensor,
+    dofmap_u: torch.Tensor,
+    dofmap_p: torch.Tensor,
+    sum_u: Callable,
+    sum_p: Callable,
+) -> Callable:
+    """Matrix-free [[A, G], [G^T, 0]] on the stacked vector: cell-batched
+    gather, batched matvecs, then sum_u / sum_p map the velocity and
+    pressure cell contributions to global vectors (fem.assemble.GatherSum:
+    a fixed summation order; the reference scatter-adds)."""
+
+    def apply(x):
+        u, p = x[: sum_u.ndof], x[sum_u.ndof :]
+        ue = u[dofmap_u]  # (c, nlu)
+        pe = p[dofmap_p]  # (c, nlp)
+        ru_loc = torch.einsum("cij,cj->ci", A_loc, ue) + torch.einsum("cij,cj->ci", G_loc, pe)
+        rp_loc = torch.einsum("cij,ci->cj", G_loc, ue)
+        return torch.cat([sum_u(ru_loc), sum_p(rp_loc)])
+
+    return apply
+
+
+def schur_diag(
+    cb: CellBatch,
+    psi: np.ndarray,
+    dofmap_p: np.ndarray,
+    np_dofs: int,
+    nu_visc: float,
+    mask: np.ndarray,
+    nu_dofs: int,
+) -> np.ndarray:
+    """The lumped pressure-mass Schur diagonal inv_p = nu / diag(M_p) of
+    `saddle_gmg_precond_parts`, 1 on constrained pressure dofs (host)."""
+    Mp = np.einsum("qi,qj,cq->cij", psi, psi, cb.wdetJ, optimize=True)
+    dMp = np.bincount(
+        np.asarray(dofmap_p).reshape(-1),
+        weights=np.einsum("cii->ci", Mp).reshape(-1),
+        minlength=np_dofs,
+    )
+    dMp = dMp / max(nu_visc, 1e-300)
+    dMp = np.where(np.asarray(mask)[nu_dofs:], 1.0, dMp)
+    return 1.0 / np.where(np.abs(dMp) > 1e-300, dMp, 1.0)
+
+
+def saddle_to_scipy(
+    A_loc: np.ndarray,
+    G_loc: np.ndarray,
+    dofmap_u: np.ndarray,
+    dofmap_p: np.ndarray,
+    nu_dofs: int,
+    np_dofs: int,
+):
+    """Global sparse [[A, G], [G^T, 0]] CSR on host."""
+    import scipy.sparse as sps
+
+    A_loc = np.asarray(A_loc)
+    G_loc = np.asarray(G_loc)
+    dmu = np.asarray(dofmap_u, dtype=np.int64)
+    dmp = np.asarray(dofmap_p, dtype=np.int64) + nu_dofs
+    nlu = dmu.shape[1]
+    nlp = dmp.shape[1]
+    N = nu_dofs + np_dofs
+
+    rows_A = np.repeat(dmu, nlu, axis=1).reshape(-1)
+    cols_A = np.tile(dmu, (1, nlu)).reshape(-1)
+    rows_G = np.repeat(dmu, nlp, axis=1).reshape(-1)
+    cols_G = np.tile(dmp, (1, nlu)).reshape(-1)
+
+    rows = np.concatenate([rows_A, rows_G, cols_G])
+    cols = np.concatenate([cols_A, cols_G, rows_G])
+    vals = np.concatenate([A_loc.reshape(-1), G_loc.reshape(-1), G_loc.reshape(-1)])
+    return sps.coo_matrix((vals, (rows, cols)), shape=(N, N)).tocsr()

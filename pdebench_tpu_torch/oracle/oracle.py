@@ -1,8 +1,8 @@
 """Oracle dispatcher: case pde type -> solver on an explicit device.
 
-Port of pdebench_tpu/oracle/oracle.py. Poisson, Helmholtz and linear
-elasticity are ported; the other 11 PDE types of the reference raise
-NotImplementedError until their slice lands.
+Port of pdebench_tpu/oracle/oracle.py. Poisson, Helmholtz, linear
+elasticity and Navier-Stokes are ported; the other 10 PDE types of the
+reference raise NotImplementedError until their slice lands.
 """
 
 from __future__ import annotations
@@ -18,12 +18,13 @@ _SOLVERS = {
     "poisson": ("poisson", "PoissonSolver"),
     "helmholtz": ("helmholtz", "HelmholtzSolver"),
     "linear_elasticity": ("linear_elasticity", "LinearElasticitySolver"),
+    "navier_stokes": ("navier_stokes", "NavierStokesSolver"),
 }
 
 _NOT_PORTED = (
     "heat", "wave", "convection_diffusion",
     "reaction_diffusion", "burgers", "biharmonic",
-    "stokes", "navier_stokes", "darcy", "hyperelasticity", "cahn_hilliard",
+    "stokes", "darcy", "hyperelasticity", "cahn_hilliard",
 )
 
 

@@ -19,6 +19,12 @@ for CPU tensors; each holds the math of the Pallas kernel it replaces
                            the block (d = 2, elasticity) GMG-PCG inner
                            solve, and its Richardson mode
                            (csrc/gmg_fused_block_cg.cu)
+  build_fused_dyn_block_vcycle
+                           a chain of block V-cycles on a hierarchy whose
+                           weights are the call's (rebuilt at every
+                           Navier-Stokes Newton step, gmg_dyn), the
+                           saddle preconditioner's velocity solve
+                           (csrc/gmg_fused_dyn_block.cu)
 
 Shared math: stencil taps read zero outside each level; restriction /
 prolongation are the truncated [1/4, 1/2, 1/4] band per axis and its
@@ -31,7 +37,8 @@ LatticeGMG.precond's dense inverse).
 Block hierarchies apply 2 x 2 tap blocks over two component planes,
 smooth with the 2 x 2 point-block inverse diagonal, transfer each
 component with the scalar bands and sweep the probed level with damped
-block-Jacobi.
+block-Jacobi. The dynamic-weight block chain sweeps the spec's own last
+level (no probed one) and its plain version is gmg_dyn's V-cycle chain.
 
 The numpy hierarchy builders are copied from the reference, without its
 (8, 128) TPU tile padding; 3-D levels keep their (nz, ny, nx) layout,
@@ -65,12 +72,14 @@ _MODES = {"cg": 0, "richardson": 1}  # kModeCG, kModeRichardson
 
 # kernel launches in this process, one count per kernel (the plain
 # versions are not counted): gmg_fused_cg in mode cg, in mode richardson,
-# gmg_fused_gmres, and gmg_fused_block_cg in its two modes
+# gmg_fused_gmres, gmg_fused_block_cg in its two modes, and
+# gmg_fused_dyn_block
 LAUNCHES = 0
 LAUNCHES_RICHARDSON = 0
 LAUNCHES_GMRES = 0
 LAUNCHES_BLOCK = 0
 LAUNCHES_BLOCK_RICHARDSON = 0
+LAUNCHES_DYN_BLOCK = 0
 
 # limits of csrc/gmg_vcycle.cuh (kMaxLevels, kMaxTaps): a 3-D P2 fine
 # level has 65 taps
@@ -774,3 +783,175 @@ def build_fused_inner_gmres(gmg, m: int, device, op_offsets) -> Optional[FusedIn
     if len(op_offsets) > _MAX_TAPS:
         raise ValueError(f"{len(op_offsets)} operator taps, the kernel takes {_MAX_TAPS}")
     return FusedInnerGMRES(*built, m, device, op_offsets)
+
+
+# ---------------------------------------------------------------------------
+# dynamic-weight block V-cycle chain — per-Newton-step convected hierarchies
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_dyn() -> ctypes.CDLL:
+    lib = _build.load("gmg_fused_dyn_block")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.gmg_fused_dyn_block_desc_bytes.argtypes = []
+    lib.gmg_fused_dyn_block_desc_bytes.restype = i
+    lib.gmg_fused_dyn_block_grid.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.gmg_fused_dyn_block_grid.restype = i
+    # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 4 per level),
+    # offsets (int32 x 3 per tap), zp
+    lib.gmg_fused_dyn_block_pack.argtypes = [vp, i, vp, vp, vp, ctypes.c_longlong]
+    lib.gmg_fused_dyn_block_pack.restype = i
+    # desc, r, z, cycles, blocks, stream
+    lib.gmg_fused_dyn_block_launch.argtypes = [vp, vp, vp, i, i, vp]
+    lib.gmg_fused_dyn_block_launch.restype = i
+    return lib
+
+
+class FusedDynBlockVCycle:
+    """fn(r_flat, levels) -> z_flat: z = V(r), then n_cycles - 1 times z +=
+    V(r - A0 z), on the block hierarchy levels = spec.build_levels(W0) (a
+    gmg_dyn.DynLevels of planar (W, omega Dinv) per level, made at each
+    Newton step). r_flat and z_flat are the (ny * nx * 2) block-lattice
+    vectors, site-major and component-minor.
+
+    A CPU tensor runs `plain` (gmg_dyn's V-cycle chain in PyTorch); a CUDA
+    tensor runs `launch`, one cooperative launch of
+    csrc/gmg_fused_dyn_block.cu. The kernel's level descriptor points at
+    the weight set's tensors: it is packed at the first launch on a weight
+    set and kept in that set's `cache`, so it lives exactly as long as the
+    tensors do. Calls on one object must not overlap on different streams
+    (the work vectors are the object's).
+    """
+
+    def __init__(self, spec, n_cycles: int, device):
+        self.spec = spec
+        self.n_cycles = int(n_cycles)
+        # the concrete device ("cuda:0" for "cuda"), as tensors report it
+        self.device = torch.empty(0, device=device).device
+        self.shape = tuple(spec.levels[0].shape)
+        self.sites = int(np.prod(self.shape))
+        self._cuda = None
+
+    def _check(self, r_flat: torch.Tensor, levels) -> None:
+        if r_flat.dtype != torch.float32 or r_flat.numel() != 2 * self.sites:
+            raise ValueError(
+                f"expected {2 * self.sites} float32 values, got {r_flat.numel()} {r_flat.dtype}"
+            )
+        if len(levels) != len(self.spec.levels):
+            raise ValueError(f"{len(levels)} levels, the spec has {len(self.spec.levels)}")
+        for (W, D), sp in zip(levels, self.spec.levels):
+            want_w = (len(sp.offsets), 2, 2) + tuple(sp.shape)
+            want_d = (2, 2) + tuple(sp.shape)
+            for t, want in ((W, want_w), (D, want_d)):
+                if (
+                    t.device != r_flat.device or t.dtype != torch.float32
+                    or tuple(t.shape) != want or not t.is_contiguous()
+                ):
+                    raise ValueError(
+                        f"level weights: expected contiguous float32 {want} on "
+                        f"{r_flat.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                    )
+
+    def plain(self, r_flat: torch.Tensor, levels) -> torch.Tensor:
+        """The chain in PyTorch ops, on the tensors' device."""
+        self._check(r_flat, levels)
+        r = r_flat.reshape(self.shape + (2,)).permute(2, 0, 1)
+        z = self.spec.chain(levels, r, self.n_cycles)
+        return z.permute(1, 2, 0).reshape(-1)
+
+    def _setup_cuda(self):
+        lib = _lib_dyn()
+        work = [
+            torch.zeros((3, 2 * int(np.prod(sp.shape))), dtype=torch.float32, device=self.device)
+            for sp in self.spec.levels
+        ]
+        zp = torch.zeros(2 * self.sites, dtype=torch.float32, device=self.device)
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(self.device):
+            _build.check(
+                lib, lib.gmg_fused_dyn_block_grid(self.sites, ctypes.byref(blocks)),
+                "gmg_fused_dyn_block_grid",
+            )
+        dims = np.array(
+            [[1, *sp.shape, len(sp.offsets)] for sp in self.spec.levels], dtype=np.int32
+        )
+        offs = _taps3(o for sp in self.spec.levels for o in sp.offsets)
+        self._cuda = dict(lib=lib, work=work, zp=zp, blocks=blocks.value, dims=dims, offs=offs)
+
+    def _descriptor(self, levels) -> torch.Tensor:
+        """The packed level descriptor of this weight set, on the device."""
+        desc_t = levels.cache.get(self)
+        if desc_t is None:
+            c = self._cuda
+            ptrs = np.array(
+                [
+                    [W.data_ptr(), D.data_ptr()] + [w[j].data_ptr() for j in range(3)]
+                    for (W, D), w in zip(levels, c["work"])
+                ],
+                dtype=np.int64,
+            )
+            desc = np.zeros(c["lib"].gmg_fused_dyn_block_desc_bytes(), dtype=np.uint8)
+            code = c["lib"].gmg_fused_dyn_block_pack(
+                desc.ctypes.data_as(ctypes.c_void_p), len(levels),
+                ptrs.ctypes.data_as(ctypes.c_void_p),
+                c["dims"].ctypes.data_as(ctypes.c_void_p),
+                c["offs"].ctypes.data_as(ctypes.c_void_p), c["zp"].data_ptr(),
+            )
+            _build.check(c["lib"], code, "gmg_fused_dyn_block_pack")
+            desc_t = torch.from_numpy(desc).to(self.device)
+            levels.cache[self] = desc_t
+        return desc_t
+
+    def launch(self, r_flat: torch.Tensor, levels) -> torch.Tensor:
+        """The chain as one cooperative kernel launch."""
+        global LAUNCHES_DYN_BLOCK
+        self._check(r_flat, levels)
+        if r_flat.device != self.device or self.device.type != "cuda":
+            raise ValueError(f"the kernel runs on CUDA tensors on {self.device}, not on {r_flat.device}")
+        if self._cuda is None:
+            self._setup_cuda()
+        desc = self._descriptor(levels)
+        r = r_flat.contiguous()
+        z = torch.empty_like(r)
+        c = self._cuda
+        code = c["lib"].gmg_fused_dyn_block_launch(
+            _vp(desc), _vp(r), _vp(z), self.n_cycles, c["blocks"],
+            _build.current_stream(self.device),
+        )
+        _build.check(c["lib"], code, "gmg_fused_dyn_block_launch")
+        LAUNCHES_DYN_BLOCK += 1
+        return z
+
+    def __call__(self, r_flat: torch.Tensor, levels) -> torch.Tensor:
+        if r_flat.device.type == "cpu":
+            return self.plain(r_flat, levels)
+        if r_flat.device.type == "cuda":
+            return self.launch(r_flat, levels)
+        raise ValueError(f"unsupported device {r_flat.device}")
+
+
+def build_fused_dyn_block_vcycle(spec, n_cycles: int, device) -> Optional[FusedDynBlockVCycle]:
+    """The fused chain of `n_cycles` block V-cycles for a gmg_dyn spec on
+    `device`, its weights call-time inputs; None out of scope (d != 2, not
+    2-D, or an identity-padded level), decided from the spec alone; raises
+    beyond the kernel's limits."""
+    if spec is None or spec.d != 2:
+        return None
+    if any(sp.pad_to is not None for sp in spec.levels):
+        return None
+    if any(len(sp.shape) != 2 for sp in spec.levels):
+        return None
+    if (
+        len(spec.levels) > _MAX_LEVELS
+        or any(len(sp.offsets) > _MAX_TAPS for sp in spec.levels)
+        or spec.coarse_sweeps != COARSE_SWEEPS
+        or n_cycles < 1
+    ):
+        raise ValueError(
+            f"spec beyond the kernel's limits: {len(spec.levels)} levels (max "
+            f"{_MAX_LEVELS}), taps {[len(sp.offsets) for sp in spec.levels]} (max "
+            f"{_MAX_TAPS}), {spec.coarse_sweeps} coarse sweeps ({COARSE_SWEEPS}), "
+            f"{n_cycles} cycles"
+        )
+    return FusedDynBlockVCycle(spec, n_cycles, device)

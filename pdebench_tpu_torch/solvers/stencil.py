@@ -16,8 +16,12 @@ planes. The 2-D and 3-D (unit_cube) applies go through
 `stencil_kernel.stencil_apply`: the CUDA kernel for CUDA tensors, its
 plain PyTorch version for CPU tensors.
 
-Port of the constant-operator half of pdebench_tpu/solvers/stencil.py
-(LatticeOperator, BlockLatticeOperator and their builders).
+Per-step block weights (the Navier-Stokes velocity block's convected
+Jacobian) come from `BlockLatticeWeightMap`, which maps a blocked
+cell-local batch to block weights in a fixed summation order.
+
+Port of pdebench_tpu/solvers/stencil.py (LatticeOperator,
+BlockLatticeOperator, BlockLatticeWeightMap and the operators' builders).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import scipy.sparse as sps
 import torch
 import torch.nn.functional as F
 
+from ..fem.assemble import GatherSum
 from . import stencil_kernel
 
 
@@ -353,6 +358,107 @@ class BlockLatticeOperator:
         u_lat = self.block_lattice.embed(u_flat.to(self.W.dtype), 0).reshape(self.grid_shape)
         y = self.apply_grid(u_lat).reshape(-1)
         return y[self.inv_j].to(u_flat.dtype)
+
+
+def tap_index(shape, offsets, pad: int) -> np.ndarray:
+    """(K, n) flat indices into the `pad`-padded lattice of `shape`: entry
+    [k, s] is the padded site of lattice site s + offsets[k], so that
+    `up.reshape(-1)[idx]` gathers every tap of a zero-padded field at
+    once (a tap outside the lattice lands on the zero pad)."""
+    padded = tuple(s + 2 * pad for s in shape)
+    grids = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    out = np.empty((len(offsets), int(np.prod(shape))), dtype=np.int64)
+    for k, off in enumerate(offsets):
+        flat = np.zeros(shape, dtype=np.int64)
+        for g, o, n in zip(grids, off, padded):
+            flat = flat * n + (g + pad + o)
+        out[k] = flat.reshape(-1)
+    return out
+
+
+class BlockLatticeWeightMap:
+    """Blocked local-matrix -> block-stencil-weight map for a fixed mesh.
+
+    Per-step Newton Jacobians of VECTOR systems (the Navier-Stokes
+    velocity block) share the mesh adjacency of the constant part, so the
+    scalar-node offsets are fixed and only the (d x d)-block weights
+    change. `weights()` turns a blocked local batch (c, nl*d, nl*d) on any
+    device into block stencil weights (K, *shape, d, d).
+
+    The reference scatter-adds the batch. Here the batch goes through a
+    fixed-order gather-sum (fem.assemble.GatherSum), so that a step's
+    weights, and with them the Newton and Krylov counts, do not change
+    from solve to solve with the order of atomic adds on the card.
+    """
+
+    def __init__(self, lattice: Lattice, dofmap_scalar: np.ndarray, ncomp: int):
+        shape = lattice.shape
+        dim = len(shape)
+        d = int(ncomp)
+        n_lat = int(np.prod(shape))
+        dm = np.asarray(dofmap_scalar)
+        site = lattice.inv[dm]  # (c, nl)
+        coords = []
+        rem = site
+        for s in reversed(shape):
+            coords.append(rem % s)
+            rem = rem // s
+        coords = np.stack(list(reversed(coords)), axis=-1)  # (c, nl, dim)
+        doff = coords[:, None, :, :] - coords[:, :, None, :]  # (c, i, j, dim)
+        offs, o_idx = _unique_offsets(doff.reshape(-1, dim))
+        self.offsets = [tuple(int(v) for v in o) for o in offs]
+        self.pad = int(np.abs(offs).max()) if len(offs) else 0
+        self.shape = shape
+        self.ncomp = d
+        c, nl = site.shape
+        rows = np.broadcast_to(site[:, :, None], (c, nl, nl))
+        base_idx = o_idx.reshape(c, nl, nl) * n_lat + rows  # (c, i, j)
+        # blocked local batch index order is [c, i*d+a, j*d+b]: flat
+        # targets in that order, (c, i, a, j, b)
+        a = np.arange(d)
+        flat = (
+            (base_idx[:, :, None, :, None] * d + a[None, None, :, None, None]) * d
+            + a[None, None, None, None, :]
+        ).reshape(-1)
+        self._flat_np = flat
+        self._n = len(self.offsets) * n_lat * d * d
+        self._taps_np = tap_index(shape, self.offsets, self.pad)
+        self._dev = {}
+
+    def _index(self, device):
+        """(gather-sum, taps) on `device`, made once."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = (
+                GatherSum(self._flat_np, self._n, device),
+                torch.as_tensor(self._taps_np, device=device),
+            )
+        return self._dev[key]
+
+    def weights(self, A_local: torch.Tensor) -> torch.Tensor:
+        """(c, nl*d, nl*d) blocked batch -> (K,) + shape + (d, d)."""
+        W = self._index(A_local.device)[0](A_local)
+        return W.reshape((len(self.offsets),) + self.shape + (self.ncomp, self.ncomp))
+
+    def weights_np(self, A_local_np: np.ndarray) -> np.ndarray:
+        """Host-side build (setup paths)."""
+        W = np.bincount(
+            self._flat_np,
+            weights=np.asarray(A_local_np, dtype=np.float64).reshape(-1),
+            minlength=self._n,
+        )
+        return W.reshape((len(self.offsets),) + self.shape + (self.ncomp, self.ncomp))
+
+    def apply_grid(self, W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """u: shape + (d,) lattice array -> same shape, zero outside the
+        lattice: every tap gathered at once, then one contraction."""
+        taps = self._index(u.device)[1]
+        d, p = self.ncomp, self.pad
+        up = F.pad(u.movedim(-1, 0), (p,) * (2 * len(self.shape)))  # (d, padded...)
+        t = up.reshape(d, -1)[:, taps]  # (d, K, n)
+        K = len(self.offsets)
+        out = torch.einsum("knab,bkn->na", W.reshape(K, -1, d, d), t)
+        return out.reshape(u.shape)
 
 
 def constrain_stencil_weights(

@@ -2,12 +2,13 @@
 
     python3 scripts/torch_profile_solve.py [case_id ...]
 
-For each dataset case (default: the nine dataset cases of chip_smoke.py's
+For each dataset case (default: the eleven dataset cases of chip_smoke.py's
 main paths, Poisson, Helmholtz and elasticity in 2-D, Poisson and Helmholtz
-in 3-D): one OracleSolver(device="cuda") solve to
+in 3-D, Navier-Stokes): one OracleSolver(device="cuda") solve to
 build the kernels and warm every cache, then a second solve whose warm
 linear solve (the oracle's second `solve_linear` call, the one
-`t_warm` times) runs under torch.profiler. Prints per case the wall time of
+`t_warm` times; for Navier-Stokes its second `NavierStokesProblem.run`,
+the whole warm Newton solve) runs under torch.profiler. Prints per case the wall time of
 that call, the device busy time (the union of the device activity
 intervals the profiler recorded), the idle share 1 - busy / wall, and the
 kernels by device time; first the card's name and power limit. Exits
@@ -34,6 +35,7 @@ DEFAULT = (
     "helmholtz_basic_k5", "helmholtz_k12_exponential_mode",
     "linear_elasticity_nu010", "linear_elasticity_nu030",
     "poisson_3d_smooth_trig", "poisson_3d_kappa_expr", "helmholtz_3d_k1_trig",
+    "navier_stokes_low_re", "navier_stokes_basic",
 )
 
 
@@ -57,14 +59,15 @@ def busy_seconds(prof) -> float:
     return busy * 1e-6  # the profiler's times are in microseconds
 
 
-def profile_case(config, pde_module):
-    """(wall s, busy s, profiler) of the warm solve_linear of one solve."""
+def profile_case(config, owner, attr):
+    """(wall s, busy s, profiler) of the warm call of owner.attr (the
+    oracle's linear solve, or the Navier-Stokes Newton run) in one solve."""
     from pdebench_tpu_torch.oracle import OracleSolver, base
 
     solver = OracleSolver(device="cuda")
     base.clear_setup_caches()
     solver.solve(config)  # builds the kernels, warms the caches
-    inner = pde_module.solve_linear
+    inner = getattr(owner, attr)
     calls, out = [], {}
 
     def wrapped(*args, **kwargs):
@@ -81,12 +84,12 @@ def profile_case(config, pde_module):
         out["info"] = result[1]
         return result
 
-    pde_module.solve_linear = wrapped
+    setattr(owner, attr, wrapped)
     try:
         base.clear_setup_caches()
         solver.solve(config)
     finally:
-        pde_module.solve_linear = inner
+        setattr(owner, attr, inner)
     return out
 
 
@@ -113,12 +116,19 @@ def main(argv) -> int:
     for cid in ids:
         pde = configs[cid]["pde"]["type"]
         module = importlib.import_module(f"pdebench_tpu_torch.oracle.{pde}")
-        out = profile_case(configs[cid], module)
+        if pde == "navier_stokes":
+            # the whole warm Newton solve (its method on the class: the
+            # wrapper gets the problem as its first argument)
+            out = profile_case(configs[cid], module.NavierStokesProblem, "run")
+        else:
+            out = profile_case(configs[cid], module, "solve_linear")
         busy = busy_seconds(out["prof"])
         info = out["info"]
-        print(f"{cid}: profiled warm solve_linear {out['wall'] * 1e3:.3f} ms wall, device busy "
+        what = "Newton run" if pde == "navier_stokes" else "solve_linear"
+        print(f"{cid}: profiled warm {what} {out['wall'] * 1e3:.3f} ms wall, device busy "
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / out['wall']:.3f}; inner "
-              f"{info.get('inner')}, iterations {info.get('iterations')}", flush=True)
+              f"{info.get('inner')}, iterations {info.get('iterations')}, Krylov iterations "
+              f"{info.get('kry_its')}", flush=True)
         print(out["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=12),
               flush=True)
         ok = ok and busy > 0.0

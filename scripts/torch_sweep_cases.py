@@ -9,10 +9,12 @@ For every case of `data/benchmark_v2.jsonl` whose pde type and domain match
 with the setup caches cleared, its `baseline_error` against the last
 successful record of the case in `results/oracle_sweep_progress.jsonl`,
 the inner route, the inner iterations (outer rounds times the route's
-steps per round), the routes of all its linear solves (the reference
-re-solve's included, with `rerouted` for a direct request sent through the
-lattice IR and `failed` for an IR that did not converge), the warm solve
-and `baseline_time`. One line per case, then a summary: the
+steps per round; for Navier-Stokes the Newton linear solves, and the
+Krylov iterations beside them), the routes of all its linear solves (the
+reference re-solve's included, with `rerouted` for a direct request sent
+through the lattice IR and `failed` for an IR that did not converge; the
+Navier-Stokes oracle has no `solve_linear`: its route is its solve's
+`inner`), the warm solve and `baseline_time`. One line per case, then a summary: the
 worst relative difference, the cases per inner route and their median warm
 solve. A case that raises, whose error is off by more than --tol, or any
 of whose solves records an unconverged IR (`iterative_failed`) is counted
@@ -53,6 +55,8 @@ def record_routes(pde: str, seen: list) -> None:
     """Append the solver_info of every solve_linear call of the pde's
     oracle module to `seen`."""
     module = importlib.import_module(f"pdebench_tpu_torch.oracle.{pde}")
+    if not hasattr(module, "solve_linear"):
+        return
     inner = module.solve_linear
 
     def recording(*args, **kwargs):
@@ -122,7 +126,7 @@ def main(argv) -> int:
         rel = abs(res.baseline_error - ref) / abs(ref) if ref else float("nan")
         if ref:
             worst = max(worst, rel)
-        if (ref and not rel <= args.tol) or any("iterative_failed" in i for i in seen):
+        if (ref and not rel <= args.tol) or any("iterative_failed" in i for i in seen + [info]):
             failed.append(cid)
         warm[inner].append(info["t_warm"])
         routes = []
@@ -130,7 +134,8 @@ def main(argv) -> int:
             if r not in routes:
                 routes.append(r)
         print(f"{cid}: dofs {res.num_dofs} baseline_error {res.baseline_error!r} recorded "
-              f"{ref!r} rel {rel:.2e}; inner {inner} iterations {info.get('iterations')}; "
+              f"{ref!r} rel {rel:.2e}; inner {inner} iterations {info.get('iterations')}"
+              + (f" Krylov {info['kry_its']}" if "kry_its" in info else "") + "; "
               f"routes {routes}; warm "
               f"{info['t_warm']:.4f} s, baseline_time {res.baseline_time:.4f} s, whole call "
               f"{time.perf_counter() - t0:.2f} s", flush=True)

@@ -507,3 +507,164 @@ def test_3d_oracle_runs_the_kernels(dev):
         assert stencil_kernel.LAUNCHES > 0  # the f64 outer residual
         assert res.reference.shape == (25, 25, 25)
         assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
+
+
+# -- kernel #5: the dynamic-weight block V-cycle chain (Navier-Stokes) ------
+
+NS_LOW_RE = 3.041429902434237e-06  # navier_stokes_low_re's recorded error
+
+
+def _ns_mms(resolution, nu=0.5):
+    """The resolution-n MMS Taylor-Green case of tests/test_mixed_pdes.py."""
+    return {
+        "pde": {
+            "type": "navier_stokes", "pde_params": {"nu": nu},
+            "manufactured_solution": {
+                "u": ["pi*cos(pi*y)*sin(pi*x)", "-pi*cos(pi*x)*sin(pi*y)"], "p": "0",
+            },
+        },
+        "domain": {"type": "unit_square"},
+        "mesh": {"resolution": resolution, "cell_type": "triangle"},
+        "fem": {"degree_u": 2, "degree_p": 1},
+        "bc": {"dirichlet": {"on": "all", "value": ["0", "0"]}},
+        "output": {"grid": {"bbox": [0, 1, 0, 1], "nx": 32, "ny": 32}},
+        "oracle_solver": {"rtol": 1e-9, "atol": 1e-11, "max_it": 30, "init": "stokes"},
+    }
+
+
+def _random_block(shape, pad, seed):
+    """A random block stencil (K, *shape, 2, 2), not symmetric per site
+    and skewed in its diagonal blocks, on the taps |offset| <= pad, every
+    boundary node clamped (the 17 x 17 three-level hierarchy of
+    tests/test_torch_gmg_dyn.py, made here without jax, with skewed
+    diagonal blocks)."""
+    import itertools
+
+    from pdebench_tpu_torch.solvers.stencil import constrain_stencil_weights
+
+    rng = np.random.default_rng(seed)
+    offs = list(itertools.product(range(-pad, pad + 1), repeat=2))
+    W = rng.standard_normal((len(offs),) + shape + (2, 2))
+    grids = np.meshgrid(*[np.arange(n) for n in shape], indexing="ij")
+    for k, off in enumerate(offs):
+        ok = np.ones(shape, dtype=bool)
+        for g, o, n in zip(grids, off, shape):
+            ok &= (g + o >= 0) & (g + o < n)
+        W[k][~ok] = 0.0
+        if off == (0, 0):
+            # dominant, and skewed: D[b, a] read for D[a, b] shows
+            W[k] += 4 * len(offs) * np.eye(2) + 2 * len(offs) * np.array([[0.0, 1.0], [-1.0, 0.0]])
+    mask = np.zeros(shape, dtype=bool)
+    mask[0] = mask[-1] = True
+    mask[:, 0] = mask[:, -1] = True
+    return constrain_stencil_weights(W, offs, mask, d=2), offs, mask
+
+
+def _dyn_hierarchy(dev, which, seed=0):
+    """(spec, [levels of two weight sets], keep) of a kernel #5 hierarchy:
+    the random 17 x 17 one (three levels, or one), or a resolution-12
+    Navier-Stokes case's convected Jacobian (25/13) at the Stokes solution
+    and at twice it."""
+    from pdebench_tpu_torch.oracle.navier_stokes import NavierStokesProblem
+    from pdebench_tpu_torch.solvers import gmg_dyn
+
+    if which in ("random17", "one_level17"):
+        Wc, offs, mask = _random_block((17, 17), 2, 21 + seed)
+        # 17 x 17 x 2 = 578 values: a coarse size of 1000 leaves one level,
+        # which the kernel sweeps as its coarsest
+        coarse = 100 if which == "random17" else 1000
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(gmg_dyn, "COARSE_SIZE", coarse)
+            spec = gmg_dyn.build_dyn_block_spec(offs, (17, 17), 2, probe_W=Wc)
+        assert len(spec.levels) == (3 if which == "random17" else 1)
+        W2, _, _ = _random_block((17, 17), 2, 22 + seed)
+        sets = [torch.as_tensor(w, dtype=torch.float32, device=dev) for w in (Wc, W2)]
+        keep = torch.as_tensor(1.0 - mask.astype(np.float32), device=dev)
+        return spec, [spec.build_levels(w) for w in sets], keep
+    prob = NavierStokesProblem(_ns_mms(12), dev)
+    x = prob.stokes_direct(prob.nu)
+    sets = [prob.sst.wmapA.weights(prob.jacobian(s * x, prob.nu)).float() for s in (1.0, 2.0)]
+    return prob.spec, [prob.levels(w) for w in sets], prob.keep_node32
+
+
+@pytest.mark.parametrize("cycles", [1, 2])
+@pytest.mark.parametrize("which", ["random17", "ns_res12", "one_level17"])
+def test_fused_dyn_block_kernel_matches_plain(dev, which, cycles):
+    spec, (lv, _), keep = _dyn_hierarchy(dev, which)
+    fused = gmg_fused.build_fused_dyn_block_vcycle(spec, cycles, dev)
+    r = (torch.as_tensor(np.random.default_rng(5).standard_normal(keep.shape + (2,)),
+                         dtype=torch.float32, device=dev) * keep[..., None]).reshape(-1)
+    before = gmg_fused.LAUNCHES_DYN_BLOCK
+    z = fused(r, lv)
+    torch.cuda.synchronize()
+    assert gmg_fused.LAUNCHES_DYN_BLOCK == before + 1
+    want = fused.plain(r, lv)
+    torch.testing.assert_close(z, want, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("which", ["random17", "ns_res12"])
+def test_fused_dyn_block_kernel_takes_each_weight_set(dev, which):
+    """Two weight sets on one spec, called in turn (each call packs or
+    finds its own descriptor): each result is its own set's."""
+    spec, levels, keep = _dyn_hierarchy(dev, which)
+    fused = gmg_fused.build_fused_dyn_block_vcycle(spec, 1, dev)
+    r = (torch.as_tensor(np.random.default_rng(6).standard_normal(keep.shape + (2,)),
+                         dtype=torch.float32, device=dev) * keep[..., None]).reshape(-1)
+    wants = [fused.plain(r, lv) for lv in levels]
+    apart = float((wants[0] - wants[1]).abs().max() / wants[0].abs().max())
+    assert apart > 1e-2, apart
+    for lv, want in list(zip(levels, wants)) * 2:
+        z = fused(r, lv)
+        torch.testing.assert_close(z, want, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * float(want.abs().max()))
+
+
+def test_dyn_coarsening_on_the_card_matches_numpy(dev):
+    """The coarsening of a block stencil on the card equals its numpy twin
+    in float64 and to f32 rounding in float32, with TF32 allowed for both
+    convolutions and matrix products: it depends on neither flag."""
+    from pdebench_tpu_torch.solvers import gmg_dyn
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        Wc, offs, _ = _random_block((33, 33), 2, 4)
+        offs_c, C = gmg_dyn.galerkin_coeffs(offs, 2)
+        valid = gmg_dyn._valid_planes(offs_c, (17, 17))
+        want, _ = gmg_dyn.coarsen_block_np(Wc, offs, (33, 33), offs_c, C, valid)
+        want = np.moveaxis(want, (-2, -1), (1, 2))
+        planar = np.moveaxis(Wc, (-2, -1), (1, 2))
+        for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
+            got = gmg_dyn.coarsen_block_traced(
+                torch.as_tensor(planar, dtype=dtype, device=dev), offs_c, C, valid, (17, 17)
+            )
+            err = float(np.abs(got.double().cpu().numpy() - want).max() / np.abs(want).max())
+            assert got.dtype == dtype and err < tol, (dtype, err)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def test_navier_stokes_oracle_runs_the_kernel(dev):
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh
+                   if json.loads(l)["id"] == "navier_stokes_low_re")
+    gmg_fused.LAUNCHES_DYN_BLOCK = 0
+    res = OracleSolver(device=dev).solve(cfg)
+    assert res.solver_info["inner"] == "newton-fgmres+fused-dyn-vcycle-cuda"
+    assert gmg_fused.LAUNCHES_DYN_BLOCK > 0
+    assert res.reference.shape == (50, 50) and np.isfinite(res.reference).all()
+    # 3.95e-10 relative on the card (chip_smoke.py's tolerance)
+    assert abs(res.baseline_error - NS_LOW_RE) <= 1e-6 * NS_LOW_RE
+
+
+def test_unconverged_ns_linear_solve_on_cuda_raises(dev, monkeypatch):
+    """A device linear solve that cannot converge (GMRES(2), one round)
+    raises on the card, with the Newton step; no host LU behind it."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+    from pdebench_tpu_torch.oracle import navier_stokes as ns
+
+    monkeypatch.setattr(ns, "NS_INNER_ITERS", 2)
+    monkeypatch.setattr(ns, "NS_MAX_OUTER", 1)
+    with pytest.raises(RuntimeError, match="Newton step 0"):
+        OracleSolver(device=dev).solve(_ns_mms(12))

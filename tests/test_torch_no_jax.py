@@ -44,6 +44,14 @@ def test_elasticity_slice_sources():
     assert (PKG / "csrc" / "gmg_fused_block_cg.cu").is_file()
 
 
+def test_navier_stokes_slice_sources():
+    for name in ("oracle/navier_stokes.py", "oracle/mixed.py", "solvers/gmg_dyn.py",
+                 "solvers/saddle_stencil.py"):
+        assert PKG / name in SOURCES
+    for src in ("gmg_fused_dyn_block.cu", "gmg_block_vcycle.cuh"):
+        assert (PKG / "csrc" / src).is_file()
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_import(path):
     hits = _FORBIDDEN.findall(path.read_text())
