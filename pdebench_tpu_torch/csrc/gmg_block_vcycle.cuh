@@ -1,6 +1,7 @@
-// Block (d = 2) V-cycle device code shared by the fused block kernels
-// (gmg_fused_block_cg.cu, kernel #4; gmg_fused_dyn_block.cu, kernel #5),
-// for Hopper (sm_90a), on top of gmg_vcycle.cuh's levels and transfers.
+// Block (d = 2) V-cycle device code of the fused block kernel
+// (gmg_fused_block_cg.cu, kernel #4; its 2 x 2 point helpers diag2 and
+// set_rhs2 also serve kernel #5 through gmg_cluster.cuh), for Hopper
+// (sm_90a), on top of gmg_vcycle.cuh's levels and transfers.
 //
 // A block level vector is two planar component planes (2, ny, nx). The
 // weights are W (K, 2, 2, ny, nx), W[k, a, b] the plane that multiplies

@@ -1,5 +1,6 @@
 // Richardson chain of block (d = 2) V-cycles on a hierarchy whose weights
-// are the call's tensors, in one cooperative launch, for Hopper (sm_90a).
+// are the call's tensors, in one launch of one thread-block cluster, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas kernel pdebench_tpu/solvers/gmg_fused.py
 // `build_fused_dyn_block_vcycle` (pl.pallas_call at :934; kernel body
@@ -9,8 +10,9 @@
 //
 //   z = V(r), then cycles - 1 times z += V(r - A0 z)
 //
-// V is the block V-cycle of gmg_block_vcycle.cuh on the spec's levels
-// (pure halving, 2-D); its coarsest level is the spec's last, swept
+// V is the block V-cycle of gmg_block_vcycle.cuh on the spec's levels,
+// run on a cluster (gmg_cluster.cuh's vcycle2_to_fine_cl; pure halving,
+// 2-D); its coarsest level is the spec's last, swept
 // kCoarseSweeps times (no probed extra level, unlike kernels #2 and #4).
 // D carries the level's omega. A tap outside a level reads zero (the
 // Pallas kernel's rolls over zero-padded planes; here bounds checks).
@@ -25,28 +27,41 @@
 // work vector. A one-level spec (a fine level at or below the spec's
 // coarse size) is the coarsest sweeps alone.
 //
-// What bounds it: latency, as for kernel #4. navier_stokes_basic's
+// What bounds it: latency of dependent stages. navier_stokes_basic's
 // hierarchy (97/49/25/13, 19 fine taps, 25 coarse) is ~4 MB and stays in
-// the 50 MB L2, but each of the ~13 stages of a V-cycle needs the whole
-// previous one. So: one persistent cooperative launch per call, a
-// grid-stride loop over lattice sites per stage (one thread per site, both
-// components), grid barriers between stages, the coarsest level swept by
-// block 0 alone, __ldcg on vectors written in the kernel.
+// the 50 MB L2, but each of the 13 stages of a V-cycle needs the whole
+// previous one. The cooperative design this replaced (37 blocks of 256
+// threads, grid barriers) took 0.14 ms a call on an H100 80GB HBM3 at 700
+// W, half of it the
+// one-block coarsest sweep reading its 13^2 level from L2 (65 us), the
+// rest 4-9 us stages of dependent L2 loads (PERF.md, stage stamps). So
+// (gmg_cluster.cuh): one cluster of up to 16 CTAs x 1,024 threads is the
+// whole launch, stages separated by the hardware cluster barrier; each CTA
+// owns a band of rows of every level, copies the zero-padded box of a tap
+// stage's input vector its band reaches into shared memory first, reads
+// it without bounds checks and issues each site's block-tap loads
+// together; the coarse stage restricts into the
+// coarsest level and sweeps it 10 times in one CTA's shared memory (its
+// W and D, 67 KB at 13^2 x 25 taps, copied in each time). The per-site
+// sums are those of gmg_block_vcycle.cuh, in the same order.
 
-#include "gmg_block_vcycle.cuh"
+#include "gmg_cluster.cuh"
 
 namespace {
 
 struct DynHier {
   Level lv[kMaxLevels];  // block levels: the call's W and D, work r, x, t
+  Taps T[kMaxLevels];    // each level's taps in its windows
   float* zp;             // the chain's running sum, planar (2, ny, nx)
   int nlev;
 };
 
 // The V-cycle of H.lv[0].r (with H.lv[0].x = D0 r set) at fine site idx,
-// after vcycle2_to_fine: the post-smoothed value, or on a one-level
-// hierarchy the coarsest sweeps' result
-__device__ __forceinline__ void vcycle_at(const DynHier& H, int idx,
+// after vcycle2_to_fine_cl: the post-smoothed value (x the window of
+// lv[0].x, w its weights), or on a one-level hierarchy the coarsest
+// sweeps' result
+template <class WS>
+__device__ __forceinline__ void vcycle_at(const DynHier& H, const Window& x, WS w, int idx,
                                           float& v0, float& v1) {
   const Level& L0 = H.lv[0];
   if (H.nlev == 1) {
@@ -54,15 +69,17 @@ __device__ __forceinline__ void vcycle_at(const DynHier& H, int idx,
     v0 = ldw(L0.t + idx);
     v1 = ldw(L0.t + n + idx);
   } else {
-    smooth2_at(L0, idx, v0, v1);
+    const int p = x.site(L0, idx);
+    smooth2_win(L0, H.T[0], w, x.s + p, x.s + x.plane + p, idx, v0, v1);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kClusterThreads, 1)
 gmg_fused_dyn_block_kernel(const DynHier* __restrict__ desc,
                            const float* __restrict__ r_in, float* z,
                            int cycles) {
-  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  float* sm = cluster_smem;  // windows, coarse level
   __shared__ DynHier H;
   {
     const int* src = reinterpret_cast<const int*>(desc);
@@ -73,40 +90,60 @@ gmg_fused_dyn_block_kernel(const DynHier* __restrict__ desc,
   }
   __syncthreads();
 
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
   const Level& L0 = H.lv[0];
   const int n0 = L0.ny * L0.nx;
+  const Band b = band(L0);
   float* zp = H.zp;
+  // the band whose window of level 0's x the final stages read (none on a
+  // one-level hierarchy)
+  const Band bx = H.nlev > 1 ? b : Band{0, 0};
 
   // r (site-major) -> level 0's planar rhs, x = D0 r
-  for (int idx = tid; idx < n0; idx += stride)
+  for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x)
     set_rhs2(L0, idx, r_in[2 * idx], r_in[2 * idx + 1]);
-  grid.sync();
+  cluster.sync();
   for (int c = 0; c < cycles - 1; ++c) {
-    vcycle2_to_fine(H.lv, H.nlev, grid);
-    for (int idx = tid; idx < n0; idx += stride) {
-      float s0, s1;
-      vcycle_at(H, idx, s0, s1);
-      zp[idx] = c == 0 ? s0 : ldw(zp + idx) + s0;
-      zp[n0 + idx] = c == 0 ? s1 : ldw(zp + n0 + idx) + s1;
+    vcycle2_to_fine_cl(H.lv, H.T, H.nlev, sm, cluster);
+    {
+      const Window x = stage_in(L0.x, L0, H.T[0], bx, 2, sm);
+      const GlobalW w{L0.W, n0};
+      for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
+        float s0, s1;
+        vcycle_at(H, x, w, idx, s0, s1);
+        zp[idx] = c == 0 ? s0 : ldw(zp + idx) + s0;
+        zp[n0 + idx] = c == 0 ? s1 : ldw(zp + n0 + idx) + s1;
+      }
     }
-    grid.sync();
-    for (int idx = tid; idx < n0; idx += stride) {
-      const int i = idx / L0.nx, j = idx - (idx / L0.nx) * L0.nx;
-      float a0, a1;
-      apply2_at(L0, zp, i, j, a0, a1);
-      set_rhs2(L0, idx, r_in[2 * idx] - a0, r_in[2 * idx + 1] - a1);
+    cluster.sync();
+    {
+      const Window zw = stage_in(zp, L0, H.T[0], b, 2, sm);
+      const GlobalW w{L0.W, n0};
+      for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
+        const int p = zw.site(L0, idx);
+        float a0, a1;
+        taps2_at(L0, H.T[0].woff, w, zw.s + p, zw.s + zw.plane + p, idx, a0, a1);
+        set_rhs2(L0, idx, r_in[2 * idx] - a0, r_in[2 * idx + 1] - a1);
+      }
     }
-    grid.sync();
+    cluster.sync();
   }
-  vcycle2_to_fine(H.lv, H.nlev, grid);
-  for (int idx = tid; idx < n0; idx += stride) {
+  vcycle2_to_fine_cl(H.lv, H.T, H.nlev, sm, cluster);
+  const Window x = stage_in(L0.x, L0, H.T[0], bx, 2, sm);
+  const GlobalW w{L0.W, n0};
+  for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
     float s0, s1;
-    vcycle_at(H, idx, s0, s1);
+    vcycle_at(H, x, w, idx, s0, s1);
     z[2 * idx] = cycles > 1 ? ldw(zp + idx) + s0 : s0;
     z[2 * idx + 1] = cycles > 1 ? ldw(zp + n0 + idx) + s1 : s1;
   }
+}
+
+// Dynamic shared memory of a CTA over a cluster of P: the larger of its
+// windows (two component planes) and the coarsest level's copy.
+int smem_bytes(const DynHier& H, int P) {
+  const int area = window_floats(H.lv, H.T, H.nlev, 2, P);
+  const int coarse = coarse_floats(H.lv[H.nlev - 1], H.T[H.nlev - 1], 2);
+  return (int)sizeof(float) * (coarse > area ? coarse : area);
 }
 
 }  // namespace
@@ -114,11 +151,6 @@ gmg_fused_dyn_block_kernel(const DynHier* __restrict__ desc,
 extern "C" {
 
 int gmg_fused_dyn_block_desc_bytes() { return (int)sizeof(DynHier); }
-
-// Blocks of the cooperative grid for a fine level of `fine_points` sites.
-int gmg_fused_dyn_block_grid(int fine_points, int* blocks) {
-  return coop_grid(gmg_fused_dyn_block_kernel, fine_points, blocks);
-}
 
 // Fill a host buffer of gmg_fused_dyn_block_desc_bytes() bytes with the
 // block level descriptors of one weight set (ptrs, dims, offs as
@@ -131,26 +163,33 @@ int gmg_fused_dyn_block_pack(void* out, int nlev, const long long* ptrs,
   *H = DynHier{};
   const int e = pack_levels(H->lv, nlev, ptrs, dims, offs, 1);
   if (e != 0) return e;
-  for (int l = 0; l < nlev; ++l)  // 2-D block levels only
+  for (int l = 0; l < nlev; ++l) {  // 2-D block levels only
     if (H->lv[l].nz != 1) return (int)cudaErrorInvalidValue;
+    window_taps(H->lv[l], H->T[l]);
+  }
   H->zp = reinterpret_cast<float*>(zp);
   H->nlev = nlev;
   return 0;
 }
 
+// The cluster size and dynamic shared memory of a packed descriptor
+// (host copy; the same for every weight set of a spec) on the current
+// device; an error if no cluster of 8 or 16 CTAs with that memory can be
+// resident.
+int gmg_fused_dyn_block_config(const void* desc, int* cluster, int* smem) {
+  const DynHier& H = *static_cast<const DynHier*>(desc);
+  return cluster_config(gmg_fused_dyn_block_kernel, [&](int P) { return smem_bytes(H, P); },
+                        cluster, smem);
+}
+
 // z = the chain of `cycles` block V-cycles on r; r and z (ny, nx, 2)
-// site-major. desc: a packed descriptor in device memory; blocks from
-// gmg_fused_dyn_block_grid.
+// site-major. desc: a packed descriptor in device memory; cluster and
+// smem from gmg_fused_dyn_block_config.
 int gmg_fused_dyn_block_launch(const void* desc, const float* r, float* z,
-                               int cycles, int blocks, void* stream) {
+                               int cycles, int cluster, int smem, void* stream) {
   if (cycles < 1) return (int)cudaErrorInvalidValue;
-  const DynHier* d = static_cast<const DynHier*>(desc);
-  void* args[] = {(void*)&d, (void*)&r, (void*)&z, (void*)&cycles};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)gmg_fused_dyn_block_kernel, dim3(blocks), dim3(kThreads),
-      args, 0, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return cluster_launch(gmg_fused_dyn_block_kernel, cluster, smem, stream,
+                        static_cast<const DynHier*>(desc), r, z, cycles);
 }
 
 const char* pdb_error_string(int code) {

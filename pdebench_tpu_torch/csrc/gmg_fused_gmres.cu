@@ -1,5 +1,5 @@
-// One whole left-preconditioned Arnoldi cycle in one cooperative launch,
-// for Hopper (sm_90a).
+// One whole left-preconditioned Arnoldi cycle in one launch of one
+// thread-block cluster, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel pdebench_tpu/solvers/gmg_fused.py
 // `build_fused_inner_gmres` (pl.pallas_call at :1269; kernel body
@@ -24,60 +24,76 @@
 // recomputed <V, M A V>: once float MGS loses orthogonality the two part,
 // and only the former keeps the least squares reducing the residual. The
 // caller solves the (m+1, m) least squares and forms z = sum_i y_i V[i].
-// The frozen steps after a breakdown write exact zeros. V is zeroed first,
-// as the Pallas kernel does (every row is also written below: no step
-// reads a row before it is written).
+// The frozen steps after a breakdown write exact zeros. Every row of V is
+// written below before any step reads it (the Pallas kernel also zeroes V
+// first; here only Hc is zeroed).
 //
 // What bounds it on this card: latency of dependent stages. One step is a
 // stencil apply, two V-cycles and j + 1 Gram-Schmidt terms, each needing
-// the whole result of the stage before: about 30 + j grid-wide barriers
-// per step on a 4-level hierarchy, some 1,400 per cycle at m = 30, while
-// the hierarchy (~1 MB) and the basis (31 x 161 x 161 x 4 B = 3.2 MB)
-// stay in the 50 MB L2. The design keeps the Pallas kernel's shape, one
-// launch per cycle with everything resident, and spends one barrier per
-// Gram-Schmidt term: each axpy w -= h_i V[i] is fused with the block
-// partial of the next term's dot <V[i+1], w> (or of ||w||^2 after the
-// last), the partials double-buffered so that a stage never overwrites a
-// buffer another block may still be summing. Dots reduce in double, one
-// partial per block summed in a fixed order by every block, so every
-// block holds the same h, hn and alive, deterministically and without
-// atomics. Work vectors written in the kernel are read through L2
-// (__ldcg).
-//
-// In 3-D (P2 tetrahedra, 33^3 to 57^3 sites) a stage is no longer short:
-// the fine apply reads 65 weight planes (9.3 MB at 33^3, 48 MB at 57^3)
-// and the operator W_op as many again, so the fine-level stages are bound
-// by L2 / HBM bytes rather than by the barrier alone, and at 57^3 the
-// hierarchy, W_op and the 31-plane basis (23 MB) do not fit in L2. The
-// design is unchanged: the levels keep their (nz, ny, nx) layout and every
-// stage walks the flat site index (coalesced), where the Pallas kernel
-// flattens them into slab-packed planes for its 2-D rolls.
+// the whole result of the stage before: about 30 + j barriers per step on
+// a 4-level hierarchy, some 1,300 per cycle at m = 30, while the hierarchy
+// (~1 MB in 2-D, ~10 MB at 33^3) and the basis (31 planes, 3.2 MB at 161^2,
+// 4.5 MB at 33^3) stay in the 50 MB L2. On an H100 80GB HBM3 at 700 W
+// the cooperative design this replaced (one launch, grid barriers) spent
+// 3-4 us per stage on 100-140 blocks, and its one-block coarsest sweep,
+// from L2, 55 us (2-D) and 88 us (33^3) per V-cycle: a third to two
+// fifths of the cycle (PERF.md, stage stamps).
+// So this design (gmg_cluster.cuh):
+// - one cluster of up to 16 CTAs x 1,024 threads is the whole launch, its
+//   stages separated by the hardware cluster barrier (0.79 us empty at 16
+//   CTAs against 1.1 us for a cooperative grid barrier, same card);
+// - each CTA owns a band of rows of every level; a tap stage first copies
+//   the zero-padded box of the input vector its band's taps reach into
+//   shared memory, reads it without bounds checks, and issues each site's
+//   weight loads kBatch at a time;
+// - the coarsest (probed) level is solved by one CTA from shared memory:
+//   its weights and D are copied in at each V-cycle's coarse stage, which
+//   also restricts into it, and all 10 sweeps run on block barriers;
+// - w, the vector being orthogonalised, lives in shared memory at its
+//   owner's sites across the j + 1 MGS terms (each thread owns fixed
+//   sites); each axpy w -= h_i V[i] is fused with the CTA partial of the
+//   next term's dot <V[i+1], w> (or of ||w||^2 after the last), one
+//   cluster barrier per term, the partials double-buffered in shared-
+//   memory slots and summed across the cluster through distributed shared
+//   memory in a fixed order, in double: every CTA holds the same h, hn and
+//   alive, deterministically and without atomics.
+// The price: one cluster has 16 of the card's 132 SMs, and so about an
+// eighth of its L2 bandwidth. In 3-D a fine tap stage reads 65 weight
+// planes (9.3 MB at 33^3, 48 MB at 57^3), six such stages per Arnoldi
+// step, so the 3-D fine stages are bound by the cluster's L2 bytes, and at
+// 57^3 the hierarchy, W_op and the basis (23 MB) no longer fit in L2.
 
-#include "gmg_vcycle.cuh"
+#include "gmg_cluster.cuh"
 
 namespace {
 
-constexpr int kSlots = 4;  // partial buffers: two for MGS, ||w||^2, ||u||^2
 constexpr float kEps = 1e-30f;
 constexpr float kFreeze = 1e-5f;
+// shared-memory slots of the CTA partials: two for MGS, ||w||^2, ||u||^2
+constexpr int kMgs = 0, kW = 2, kU = 3, kSlots = 4;
+constexpr int kMaxSteps = 128;  // m, Arnoldi steps per cycle
 
 struct Hier {
   Level lv[kMaxLevels];
-  Level op;         // Arnoldi operator: taps and shape; W set per launch
-  float* Av;        // W_op V[j], the preconditioner's input
-  float* z1;        // the V-cycle chain's accumulator
-  float* w;         // the vector being orthogonalised
-  double* partial;  // kSlots * gridDim.x block partials
+  Level op;            // Arnoldi operator: taps and shape; W per launch
+  Taps T[kMaxLevels];  // each level's taps in its windows
+  Taps Top;            // the operator's
+  float* Av;  // W_op V[j], the preconditioner's input
+  float* z1;  // the V-cycle chain's accumulator
   int nlev;
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kClusterThreads, 1)
 gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
                        const float* Wop, float* V, float* Hc,
                        float* beta_out, int m, int cycles) {
-  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
   __shared__ Hier H;
   __shared__ double sh[33];
+  __shared__ double red[kSlots];
+  __shared__ double bc[kSlots];
+  // the step's Hessenberg column, written out with the step's last stage
+  __shared__ float hcol[kMaxSteps + 1];
   {
     const int* src = reinterpret_cast<const int*>(desc);
     int* dst = reinterpret_cast<int*>(&H);
@@ -86,96 +102,116 @@ gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
       dst[i] = src[i];
   }
   __syncthreads();
-  if (threadIdx.x == 0) H.op.W = Wop;
-  __syncthreads();
 
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
   const Level& L0 = H.lv[0];
   const int n0 = sites(L0);
-  const int G = gridDim.x;
-  double* const pmgs[2] = {H.partial, H.partial + G};
-  double* const pw = H.partial + 2 * G;
-  double* const pu = H.partial + 3 * G;
+  const Band b0 = band(L0);
+  float* w = cluster_smem;                             // w at this CTA's sites
+  float* sm = cluster_smem + band_cap(L0, gridDim.x);  // windows, coarse level
   const bool leader = blockIdx.x == 0 && threadIdx.x == 0;
 
-  // zero the outputs; the chain's input is r
-  for (int idx = tid; idx < (m + 1) * n0; idx += stride) V[idx] = 0.f;
-  for (int idx = tid; idx < m * (m + 1); idx += stride) Hc[idx] = 0.f;
-  for (int idx = tid; idx < n0; idx += stride) {
+  if (blockIdx.x == 0)
+    for (int q = threadIdx.x; q < m * (m + 1); q += blockDim.x) Hc[q] = 0.f;
+  // the chain's input is r
+  for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x) {
     const float rv = r_in[idx];
     L0.r[idx] = rv;
     L0.x[idx] = __ldg(L0.D + idx) * rv;
   }
-  grid.sync();
+  cluster.sync();
 
   // g0 = M r;  beta = ||g0||;  V[0] = g0 / max(beta, eps)
-  chain_to_last(H.lv, H.nlev, r_in, H.z1, cycles, grid);
+  chain_to_last_cl(H.lv, H.T, H.nlev, r_in, H.z1, cycles, sm, cluster);
   {
+    const Window x = stage_in(L0.x, L0, H.T[0], b0, 1, sm);
     double acc = 0.0;
-    for (int idx = tid; idx < n0; idx += stride) {
-      const float g = chain_result_at(L0, H.z1, idx, cycles);
-      H.w[idx] = g;
+    const GlobalW wt{L0.W, n0};
+    for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x) {
+      const float g = chain_result_win(L0, H.T[0], wt, x.s + x.site(L0, idx), H.z1, idx, cycles);
+      w[idx - b0.lo] = g;
       acc += (double)g * (double)g;
     }
-    put_partial(acc, pw, sh);
+    put_red(acc, red, kW, sh);
   }
-  grid.sync();
-  const float beta = (float)sqrt(grid_total(pw, sh));
+  cluster.sync();
+  const float beta = (float)sqrt(cluster_total(cluster, red, bc, kW));
   if (leader) *beta_out = beta;
-  for (int idx = tid; idx < n0; idx += stride)
-    V[idx] = ldw(H.w + idx) / fmaxf(beta, kEps);
-  grid.sync();
+  for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x)
+    V[idx] = w[idx - b0.lo] / fmaxf(beta, kEps);
+  cluster.sync();
 
   float alive = 1.f;
   for (int j = 0; j < m; ++j) {
     const float* vj = V + (size_t)j * n0;
     // the preconditioner's input W_op V[j]
-    for (int idx = tid; idx < n0; idx += stride) {
-      const float a = apply_at(H.op, vj, idx);
-      H.Av[idx] = a;
-      L0.r[idx] = a;
-      L0.x[idx] = __ldg(L0.D + idx) * a;
+    {
+      const Window v = stage_in(vj, H.op, H.Top, b0, 1, sm);
+      const GlobalW wt{Wop, n0};
+      for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x) {
+        const float a = taps_at(H.op, H.Top.woff, wt, v.s + v.site(H.op, idx), idx);
+        H.Av[idx] = a;
+        L0.r[idx] = a;
+        L0.x[idx] = __ldg(L0.D + idx) * a;
+      }
     }
-    grid.sync();
-    chain_to_last(H.lv, H.nlev, H.Av, H.z1, cycles, grid);
+    cluster.sync();
+    chain_to_last_cl(H.lv, H.T, H.nlev, H.Av, H.z1, cycles, sm, cluster);
     // u = alive * M Av;  w = u;  partials of <V[0], u> and ||u||^2
     {
+      const Window x = stage_in(L0.x, L0, H.T[0], b0, 1, sm);
       double acc = 0.0, accu = 0.0;
-      for (int idx = tid; idx < n0; idx += stride) {
-        const float u = alive * chain_result_at(L0, H.z1, idx, cycles);
-        H.w[idx] = u;
+      const GlobalW wt{L0.W, n0};
+      for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x) {
+        const float u = alive * chain_result_win(L0, H.T[0], wt, x.s + x.site(L0, idx), H.z1,
+                                                 idx, cycles);
+        w[idx - b0.lo] = u;
         acc += (double)ldw(V + idx) * (double)u;
         accu += (double)u * (double)u;
       }
-      put_partial(acc, pmgs[0], sh);
-      put_partial(accu, pu, sh);
+      put_red(acc, red, kMgs, sh);
+      put_red(accu, red, kU, sh);
     }
-    grid.sync();
+    cluster.sync();
     // MGS, one stage per term: w -= h_i V[i] with the next term's partial
     for (int i = 0; i <= j; ++i) {
-      const float h = (float)grid_total(pmgs[i & 1], sh);
-      if (leader) Hc[(size_t)j * (m + 1) + i] = h;
+      const float h = (float)cluster_total(cluster, red, bc, kMgs + (i & 1));
+      if (leader) hcol[i] = h;
       const float* vi = V + (size_t)i * n0;
       const float* vn = V + (size_t)(i + 1) * n0;
       double acc = 0.0;
-      for (int idx = tid; idx < n0; idx += stride) {
-        const float wv = ldw(H.w + idx) - h * ldw(vi + idx);
-        H.w[idx] = wv;
+      for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x) {
+        const float wv = __fsub_rn(w[idx - b0.lo], __fmul_rn(h, ldw(vi + idx)));
+        w[idx - b0.lo] = wv;
         acc += (i < j ? (double)ldw(vn + idx) : (double)wv) * (double)wv;
       }
-      put_partial(acc, i < j ? pmgs[(i + 1) & 1] : pw, sh);
-      grid.sync();
+      put_red(acc, red, i < j ? kMgs + ((i + 1) & 1) : kW, sh);
+      cluster.sync();
     }
-    const float hn = (float)sqrt(grid_total(pw, sh));
-    const float unorm = (float)sqrt(grid_total(pu, sh));
+    const float hn = (float)sqrt(cluster_total(cluster, red, bc, kW));
+    const float unorm = (float)sqrt(cluster_total(cluster, red, bc, kU));
     alive = hn > kFreeze * unorm ? alive : 0.f;
-    if (leader) Hc[(size_t)j * (m + 1) + j + 1] = alive * hn;
+    if (leader) {
+      hcol[j + 1] = alive * hn;
+      for (int i = 0; i <= j + 1; ++i) Hc[(size_t)j * (m + 1) + i] = hcol[i];
+    }
     float* vnext = V + (size_t)(j + 1) * n0;
-    for (int idx = tid; idx < n0; idx += stride)
-      vnext[idx] = alive * ldw(H.w + idx) / fmaxf(hn, kEps);
-    grid.sync();
+    for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x)
+      vnext[idx] = alive * w[idx - b0.lo] / fmaxf(hn, kEps);
+    // also keeps every CTA's shared memory alive until the last
+    // cluster_total has read it
+    cluster.sync();
   }
+}
+
+// Dynamic shared memory of a CTA over a cluster of P: w at its sites of
+// level 0, then the larger of its windows and the coarsest level's copy.
+int smem_bytes(const Hier& H, int P) {
+  int area = window_floats(H.lv, H.T, H.nlev - 1, 1, P);
+  const int op = window_floats(&H.op, &H.Top, 1, 1, P);
+  const int coarse = coarse_floats(H.lv[H.nlev - 1], H.T[H.nlev - 1], 1);
+  area = op > area ? op : area;
+  area = coarse > area ? coarse : area;
+  return (int)sizeof(float) * (band_cap(H.lv[0], P) + area);
 }
 
 }  // namespace
@@ -184,21 +220,13 @@ extern "C" {
 
 int gmg_fused_gmres_desc_bytes() { return (int)sizeof(Hier); }
 
-int gmg_fused_gmres_partial_slots() { return kSlots; }
-
-// Blocks of the cooperative grid for a fine level of `fine_points`.
-int gmg_fused_gmres_grid(int fine_points, int* blocks) {
-  return coop_grid(gmg_fused_gmres_kernel, fine_points, blocks);
-}
-
 // Fill a host buffer of gmg_fused_gmres_desc_bytes() bytes: the levels
 // (ptrs, dims, offs as pack_levels takes them), the operator's taps
-// (op_K triples (dz, dy, dx) in op_offs; its shape is level 0's) and the work
-// vectors Av, z1, w (level-0 size) and partial (kSlots * blocks doubles).
+// (op_K triples (dz, dy, dx) in op_offs; its shape is level 0's) and the
+// work vectors Av and z1 (level-0 size).
 int gmg_fused_gmres_pack(void* out, int nlev, const long long* ptrs,
                          const int* dims, const int* offs, int op_K,
-                         const int* op_offs, long long Av, long long z1,
-                         long long w, long long partial) {
+                         const int* op_offs, long long Av, long long z1) {
   Hier* H = static_cast<Hier*>(out);
   *H = Hier{};
   int e = pack_levels(H->lv, nlev, ptrs, dims, offs);
@@ -209,30 +237,34 @@ int gmg_fused_gmres_pack(void* out, int nlev, const long long* ptrs,
   H->op.nz = H->lv[0].nz;
   H->op.ny = H->lv[0].ny;
   H->op.nx = H->lv[0].nx;
+  for (int l = 0; l < nlev; ++l) window_taps(H->lv[l], H->T[l]);
+  window_taps(H->op, H->Top);
   H->Av = reinterpret_cast<float*>(Av);
   H->z1 = reinterpret_cast<float*>(z1);
-  H->w = reinterpret_cast<float*>(w);
-  H->partial = reinterpret_cast<double*>(partial);
   H->nlev = nlev;
   return 0;
 }
 
+// The cluster size and dynamic shared memory of a packed descriptor
+// (host copy) on the current device; an error if no cluster of 8 or 16
+// CTAs with that memory can be resident.
+int gmg_fused_gmres_config(const void* desc, int* cluster, int* smem) {
+  const Hier& H = *static_cast<const Hier*>(desc);
+  return cluster_config(gmg_fused_gmres_kernel, [&](int P) { return smem_bytes(H, P); },
+                        cluster, smem);
+}
+
 // One Arnoldi cycle of m steps on r with the operator Wop (op_K, nz, ny,
 // nx): V (m+1, nz, ny, nx), Hc (m, m+1), beta (1 float) are written.
-// desc: the packed descriptor in device memory; blocks from gmg_fused_gmres_grid.
+// desc: the packed descriptor in device memory; cluster and smem from
+// gmg_fused_gmres_config.
 int gmg_fused_gmres_launch(const void* desc, const float* r,
                            const float* Wop, float* V, float* Hc,
-                           float* beta, int m, int cycles, int blocks,
-                           void* stream) {
-  if (m < 1 || cycles < 1) return (int)cudaErrorInvalidValue;
-  const Hier* d = static_cast<const Hier*>(desc);
-  void* args[] = {(void*)&d,  (void*)&r,    (void*)&Wop, (void*)&V,
-                  (void*)&Hc, (void*)&beta, (void*)&m,   (void*)&cycles};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)gmg_fused_gmres_kernel, dim3(blocks), dim3(kThreads), args,
-      0, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+                           float* beta, int m, int cycles, int cluster,
+                           int smem, void* stream) {
+  if (m < 1 || m > kMaxSteps || cycles < 1) return (int)cudaErrorInvalidValue;
+  return cluster_launch(gmg_fused_gmres_kernel, cluster, smem, stream,
+                        static_cast<const Hier*>(desc), r, Wop, V, Hc, beta, m, cycles);
 }
 
 const char* pdb_error_string(int code) {

@@ -1,7 +1,8 @@
 // Multigrid V-cycle device code shared by the fused GMG kernels
-// (gmg_fused_cg.cu, gmg_fused_gmres.cu; the levels, transfers and host
-// packing also by the block kernels through gmg_block_vcycle.cuh), for
-// Hopper (sm_90a).
+// (gmg_fused_cg.cu; the levels, transfers and host packing also by the
+// block kernels through gmg_block_vcycle.cuh, and the levels, per-site
+// helpers and host packing by the cluster kernels #5 and #6 through
+// gmg_cluster.cuh), for Hopper (sm_90a).
 //
 // A hierarchy is levels 0..L-1 of a 2-D or 3-D scalar lattice; level l+1
 // halves level l ((n - 1) / 2 + 1 points per axis). A level is (nz, ny, nx)
@@ -19,7 +20,7 @@
 // stage loops over the flat site index, so loads stay coalesced whatever
 // nx is.
 //
-// Every function here runs inside a cooperative launch: a grid-stride
+// The V-cycle stages here run inside a cooperative launch: a grid-stride
 // loop per stage, grid.sync() between stages. Work vectors written in the
 // kernel are read with __ldcg (through L2), so that no block reads a
 // stale L1 line after a barrier. The coarsest level is swept by block 0

@@ -29,7 +29,7 @@ import sympy as sp
 import torch
 
 from ..fem import symbolic
-from ..fem.assemble import LocalOperator, local_elasticity, local_vector_load, scatter_add
+from ..fem.assemble import LocalOperator, local_elasticity
 from ..solvers.dispatch import solve_linear
 from . import base, scalar
 from .types import OracleResult, compute_rel_L2_grid
@@ -106,12 +106,7 @@ class LinearElasticitySolver:
             )
             # host f_q keeps local_vector_load a numpy einsum
             f_q = np.stack([f(ctx.qpts()) for f in f_fns], axis=-1)
-            b = scatter_add(
-                torch.as_tensor(local_vector_load(cb, f_q), device=self.device),
-                op.dofmap,
-                space.ndof,
-            )
-            return op, b
+            return op, ctx.load_vector(f_q)
 
         op, b = base.charge_setup(ctx, build)
 

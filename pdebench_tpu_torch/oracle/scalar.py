@@ -19,7 +19,14 @@ import numpy as np
 import torch
 
 from ..fem import sampling
-from ..fem.assemble import CellBatch, bc_mask_values, cell_batch, local_load, scatter_add
+from ..fem.assemble import (
+    CellBatch,
+    GatherSum,
+    bc_mask_values,
+    cell_batch,
+    local_load,
+    local_vector_load,
+)
 from ..fem.mesh import Mesh
 from ..fem.spaces import FunctionSpace
 from . import base
@@ -49,11 +56,29 @@ class ScalarContext:
     def qpts(self) -> np.ndarray:
         return self.cb.qpts
 
-    def load_vector(self, f_q: torch.Tensor) -> torch.Tensor:
-        dofmap = torch.as_tensor(
-            self.space.dofmap_scalar, dtype=torch.int64, device=self.device
+    def gather_sum(self) -> GatherSum:
+        """The fixed-order sum of cell contributions into the space's dofs
+        (blocked for a vector space), made once per geometry and device:
+        index_add_'s atomics would vary the last bits from solve to solve
+        on the card, and an iterative solve's round count with them."""
+        space = self.space
+        return base.memo_geometry(
+            [
+                "scalar-gather", self.config["domain"], self.config.get("mesh", {}),
+                int(self.config.get("fem", {}).get("degree", 1)), space.ncomp, str(self.device),
+            ],
+            lambda: GatherSum(space.dofmap, space.ndof, self.device),
         )
-        return scatter_add(local_load(self.cb, f_q), dofmap, self.space.ndof)
+
+    def load_vector(self, f_q) -> torch.Tensor:
+        """∫ f . v: f_q (n_cells, nq) on a scalar space, or (n_cells, nq,
+        d) on a vector space (interleaved components, the blocked dofmap's
+        order)."""
+        if self.space.ncomp == 1:
+            vals = local_load(self.cb, f_q)
+        else:
+            vals = local_vector_load(self.cb, f_q)
+        return self.gather_sum()(torch.as_tensor(vals, device=self.device))
 
     def sample(self, u: np.ndarray) -> np.ndarray:
         return sampling.sample_on_grid(self.space, u, self.grid, loc=self.loc)

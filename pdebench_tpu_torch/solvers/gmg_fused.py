@@ -2,8 +2,9 @@
 
 The mixed-precision refinement's inner step (krylov.refined_solve) runs
 multigrid V-cycles on a 2-D or 3-D stencil hierarchy. Each builder here
-wraps one hand-written kernel (a cooperative persistent launch whose
-hierarchy stays in L2) for CUDA tensors, and its plain PyTorch version
+wraps one hand-written kernel (one persistent launch whose hierarchy
+stays in L2: a cooperative grid for #2-#4, one thread-block cluster for
+#5 and #6) for CUDA tensors, and its plain PyTorch version
 for CPU tensors; each holds the math of the Pallas kernel it replaces
 (pdebench_tpu/solvers/gmg_fused.py):
 
@@ -302,20 +303,39 @@ def _lib_cg(name: str = "gmg_fused_cg") -> ctypes.CDLL:
     return lib
 
 
+def _bind_cluster(lib, name: str) -> None:
+    """Argument types of a cluster kernel's desc_bytes and config entries."""
+    getattr(lib, f"{name}_desc_bytes").argtypes = []
+    getattr(lib, f"{name}_desc_bytes").restype = ctypes.c_int
+    # host descriptor, cluster size out, dynamic shared memory bytes out
+    getattr(lib, f"{name}_config").argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)
+    ]
+    getattr(lib, f"{name}_config").restype = ctypes.c_int
+
+
+def _cluster_config(lib, name: str, desc: np.ndarray, device):
+    """(cluster size, dynamic shared memory bytes) of a packed host
+    descriptor on `device`; raises if no cluster can be resident."""
+    cluster, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = getattr(lib, f"{name}_config")(
+            desc.ctypes.data_as(ctypes.c_void_p), ctypes.byref(cluster), ctypes.byref(smem)
+        )
+    _build.check(lib, code, f"{name}_config")
+    return cluster.value, smem.value
+
+
 @functools.lru_cache(maxsize=None)
 def _lib_gmres() -> ctypes.CDLL:
     lib = _build.load("gmg_fused_gmres")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("gmg_fused_gmres_desc_bytes", "gmg_fused_gmres_partial_slots"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = i
-    lib.gmg_fused_gmres_grid.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    lib.gmg_fused_gmres_grid.restype = i
-    # out, nlev, ptrs, dims, offs, op_K, op_offs, Av, z1, w, partial
-    lib.gmg_fused_gmres_pack.argtypes = [vp, i, vp, vp, vp, i, vp, ll, ll, ll, ll]
+    _bind_cluster(lib, "gmg_fused_gmres")
+    # out, nlev, ptrs, dims, offs, op_K, op_offs, Av, z1
+    lib.gmg_fused_gmres_pack.argtypes = [vp, i, vp, vp, vp, i, vp, ll, ll]
     lib.gmg_fused_gmres_pack.restype = i
-    # desc, r, W_op, V, Hc, beta, m, cycles, blocks, stream
-    lib.gmg_fused_gmres_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp]
+    # desc, r, W_op, V, Hc, beta, m, cycles, cluster, smem, stream
+    lib.gmg_fused_gmres_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.gmg_fused_gmres_launch.restype = i
     return lib
 
@@ -664,12 +684,7 @@ class FusedInnerGMRES(_FusedHierarchy):
     def _setup_cuda(self):
         lib = _lib_gmres()
         work, ptrs, dims, offs = self._level_arrays()
-        n0 = self.sites
-        vecs = torch.zeros((3, n0), dtype=torch.float32, device=self.device)  # Av, z1, w
-        blocks = self._grid(lib, lib.gmg_fused_gmres_grid)
-        partial = torch.zeros(
-            lib.gmg_fused_gmres_partial_slots() * blocks, dtype=torch.float64, device=self.device
-        )
+        vecs = torch.zeros((2, self.sites), dtype=torch.float32, device=self.device)  # Av, z1
         op_offs = _taps3(self.op_offsets)
         desc = np.zeros(lib.gmg_fused_gmres_desc_bytes(), dtype=np.uint8)
         code = lib.gmg_fused_gmres_pack(
@@ -678,17 +693,17 @@ class FusedInnerGMRES(_FusedHierarchy):
             dims.ctypes.data_as(ctypes.c_void_p),
             offs.ctypes.data_as(ctypes.c_void_p),
             len(self.op_offsets), op_offs.ctypes.data_as(ctypes.c_void_p),
-            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
-            partial.data_ptr(),
+            vecs[0].data_ptr(), vecs[1].data_ptr(),
         )
         _build.check(lib, code, "gmg_fused_gmres_pack")
+        cluster, smem = _cluster_config(lib, "gmg_fused_gmres", desc, self.device)
         self._cuda = dict(
-            lib=lib, work=work, vecs=vecs, partial=partial, blocks=blocks,
+            lib=lib, work=work, vecs=vecs, cluster=cluster, smem=smem,
             desc=torch.from_numpy(desc).to(self.device),
         )
 
     def launch_raw(self, r_flat: torch.Tensor, W_op: torch.Tensor):
-        """(V, H, beta) of the Arnoldi cycle as one cooperative launch."""
+        """(V, H, beta) of the Arnoldi cycle as one cluster launch."""
         global LAUNCHES_GMRES
         self._check(r_flat)
         self._check_op(W_op)
@@ -703,7 +718,7 @@ class FusedInnerGMRES(_FusedHierarchy):
         beta = torch.empty((), dtype=torch.float32, device=self.device)
         code = c["lib"].gmg_fused_gmres_launch(
             _vp(c["desc"]), _vp(r), _vp(Wc), _vp(V), _vp(Hc), _vp(beta),
-            m, PRECOND_CYCLES, c["blocks"], _build.current_stream(self.device),
+            m, PRECOND_CYCLES, c["cluster"], c["smem"], _build.current_stream(self.device),
         )
         _build.check(c["lib"], code, "gmg_fused_gmres_launch")
         LAUNCHES_GMRES += 1
@@ -794,16 +809,13 @@ def build_fused_inner_gmres(gmg, m: int, device, op_offsets) -> Optional[FusedIn
 def _lib_dyn() -> ctypes.CDLL:
     lib = _build.load("gmg_fused_dyn_block")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.gmg_fused_dyn_block_desc_bytes.argtypes = []
-    lib.gmg_fused_dyn_block_desc_bytes.restype = i
-    lib.gmg_fused_dyn_block_grid.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    lib.gmg_fused_dyn_block_grid.restype = i
+    _bind_cluster(lib, "gmg_fused_dyn_block")
     # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 4 per level),
     # offsets (int32 x 3 per tap), zp
     lib.gmg_fused_dyn_block_pack.argtypes = [vp, i, vp, vp, vp, ctypes.c_longlong]
     lib.gmg_fused_dyn_block_pack.restype = i
-    # desc, r, z, cycles, blocks, stream
-    lib.gmg_fused_dyn_block_launch.argtypes = [vp, vp, vp, i, i, vp]
+    # desc, r, z, cycles, cluster, smem, stream
+    lib.gmg_fused_dyn_block_launch.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.gmg_fused_dyn_block_launch.restype = i
     return lib
 
@@ -816,7 +828,7 @@ class FusedDynBlockVCycle:
     vectors, site-major and component-minor.
 
     A CPU tensor runs `plain` (gmg_dyn's V-cycle chain in PyTorch); a CUDA
-    tensor runs `launch`, one cooperative launch of
+    tensor runs `launch`, one thread-block-cluster launch of
     csrc/gmg_fused_dyn_block.cu. The kernel's level descriptor points at
     the weight set's tensors: it is packed at the first launch on a weight
     set and kept in that set's `cache`, so it lives exactly as long as the
@@ -867,17 +879,13 @@ class FusedDynBlockVCycle:
             for sp in self.spec.levels
         ]
         zp = torch.zeros(2 * self.sites, dtype=torch.float32, device=self.device)
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(self.device):
-            _build.check(
-                lib, lib.gmg_fused_dyn_block_grid(self.sites, ctypes.byref(blocks)),
-                "gmg_fused_dyn_block_grid",
-            )
         dims = np.array(
             [[1, *sp.shape, len(sp.offsets)] for sp in self.spec.levels], dtype=np.int32
         )
         offs = _taps3(o for sp in self.spec.levels for o in sp.offsets)
-        self._cuda = dict(lib=lib, work=work, zp=zp, blocks=blocks.value, dims=dims, offs=offs)
+        # cluster and smem: from the first descriptor packed (the same for
+        # every weight set of the spec)
+        self._cuda = dict(lib=lib, work=work, zp=zp, dims=dims, offs=offs, cluster=None, smem=None)
 
     def _descriptor(self, levels) -> torch.Tensor:
         """The packed level descriptor of this weight set, on the device."""
@@ -899,12 +907,16 @@ class FusedDynBlockVCycle:
                 c["offs"].ctypes.data_as(ctypes.c_void_p), c["zp"].data_ptr(),
             )
             _build.check(c["lib"], code, "gmg_fused_dyn_block_pack")
+            if c["cluster"] is None:
+                c["cluster"], c["smem"] = _cluster_config(
+                    c["lib"], "gmg_fused_dyn_block", desc, self.device
+                )
             desc_t = torch.from_numpy(desc).to(self.device)
             levels.cache[self] = desc_t
         return desc_t
 
     def launch(self, r_flat: torch.Tensor, levels) -> torch.Tensor:
-        """The chain as one cooperative kernel launch."""
+        """The chain as one cluster launch of the kernel."""
         global LAUNCHES_DYN_BLOCK
         self._check(r_flat, levels)
         if r_flat.device != self.device or self.device.type != "cuda":
@@ -916,7 +928,7 @@ class FusedDynBlockVCycle:
         z = torch.empty_like(r)
         c = self._cuda
         code = c["lib"].gmg_fused_dyn_block_launch(
-            _vp(desc), _vp(r), _vp(z), self.n_cycles, c["blocks"],
+            _vp(desc), _vp(r), _vp(z), self.n_cycles, c["cluster"], c["smem"],
             _build.current_stream(self.device),
         )
         _build.check(c["lib"], code, "gmg_fused_dyn_block_launch")

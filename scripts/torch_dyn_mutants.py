@@ -1,26 +1,32 @@
-"""Mutation check of kernel #5 (the dynamic-weight block V-cycle chain) on a
-CUDA card: which check sees which fault.
+"""Mutation check of kernels #5 (the dynamic-weight block V-cycle chain)
+and #6 (the fused Arnoldi cycle) on a CUDA card: which check sees which
+fault.
 
     python3 scripts/torch_dyn_mutants.py
 
 For the unmutated control and each mutant: a copy of the package,
 chip_smoke.py and the dataset under build/pdebench_tpu_torch/mutants/<name>
 (built there, from the copy's sources), one mutation applied to the copy,
-then a subprocess in the copy that runs kernel #5's checks of chip_smoke.py
-(phase 3e: `check_dyn_block` on navier_stokes_basic's hierarchy) and,
-independently, its Navier-Stokes main path (phase 8: `drive_ns`, one solve
-per case). Prints per mutant and phase "caught" with the failing check's
-message, or "not caught". Each mutation reaches kernel #5 only (the
-kernels #2-#4 and #6 keep their sources):
+then a subprocess in the copy that runs the mutated kernel's checks of
+chip_smoke.py, each phase on its own: for kernel #5 phase 3e
+(`check_dyn_block` on navier_stokes_basic's hierarchy) and its
+Navier-Stokes main path (phase 8: `drive_ns`, one solve per case); for
+kernel #6 phase 3c (`check_gmres` on helmholtz_k12_exponential_mode's and
+helmholtz_3d_k1_trig's hierarchies) and the two cases' solves (phases 5
+and 7: `drive`, one solve each). Prints per mutant and phase "caught"
+with the failing check's message, or "not caught". Each mutation reaches
+its kernel only (the cluster header is copied for the mutated kernel
+alone, the other kernels keep their sources):
 
   stale      the wrapper packs one level descriptor per kernel object (at
              the first weight set it sees) and launches every later weight
-             set on it
-  transpose  kernel #5's block apply reads W[k, b, a] for W[k, a, b] (a
-             copy of gmg_block_vcycle.cuh that gmg_fused_dyn_block.cu
-             alone includes)
+             set on it (#5)
+  transpose  kernel #5's block taps read W[k, b, a] for W[k, a, b]
   sweeps9    kernel #5's coarsest level swept 9 times instead of 10 (x = D r
-             and 8 sweeps, in the same header copy)
+             and 8 sweeps)
+  nobarrier  kernel #6 drops the cluster barrier between its first and
+             second Gram-Schmidt terms: the second term's dot is summed
+             from partials other CTAs may not have written yet
 
 A mutation whose pattern is missing from the sources raises. Imports
 neither jax nor pdebench_tpu.
@@ -38,10 +44,10 @@ OUT = os.path.join(ROOT, "build", "pdebench_tpu_torch", "mutants")
 CSRC = os.path.join("pdebench_tpu_torch", "csrc")
 
 _APPLY = (
-    "      a0 += __ldg(w) * u0 + __ldg(w + n) * u1;              // W[k,0,0], W[k,0,1]\n"
-    "      a1 += __ldg(w + 2 * n) * u0 + __ldg(w + 3 * n) * u1;  // W[k,1,0], W[k,1,1]\n",
-    "      a0 += __ldg(w) * u0 + __ldg(w + 2 * n) * u1;\n"
-    "      a1 += __ldg(w + n) * u0 + __ldg(w + 3 * n) * u1;\n",
+    "      w01[b] = in ? w(q + 1, idx) : 0.f;  // W[k,0,1]\n"
+    "      w10[b] = in ? w(q + 2, idx) : 0.f;  // W[k,1,0]\n",
+    "      w01[b] = in ? w(q + 2, idx) : 0.f;\n"
+    "      w10[b] = in ? w(q + 1, idx) : 0.f;\n",
 )
 _SWEEPS = (
     "for (int s = 0; s < kCoarseSweeps - 1; ++s) {",
@@ -53,7 +59,20 @@ _STALE = [
     (os.path.join("pdebench_tpu_torch", "solvers", "gmg_fused.py"),
      "levels.cache[self] = desc_t", "self._stale_desc = desc_t"),
 ]
-MUTANTS = {"control": [], "stale": _STALE, "transpose": [_APPLY], "sweeps9": [_SWEEPS]}
+_NOBARRIER = (
+    os.path.join(CSRC, "gmg_fused_gmres.cu"),
+    "      put_red(acc, red, i < j ? kMgs + ((i + 1) & 1) : kW, sh);\n      cluster.sync();\n",
+    "      put_red(acc, red, i < j ? kMgs + ((i + 1) & 1) : kW, sh);\n      if (i != 0) cluster.sync();\n",
+)
+# mutant -> (kernel source the header edits go to, edits)
+MUTANTS = {
+    "control5": ("gmg_fused_dyn_block", []),
+    "stale": ("gmg_fused_dyn_block", _STALE),
+    "transpose": ("gmg_fused_dyn_block", [_APPLY]),
+    "sweeps9": ("gmg_fused_dyn_block", [_SWEEPS]),
+    "control6": ("gmg_fused_gmres", []),
+    "nobarrier": ("gmg_fused_gmres", [_NOBARRIER]),
+}
 
 CHECK = r"""
 import sys
@@ -64,13 +83,26 @@ from pdebench_tpu_torch.oracle import OracleSolver
 from pdebench_tpu_torch.oracle.navier_stokes import NavierStokesProblem
 
 dev = torch.device("cuda")
-cases = cs.load_cases(set(cs.NAVIER_STOKES))
+kernel = sys.argv[1]
 cs.SOLVES = 1
-for phase, run in (
-    ("3e", lambda: cs.check_dyn_block(NavierStokesProblem(cases["navier_stokes_basic"], dev),
-                                      np.random.default_rng(0), dev, {})),
-    ("8", lambda: cs.drive_ns(OracleSolver(device=dev), cases, cs.NAVIER_STOKES, "8")),
-):
+if kernel == "gmg_fused_dyn_block":
+    cases = cs.load_cases(set(cs.NAVIER_STOKES))
+    phases = (
+        ("3e", lambda: cs.check_dyn_block(NavierStokesProblem(cases["navier_stokes_basic"], dev),
+                                          np.random.default_rng(0), dev, {})),
+        ("8", lambda: cs.drive_ns(OracleSolver(device=dev), cases, cs.NAVIER_STOKES, "8")),
+    )
+else:
+    k12, k1 = "helmholtz_k12_exponential_mode", "helmholtz_3d_k1_trig"
+    cases = cs.load_cases({k12, k1})
+    phases = (
+        ("3c", lambda: cs.check_gmres({cid: cs.helmholtz_operator(cases[cid], dev) for cid in (k12, k1)},
+                                      np.random.default_rng(0), dev, {}, {})),
+        ("5", lambda: cs.drive(OracleSolver(device=dev), cases,
+                               {k12: cs.HELMHOLTZ[k12] + (30,)}, "5")),
+        ("7", lambda: cs.drive(OracleSolver(device=dev), cases, {k1: cs.LATTICE_3D[k1]}, "7")),
+    )
+for phase, run in phases:
     try:
         run()
         print(f"RESULT phase {phase}: not caught", flush=True)
@@ -79,7 +111,7 @@ for phase, run in (
 """
 
 
-def make_copy(name: str, edits) -> str:
+def make_copy(name: str, kernel: str, edits) -> str:
     dst = os.path.join(OUT, name)
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "pdebench_tpu_torch"), os.path.join(dst, "pdebench_tpu_torch"),
@@ -90,16 +122,15 @@ def make_copy(name: str, edits) -> str:
     for edit in edits:
         if len(edit) == 3:  # (file, old, new)
             path, old, new = edit
-        else:  # a kernel #5-only edit of the shared block header
+        else:  # an edit of the cluster header, for this kernel alone
             old, new = edit
-            path = os.path.join(CSRC, "gmg_block_vcycle_mut.cuh")
-            src = os.path.join(dst, CSRC, "gmg_block_vcycle.cuh")
+            path = os.path.join(CSRC, "gmg_cluster_mut.cuh")
             if not os.path.exists(os.path.join(dst, path)):
-                shutil.copy(src, os.path.join(dst, path))
-                cu = os.path.join(dst, CSRC, "gmg_fused_dyn_block.cu")
+                shutil.copy(os.path.join(dst, CSRC, "gmg_cluster.cuh"), os.path.join(dst, path))
+                cu = os.path.join(dst, CSRC, f"{kernel}.cu")
                 text = open(cu).read()
-                assert '#include "gmg_block_vcycle.cuh"' in text
-                open(cu, "w").write(text.replace('"gmg_block_vcycle.cuh"', '"gmg_block_vcycle_mut.cuh"'))
+                assert '#include "gmg_cluster.cuh"' in text
+                open(cu, "w").write(text.replace('"gmg_cluster.cuh"', '"gmg_cluster_mut.cuh"'))
         full = os.path.join(dst, path)
         text = open(full).read()
         if old not in text:
@@ -113,11 +144,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
-    for name, edits in MUTANTS.items():
-        dst = make_copy(name, edits)
-        proc = subprocess.run([sys.executable, "-c", CHECK], cwd=dst, capture_output=True,
+    # every copy first: a missing pattern raises before any check runs
+    copies = {name: make_copy(name, kernel, edits) for name, (kernel, edits) in MUTANTS.items()}
+    for name, (kernel, _) in MUTANTS.items():
+        dst = copies[name]
+        proc = subprocess.run([sys.executable, "-c", CHECK, kernel], cwd=dst, capture_output=True,
                               text=True, timeout=900)
-        lines = [l for l in proc.stdout.splitlines() if l.startswith(("RESULT", "[3e]", "[8]"))]
+        lines = [l for l in proc.stdout.splitlines()
+                 if l.startswith(("RESULT", "[3c]", "[3e]", "[5]", "[7]", "[8]"))]
         for line in lines:
             print(f"{name}: {line}", flush=True)
         if proc.returncode != 0:

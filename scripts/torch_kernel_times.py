@@ -8,10 +8,15 @@ Builds the operators and hierarchies of chip_smoke.py's 2-D cases (with
 and times each fused kernel on a random lattice residual: kernel #2 (25
 PCG steps), #3 (a chain of 2 V-cycles), #6 (an m = 30 Arnoldi cycle) and
 #4 (25 block PCG steps), each the median over 5 runs of back-to-back calls
-between two CUDA events; and the stencil kernel (`stencil_apply_2d`) on
+between two CUDA events; the stencil kernel (`stencil_apply_2d`) on
 each 2-D lattice in float64 and float32 (on an elasticity lattice, one of
-its (a, b) planes), over runs of 20 calls. Two checkouts run in one call, in turns (parent,
-change, change, parent), compare two versions of the kernels on one card.
+its (a, b) planes), over runs of 20 calls; and kernel #5 on
+navier_stokes_basic's hierarchy (the Jacobian at the Stokes solution), 1
+and 2 cycles, over runs of 20 calls. With --3d, #6 runs on every 3-D
+Helmholtz case of the dataset whose solve takes it (a hierarchy the fused
+kernels take, at least dispatch.FUSED_ARNOLDI_MIN_DOFS sites). Two
+checkouts run in one call, in turns (parent, change, change, parent),
+compare two versions of the kernels on one card.
 Prints the card's name and power limit, then one JSON line
 {"root": DIR, "ms": {"<kernel> <case>": ms, ...}}.
 
@@ -44,7 +49,8 @@ def main(argv) -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import chip_smoke as cs
-    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+    from pdebench_tpu_torch.oracle.navier_stokes import NavierStokesProblem
+    from pdebench_tpu_torch.solvers import dispatch, gmg_fused, stencil_kernel
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -56,8 +62,13 @@ def main(argv) -> int:
     elasticity = ["linear_elasticity_nu010", "linear_elasticity_nu030"]
     if args.three_d:
         poisson += ["poisson_3d_smooth_trig", "poisson_3d_kappa_expr"]
-        helmholtz += ["helmholtz_3d_k1_trig"]
-    cases = cs.load_cases(set(poisson + helmholtz + elasticity))
+        with open(os.path.join(root, "data", "benchmark_v2.jsonl")) as fh:
+            for line in fh:
+                c = json.loads(line)
+                oc = c["oracle_config"]
+                if oc["pde"]["type"] == "helmholtz" and oc["domain"]["type"] == "unit_cube":
+                    helmholtz.append(c["id"])
+    cases = cs.load_cases(set(poisson + helmholtz + elasticity + ["navier_stokes_basic"]))
     rng = np.random.default_rng(0)
     ms = {}
 
@@ -83,18 +94,31 @@ def main(argv) -> int:
         time_it(f"gmg_fused_cg {cid}", lambda: fused(r))
     for cid in helmholtz:
         lat, mask, W32c = cs.helmholtz_operator(cases[cid], dev)
+        sites = int(np.prod(lat.shape))
+        fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
+        if len(lat.shape) == 3 and (fg is None or sites < dispatch.FUSED_ARNOLDI_MIN_DOFS):
+            print(f"{cid}: {lat.shape} lattice, not kernel #6's route", flush=True)
+            continue
         time_stencil(cid, lat)
         r = cs.lattice_rhs(lat, mask, rng, dev)
         rich = gmg_fused.build_fused_richardson(lat.gmg, 2, dev)
         time_it(f"gmg_fused_richardson {cid}", lambda: rich(r))
-        fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
-        time_it(f"gmg_fused_gmres {cid}", lambda: fg.raw(r, W32c))
+        shape = "x".join(map(str, lat.shape))
+        time_it(f"gmg_fused_gmres {cid} {shape}", lambda: fg.raw(r, W32c))
     for cid in elasticity:
         lat, mask = cs.elasticity_operator(cases[cid], dev)
         time_stencil(cid, lat)
         r = cs.lattice_rhs(lat, mask, rng, dev)
         block = gmg_fused.build_fused_block_inner_cg(lat.gmg, 25, dev)
         time_it(f"gmg_fused_block_cg {cid}", lambda: block(r))
+    prob = NavierStokesProblem(cases["navier_stokes_basic"], dev)
+    x1 = prob.stokes_direct(prob.nu)
+    lv = prob.levels(prob.sst.wmapA.weights(prob.jacobian(x1, prob.nu)).float())
+    for cycles in (1, 2):
+        dyn = gmg_fused.build_fused_dyn_block_vcycle(prob.spec, cycles, dev)
+        r = torch.as_tensor(rng.standard_normal(2 * dyn.sites), dtype=torch.float32, device=dev)
+        time_it(f"gmg_fused_dyn_block_vcycle navier_stokes_basic {cycles} cycle(s)",
+                lambda: dyn(r, lv), calls=20)
     print(json.dumps({"root": args.root, "ms": ms}), flush=True)
     return 0
 

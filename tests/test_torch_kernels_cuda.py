@@ -142,9 +142,10 @@ HELMHOLTZ = {
 TOL_LINEAR = 2e-4  # linearity of the Richardson chain (tests/test_gmg_fused.py)
 
 
-def _helmholtz(dev, case_id):
+def _helmholtz(dev, case_id, resolution=None):
     """The case's f32 lattice operator with its shifted-Laplacian
-    hierarchy, the true constrained weights and the lattice mask."""
+    hierarchy, the true constrained weights and the lattice mask; the
+    mesh at `resolution` if given."""
     from pdebench_tpu_torch.fem.assemble import local_mass, local_stiffness
     from pdebench_tpu_torch.oracle import helmholtz, scalar
     from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
@@ -153,6 +154,8 @@ def _helmholtz(dev, case_id):
     with open(DATA) as fh:
         cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
     cfg = scalar.override_bc_with_mms(cfg, cfg["pde"]["manufactured_solution"]["u"])
+    if resolution is not None:
+        cfg["mesh"]["resolution"] = resolution
     k2 = float(cfg["pde"]["pde_params"]["k"]) ** 2
     ctx = scalar.setup_scalar(cfg, dev)
     lat = scalar.maybe_lattice32(ctx, local_stiffness(ctx.cb) - k2 * local_mass(ctx.cb))
@@ -489,12 +492,10 @@ def test_3d_oracle_runs_the_kernels(dev):
     (35,937 dofs, above the 20,000 of the whole fused Arnoldi cycle)."""
     from pdebench_tpu_torch.oracle import OracleSolver
 
-    # helmholtz_3d_k1_trig takes 2 or 3 rounds: kernel #6 ends its second
-    # round near the tolerance, and the last bits of the load vector
-    # (index_add_'s atomics) decide the side (scripts/torch_ir_rounds.py)
+    # the load vector sums in a fixed order: one round count per case
     want = {
         "poisson_3d_kappa_expr": (POISSON_3D["poisson_3d_kappa_expr"][0], "fused-cg-cuda", (2 * 25,)),
-        "helmholtz_3d_k1_trig": (2.416098792334167e-4, "fused-gmres-cuda", (2 * 30, 3 * 30)),
+        "helmholtz_3d_k1_trig": (2.416098792334167e-4, "fused-gmres-cuda", (2 * 30,)),
     }
     for case_id, (ref_err, inner, iterations) in want.items():
         with open(DATA) as fh:
@@ -616,6 +617,46 @@ def test_fused_dyn_block_kernel_takes_each_weight_set(dev, which):
     for lv, want in list(zip(levels, wants)) * 2:
         z = fused(r, lv)
         torch.testing.assert_close(z, want, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("cycles", [1, 2])
+@pytest.mark.parametrize("n", [21, 41])
+def test_fused_dyn_block_kernel_uneven_bands(dev, n, cycles):
+    """Random block hierarchies whose level row counts (21/11/6, 41/21/11/6)
+    a cluster of 16 or 8 CTAs does not divide, the coarser ones fewer rows
+    than CTAs (empty bands)."""
+    from pdebench_tpu_torch.solvers import gmg_dyn
+
+    Wc, offs, mask = _random_block((n, n), 2, 31)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gmg_dyn, "COARSE_SIZE", 100)
+        spec = gmg_dyn.build_dyn_block_spec(offs, (n, n), 2, probe_W=Wc)
+    assert len(spec.levels) >= 3
+    lv = spec.build_levels(torch.as_tensor(Wc, dtype=torch.float32, device=dev))
+    keep = torch.as_tensor(1.0 - mask.astype(np.float32), device=dev)
+    fused = gmg_fused.build_fused_dyn_block_vcycle(spec, cycles, dev)
+    r = (torch.as_tensor(np.random.default_rng(7).standard_normal((n, n, 2)),
+                         dtype=torch.float32, device=dev) * keep[..., None]).reshape(-1)
+    z = fused(r, lv)
+    want = fused.plain(r, lv)
+    torch.testing.assert_close(z, want, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("resolution", [40, 48])
+def test_fused_gmres_kernel_uneven_bands(dev, resolution):
+    """helmholtz_k12's hierarchy cut to 41/21/11 and 49/25/13 rows (plus
+    the probed level): one step per element, and a whole cycle's true
+    residual within twice the plain version's."""
+    lat, mask, W32c = _helmholtz(dev, "helmholtz_k12_exponential_mode", resolution)
+    r = _lattice_rhs(lat, mask, 8, dev)
+    one = gmg_fused.build_fused_inner_gmres(lat.gmg, 1, dev, lat.offsets)
+    for got, want in zip(one.raw(r, W32c), one.plain_raw(r, W32c)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+    fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
+    rel = _true_residual(lat, W32c, r, fg(r, W32c))
+    rel_plain = _true_residual(lat, W32c, r, fg.plain(r, W32c))
+    assert rel < 0.1 and rel <= 2.0 * rel_plain, (rel, rel_plain)
 
 
 def test_dyn_coarsening_on_the_card_matches_numpy(dev):
