@@ -1,5 +1,6 @@
-// Thread-block-cluster stages of the fused kernels #5 and #6
-// (gmg_fused_dyn_block.cu, gmg_fused_gmres.cu), for Hopper (sm_90a).
+// Thread-block-cluster stages of the fused kernels #2 / #3, #5 and #6
+// (gmg_fused_cg.cu, gmg_fused_dyn_block.cu, gmg_fused_gmres.cu), for
+// Hopper (sm_90a).
 //
 // A kernel here is one cluster of up to kMaxCluster CTAs of
 // kClusterThreads threads, launched as the whole grid (cluster_launch), so
@@ -22,13 +23,15 @@
 //   (__ldcg) after a barrier.
 // - Weights stay in global memory (L2-resident) and are read through the
 //   read-only path (__ldg), kBatch (kBatch2) taps' loads issued together,
-//   and summed in tap order: the per-site sums of gmg_vcycle.cuh /
-//   gmg_block_vcycle.cuh, where a tap outside the level is skipped and
-//   here adds an exact 0.
-// - The coarsest level: one CTA copies its weights, D and right-hand side
-//   into shared memory, its iterate into a zero-padded box there, and
-//   runs all kCoarseSweeps sweeps with block barriers only (coarse_solve,
-//   coarse_solve2).
+//   and summed in tap order: the plain versions' per-site sums (for block
+//   levels those of gmg_block_vcycle.cuh), where a tap outside the level
+//   adds an exact 0.
+// - The coarse levels of a scalar hierarchy: CTA 0 solves every level
+//   from l* down in its shared memory, l* the finest level from which
+//   they fit, their W and D copied in once per launch (cta_load,
+//   cta_vcycle), with block barriers only. The block kernel #5 copies
+//   its coarsest level's W, D and right-hand side in at each V-cycle and
+//   sweeps it there (coarse_solve2).
 // - Sums: a CTA's partial of a dot product (block_sum, double) goes into
 //   a slot of its shared memory; after the barrier warp 0 of every CTA
 //   reads the cluster's partials through distributed shared memory, adds
@@ -186,6 +189,24 @@ __device__ __forceinline__ Window stage_in(const float* v, const Level& L, const
   return w;
 }
 
+// The window of a level vector a stage computes site by site instead of
+// reading it: v(idx) at the sites of level L the window of band b holds,
+// zero outside the level, one site per thread at a time. Ends with a
+// block barrier.
+template <class V>
+__device__ __forceinline__ Window stage_fn(const Level& L, const Taps& T, Band b, float* s, V v) {
+  const Window w = window_of(L, T, b, s);
+  for (int q = threadIdx.x; q < w.plane; q += blockDim.x) {
+    const int row = q / w.Lx, x = q - row * w.Lx - w.px;
+    const int pl = row / w.Ly;
+    const int z = w.za + pl, y = w.ya + row - pl * w.Ly;
+    const bool in = z >= 0 && z < L.nz && y >= 0 && y < L.ny && x >= 0 && x < L.nx;
+    s[q] = in ? v((z * L.ny + y) * L.nx + x) : 0.f;
+  }
+  __syncthreads();
+  return w;
+}
+
 // (A u) at flat site idx of a scalar level, u the site's place in a
 // window (taps read it at woff): taps in order, each product rounded and
 // then added, as the plain version (stencil_apply_torch) sums: no fused
@@ -240,11 +261,29 @@ __device__ __forceinline__ void taps2_at(const Level& L, const int* woff, WS w,
 
 // ---- transfers -----------------------------------------------------------
 
+// A level vector read at site (z, y, x) inside its level: from global
+// memory through L2, or from a zero-padded box in shared memory (the
+// padded box of a whole level, box_site's layout)
+struct GlobalLd {
+  const float* v;
+  int ny, nx;
+  __device__ __forceinline__ float operator()(int z, int y, int x) const {
+    return ldw(v + (z * ny + y) * nx + x);
+  }
+};
+struct BoxLd {
+  const float* s;
+  int Ly, Lx, pz, py, px;
+  __device__ __forceinline__ float operator()(int z, int y, int x) const {
+    return s[((z + pz) * Ly + y + py) * Lx + x + px];
+  }
+};
+
 // restrict_at's full weighting at coarse site idx of C from fine vector t
 // of F, the 3 x 3 (x 3) loads of a fine plane issued together, zero
 // outside F, summed as restrict_at sums (x, then y, then z)
-__device__ __forceinline__ float restrict_cl(const Level& F, const Level& C, const float* t,
-                                             int idx) {
+template <class Ld>
+__device__ __forceinline__ float restrict_ld(const Level& F, const Level& C, Ld t, int idx) {
   const float w[3] = {0.25f, 0.5f, 0.25f};
   int kc, ic, jc;
   site_of(C, idx, kc, ic, jc);
@@ -259,7 +298,7 @@ __device__ __forceinline__ float restrict_cl(const Level& F, const Level& C, con
       for (int b = 0; b < 3; ++b) {
         const int i = 2 * ic + a - 1, j = 2 * jc + b - 1;
         const bool in = kf >= 0 && kf < F.nz && i >= 0 && i < F.ny && j >= 0 && j < F.nx;
-        v[a][b] = in ? ldw(t + (kf * F.ny + i) * F.nx + j) : 0.f;
+        v[a][b] = in ? t(kf, i, j) : 0.f;
       }
     float plane = 0.f;
 #pragma unroll
@@ -274,10 +313,15 @@ __device__ __forceinline__ float restrict_cl(const Level& F, const Level& C, con
   return acc;
 }
 
+__device__ __forceinline__ float restrict_cl(const Level& F, const Level& C, const float* t,
+                                             int idx) {
+  return restrict_ld(F, C, GlobalLd{t, F.ny, F.nx}, idx);
+}
+
 // prolong_at's interpolation at fine site idx of F from coarse vector xc
 // of C, its (up to 8) loads issued together, summed as prolong_at sums
-__device__ __forceinline__ float prolong_cl(const Level& F, const Level& C, const float* xc,
-                                            int idx) {
+template <class Ld>
+__device__ __forceinline__ float prolong_ld(const Level& F, const Level& C, Ld xc, int idx) {
   int k, i, j;
   site_of(F, idx, k, i, j);
   int ck[2], ci[2], cj[2];
@@ -291,7 +335,7 @@ __device__ __forceinline__ float prolong_cl(const Level& F, const Level& C, cons
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         const bool in = c < nk && a < ni && b < nj && ck[c] < C.nz && ci[a] < C.ny && cj[b] < C.nx;
-        v[c][a][b] = in ? ldw(xc + (ck[c] * C.ny + ci[a]) * C.nx + cj[b]) : 0.f;
+        v[c][a][b] = in ? xc(ck[c], ci[a], cj[b]) : 0.f;
       }
   float acc = 0.f;
   for (int c = 0; c < nk; ++c) {
@@ -309,6 +353,11 @@ __device__ __forceinline__ float prolong_cl(const Level& F, const Level& C, cons
     acc += wk[c] * plane;
   }
   return acc;
+}
+
+__device__ __forceinline__ float prolong_cl(const Level& F, const Level& C, const float* xc,
+                                            int idx) {
+  return prolong_ld(F, C, GlobalLd{xc, C.ny, C.nx}, idx);
 }
 
 // ---- fixed-order cluster sums --------------------------------------------
@@ -337,18 +386,17 @@ __device__ __forceinline__ double cluster_total(cg::cluster_group& cluster, doub
   return bc[slot];
 }
 
-// ---- the coarsest level, one CTA -----------------------------------------
+// ---- a whole level in one CTA's shared memory ----------------------------
 
-// The zero-padded box of a whole level (its coarse-solve iterate).
+// The zero-padded box of a whole level (a coarse-solve iterate).
 __host__ __device__ inline int box_floats(const Level& C, const Taps& T) {
   return (C.nz + 2 * T.pz) * (C.ny + 2 * T.py) * (C.nx + 2 * T.px);
 }
 
-// Floats of shared memory coarse_solve (ncomp 1) or coarse_solve2 (2)
-// takes for level C: W, D, r and two padded iterates.
-inline int coarse_floats(const Level& C, const Taps& T, int ncomp) {
-  return (C.K * ncomp * ncomp + ncomp * ncomp + ncomp) * C.nz * C.ny * C.nx +
-         2 * ncomp * box_floats(C, T);
+// Floats of shared memory coarse_solve2 takes for block level C: W, D,
+// r and two padded iterates, of two components each.
+inline int coarse2_floats(const Level& C, const Taps& T) {
+  return (4 * C.K + 4 + 2) * C.nz * C.ny * C.nx + 4 * box_floats(C, T);
 }
 
 // index of site idx of level C in its padded box
@@ -358,41 +406,159 @@ __device__ __forceinline__ int box_site(const Level& C, const Taps& T, int idx) 
   return ((z + T.pz) * (C.ny + 2 * T.py) + y + T.py) * (C.nx + 2 * T.px) + x + T.px;
 }
 
-// By one CTA: x = D r, then kCoarseSweeps - 1 damped-Jacobi sweeps x += D
-// (r - A x) on the scalar level C, r(idx) its right-hand side; W, D, r
-// and x in shared memory sm; the result into C.t.
-template <class RHS>
-__device__ void coarse_solve(const Level& C, const Taps& T, RHS rhs, float* sm) {
-  const int n = sites(C), B = box_floats(C, T);
-  float* W = sm;
-  float* D = W + C.K * n;
-  float* r = D + n;
-  float* src = r + n;
-  float* dst = src + B;
-  copy_in(W, C.K * n, [&](int q) { return __ldg(C.W + q); });
-  for (int q = threadIdx.x; q < 2 * B; q += blockDim.x) src[q] = 0.f;
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const float d = __ldg(C.D + idx), rc = rhs(idx);
-    D[idx] = d;
-    r[idx] = rc;
-    src[box_site(C, T, idx)] = d * rc;
-  }
-  __syncthreads();
-  for (int s = 0; s < kCoarseSweeps - 1; ++s) {
-    for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-      const int p = box_site(C, T, idx);
-      dst[p] = __fadd_rn(src[p], __fmul_rn(D[idx], r[idx] - taps_at(C, T.woff, SharedW{W, n},
-                                                                     src + p, idx)));
-    }
-    __syncthreads();
-    float* tmp = src; src = dst; dst = tmp;
-  }
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) C.t[idx] = src[box_site(C, T, idx)];
+// a padded box of level C in shared memory, read at (z, y, x)
+__device__ __forceinline__ BoxLd box_ld(const Level& C, const Taps& T, const float* s) {
+  return {s, C.ny + 2 * T.py, C.nx + 2 * T.px, T.pz, T.py, T.px};
 }
 
-// The block (d = 2) form: x = D r a 2 x 2 product per point, then
-// kCoarseSweeps - 1 damped block-Jacobi sweeps; rhs(idx, r0, r1).
+// ---- the coarse levels l*..L-1, one CTA ----------------------------------
+//
+// CTA 0 holds the levels from l* down in its shared memory: their W and D
+// in `keep`, copied in once per launch (cta_load) and kept for every
+// V-cycle of the launch; per level r and two zero-padded boxes x and y in
+// `work`, which the coarse stage shares with the other stages' windows.
+// Where even the coarsest level's W and D do not fit beside the windows
+// (a 57^3 P2 level 0, whose windows and band take ~165 KB), keep is null:
+// l* is the coarsest level, and each coarse stage copies its W and D into
+// the work area first (choose_lstar).
+// The coarse stage (cta_vcycle) restricts level l*-1's residual into l*
+// and runs the V-cycle of levels l*..L-1 on block barriers, every per-site
+// sum that of the cluster stages (taps_at, restrict_ld, prolong_ld,
+// smooth_win's rounding), so that its result equals, bit for bit, that of
+// the same levels run as cluster stages.
+
+// host and device: floats of `keep` and of `work` for levels lstar..nlev-1
+__host__ __device__ inline int cta_keep_floats(const Level* lv, int lstar, int nlev) {
+  int f = 0;
+  for (int l = lstar; l < nlev; ++l) f += (lv[l].K + 1) * sites(lv[l]);
+  return f;
+}
+__host__ __device__ inline int cta_work_floats(const Level* lv, const Taps* T, int lstar, int nlev) {
+  int f = 0;
+  for (int l = lstar; l < nlev; ++l) f += sites(lv[l]) + 2 * box_floats(lv[l], T[l]);
+  return f;
+}
+
+// Level l's arrays in CTA 0's shared memory
+struct CtaLevel {
+  const float* W;  // (K, n), as SharedW reads it
+  const float* D;
+  float* r;        // n sites
+  float* x;        // padded box
+  float* y;        // padded box: the residual, the smoothed iterate
+};
+
+__device__ __forceinline__ CtaLevel cta_level(const Level* lv, const Taps* T, int lstar, int l,
+                                              const float* keep, float* work) {
+  keep += cta_keep_floats(lv, lstar, l);
+  work += cta_work_floats(lv, T, lstar, l);
+  const int n = sites(lv[l]), B = box_floats(lv[l], T[l]);
+  return {keep, keep + lv[l].K * n, work, work + n, work + n + B};
+}
+
+// By CTA 0, once per launch: W and D of levels lstar.. into keep (read
+// after the next cluster barrier)
+__device__ void cta_load(const Level* lv, int lstar, int nlev, float* keep) {
+  for (int l = lstar; l < nlev; ++l) {
+    const Level& L = lv[l];
+    const int n = sites(L);
+    copy_in(keep, L.K * n, [&](int q) { return __ldg(L.W + q); });
+    copy_in(keep + L.K * n, n, [&](int q) { return __ldg(L.D + q); });
+    keep += (L.K + 1) * n;
+  }
+}
+
+// By CTA 0: one V-cycle of levels lstar..nlev-1 (lstar >= 1), its
+// right-hand side the restriction of lv[lstar - 1].t, its result into
+// lv[lstar].t. The coarsest level takes x = D r and kCoarseSweeps - 1
+// sweeps x += D (r - A x). keep null: W and D copied in here, ahead of
+// the work area.
+__device__ __noinline__ void cta_vcycle(const Level* lv, const Taps* T, int lstar, int nlev,
+                                        const float* keep, float* work) {
+  if (keep == nullptr) {
+    cta_load(lv, lstar, nlev, work);
+    keep = work;
+    work += cta_keep_floats(lv, lstar, nlev);
+  }
+  {
+    // x and y boxes are read at their zero pads
+    const int f = cta_work_floats(lv, T, lstar, nlev);
+    for (int q = threadIdx.x; q < f; q += blockDim.x) work[q] = 0.f;
+  }
+  __syncthreads();
+  {
+    const Level& F = lv[lstar - 1];
+    const Level& C = lv[lstar];
+    const CtaLevel c = cta_level(lv, T, lstar, lstar, keep, work);
+    for (int idx = threadIdx.x; idx < sites(C); idx += blockDim.x) {
+      const float rc = restrict_cl(F, C, F.t, idx);
+      c.r[idx] = rc;
+      c.x[box_site(C, T[lstar], idx)] = c.D[idx] * rc;
+    }
+  }
+  __syncthreads();
+  for (int l = lstar; l < nlev - 1; ++l) {
+    const Level& F = lv[l];
+    const Level& C = lv[l + 1];
+    const CtaLevel f = cta_level(lv, T, lstar, l, keep, work);
+    const CtaLevel c = cta_level(lv, T, lstar, l + 1, keep, work);
+    const SharedW w{f.W, sites(F)};
+    for (int idx = threadIdx.x; idx < sites(F); idx += blockDim.x) {
+      const int p = box_site(F, T[l], idx);
+      f.y[p] = f.r[idx] - taps_at(F, T[l].woff, w, f.x + p, idx);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < sites(C); idx += blockDim.x) {
+      const float rc = restrict_ld(F, C, box_ld(F, T[l], f.y), idx);
+      c.r[idx] = rc;
+      c.x[box_site(C, T[l + 1], idx)] = c.D[idx] * rc;
+    }
+    __syncthreads();
+  }
+  const float* res;  // the V-cycle's result at the level last finished
+  {
+    const Level& C = lv[nlev - 1];
+    const Taps& TC = T[nlev - 1];
+    const CtaLevel c = cta_level(lv, T, lstar, nlev - 1, keep, work);
+    const SharedW w{c.W, sites(C)};
+    float* src = c.x;
+    float* dst = c.y;
+    for (int s = 0; s < kCoarseSweeps - 1; ++s) {
+      for (int idx = threadIdx.x; idx < sites(C); idx += blockDim.x) {
+        const int p = box_site(C, TC, idx);
+        dst[p] = __fadd_rn(src[p], __fmul_rn(c.D[idx], c.r[idx] - taps_at(C, TC.woff, w, src + p, idx)));
+      }
+      __syncthreads();
+      float* tmp = src; src = dst; dst = tmp;
+    }
+    res = src;
+  }
+  for (int l = nlev - 2; l >= lstar; --l) {
+    const Level& F = lv[l];
+    const Level& C = lv[l + 1];
+    const CtaLevel f = cta_level(lv, T, lstar, l, keep, work);
+    for (int idx = threadIdx.x; idx < sites(F); idx += blockDim.x) {
+      const int p = box_site(F, T[l], idx);
+      f.x[p] = f.x[p] + prolong_ld(F, C, box_ld(C, T[l + 1], res), idx);
+    }
+    __syncthreads();
+    const SharedW w{f.W, sites(F)};
+    for (int idx = threadIdx.x; idx < sites(F); idx += blockDim.x) {
+      const int p = box_site(F, T[l], idx);
+      f.y[p] = __fadd_rn(f.x[p], __fmul_rn(f.D[idx], f.r[idx] - taps_at(F, T[l].woff, w, f.x + p, idx)));
+    }
+    __syncthreads();
+    res = f.y;
+  }
+  const Level& C = lv[lstar];
+  for (int idx = threadIdx.x; idx < sites(C); idx += blockDim.x)
+    C.t[idx] = res[box_site(C, T[lstar], idx)];
+}
+
+// By one CTA: the coarsest level C of a block (d = 2) hierarchy, x = D r
+// a 2 x 2 product per point, then kCoarseSweeps - 1 damped block-Jacobi
+// sweeps x += D (r - A x), r(idx, r0, r1) its right-hand side; W, D, r and
+// x in shared memory sm; the result into C.t.
 template <class RHS>
 __device__ void coarse_solve2(const Level& C, const Taps& T, RHS rhs, float* sm) {
   const int n = sites(C), B = box_floats(C, T);
@@ -446,72 +612,123 @@ __device__ __forceinline__ float smooth_win(const Level& F, const Taps& T, WS w,
                                    ldw(F.r + idx) - taps_at(F, T.woff, w, x, idx)));
 }
 
-// One scalar V-cycle on lv[0].r, with lv[0].x = D0 r set behind a cluster
-// barrier, up to and including the prolongation into level 0: afterwards
-// smooth_win of lv[0] on a window of lv[0].x is the V-cycle's result. At
-// least two levels; T[l] is level l's window taps; sm the CTA's window /
-// coarse area. Ends with a cluster barrier.
-__device__ void vcycle_to_fine_cl(const Level* lv, const Taps* T, int nlev, float* sm,
-                                  cg::cluster_group& cluster) {
-  for (int l = 0; l < nlev - 1; ++l) {
-    const Level& F = lv[l];
-    const Level& C = lv[l + 1];
-    {
-      const Band b = band(F);
-      const Window x = stage_in(F.x, F, T[l], b, 1, sm);
-      const GlobalW w{F.W, sites(F)};
-      for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
-        F.t[idx] = ldw(F.r + idx) - taps_at(F, T[l].woff, w, x.s + x.site(F, idx), idx);
-      }
-    }
-    cluster.sync();
-    if (l + 1 == nlev - 1) break;  // the coarse stage restricts into C itself
-    const Band b = band(C);
-    for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
-      const float rc = restrict_cl(F, C, F.t, idx);
+// Level C's r = R F.t and x = D r over the window of band b, r and x also
+// written at the CTA's own sites: the input of C's residual, so that the
+// restriction needs no stage of its own. Ends with a block barrier.
+__device__ __forceinline__ Window stage_restricted(const Level& F, const Level& C, const Taps& T,
+                                                   Band b, float* s) {
+  return stage_fn(C, T, b, s, [&](int idx) {
+    const float rc = restrict_cl(F, C, F.t, idx);
+    const float xc = __ldg(C.D + idx) * rc;
+    if (idx >= b.lo && idx < b.hi) {
       C.r[idx] = rc;
-      C.x[idx] = __ldg(C.D + idx) * rc;
+      C.x[idx] = xc;
     }
-    cluster.sync();
-  }
+    return xc;
+  });
+}
+
+// Whether a transfer into level L is computed on the window of the stage
+// that reads it (the restriction into L by the stage of L's residual, the
+// prolongation into L by the stage that post-smooths L) rather than as a
+// stage of its own: on 2-D levels, whose window holds the band's rows and
+// a few pad rows. A 3-D level's window holds whole pad planes around a
+// band of one to three planes, so the transfers computed again for the
+// halo outnumber the band's own; there the separate stage measured faster
+// (PERF.md §6). The same in every CTA.
+__device__ __forceinline__ bool transfer_on_window(const Level& L) { return L.nz == 1; }
+
+// The window of level l's iterate for its post-smoothing, after
+// vcycle_to_fine_cl: x + P lv[l + 1].t computed on the window (F.x itself
+// not written), or F.x as the prolongation stage left it. Ends with a
+// block barrier.
+__device__ __forceinline__ Window stage_smoothed(const Level* lv, const Taps* T, int l, Band b,
+                                                 float* s) {
+  const Level& F = lv[l];
+  const Level& C = lv[l + 1];
+  if (!transfer_on_window(F)) return stage_in(F.x, F, T[l], b, 1, s);
+  return stage_fn(F, T[l], b, s, [&](int idx) { return ldw(F.x + idx) + prolong_cl(F, C, C.t, idx); });
+}
+
+// One scalar V-cycle on lv[0].r, with lv[0].x = D0 r set behind a cluster
+// barrier, up to the prolongation into level 0: afterwards smooth_win of
+// lv[0] on the window stage_smoothed(lv, T, 0, ...) is the V-cycle's
+// result. Levels 0..lstar-1 run as cluster stages, levels lstar..nlev-1
+// in CTA 0's shared memory (cta_vcycle; their W and D in keep, cta_load);
+// 1 <= lstar < nlev. Where transfer_on_window holds (2-D), a restriction
+// is computed on the window of the stage that takes the coarse level's
+// residual and a prolongation on the window of the stage that
+// post-smooths: 2 lstar stages; in 3-D each transfer is a stage of its
+// own: 4 lstar - 1. T[l] is level l's window taps; sm the CTA's window /
+// coarse work area. Ends with a cluster barrier.
+__device__ void vcycle_to_fine_cl(const Level* lv, const Taps* T, int nlev, int lstar,
+                                  const float* keep, float* sm, cg::cluster_group& cluster) {
   {
-    const Level& F = lv[nlev - 2];
-    const Level& C = lv[nlev - 1];
-    if (blockIdx.x == 0)
-      coarse_solve(C, T[nlev - 1], [&](int idx) { return restrict_cl(F, C, F.t, idx); }, sm);
+    const Level& L0 = lv[0];
+    const Band b = band(L0);
+    const Window x = stage_in(L0.x, L0, T[0], b, 1, sm);
+    const GlobalW w{L0.W, sites(L0)};
+    for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x)
+      L0.t[idx] = ldw(L0.r + idx) - taps_at(L0, T[0].woff, w, x.s + x.site(L0, idx), idx);
+  }
+  cluster.sync();
+  for (int l = 1; l < lstar; ++l) {
+    // r = R t of level l - 1 and x = D r; t = r - A x
+    const Level& F = lv[l - 1];
+    const Level& C = lv[l];
+    const Band b = band(C);
+    if (!transfer_on_window(C)) {
+      for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
+        const float rc = restrict_cl(F, C, F.t, idx);
+        C.r[idx] = rc;
+        C.x[idx] = __ldg(C.D + idx) * rc;
+      }
+      cluster.sync();
+    }
+    const Window x = transfer_on_window(C) ? stage_restricted(F, C, T[l], b, sm)
+                                           : stage_in(C.x, C, T[l], b, 1, sm);
+    const GlobalW w{C.W, sites(C)};
+    for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x)
+      C.t[idx] = ldw(C.r + idx) - taps_at(C, T[l].woff, w, x.s + x.site(C, idx), idx);
     cluster.sync();
   }
-  for (int l = nlev - 2; l >= 0; --l) {
+  if (blockIdx.x == 0) cta_vcycle(lv, T, lstar, nlev, keep, sm);
+  cluster.sync();
+  for (int l = lstar - 1; l >= 0; --l) {
     const Level& F = lv[l];
-    const Level& C = lv[l + 1];
     const Band b = band(F);
-    for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x)
-      F.x[idx] = ldw(F.x + idx) + prolong_cl(F, C, C.t, idx);
-    cluster.sync();
-    if (l == 0) break;  // the caller's stage post-smooths level 0
-    const Window x = stage_in(F.x, F, T[l], b, 1, sm);
-    const GlobalW w{F.W, sites(F)};
-    for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
-      F.t[idx] = smooth_win(F, T[l], w, x.s + x.site(F, idx), idx);
+    if (!transfer_on_window(F)) {
+      const Level& C = lv[l + 1];
+      for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x)
+        F.x[idx] = ldw(F.x + idx) + prolong_cl(F, C, C.t, idx);
+      cluster.sync();
     }
+    if (l == 0) break;  // the caller's stage post-smooths level 0
+    const Window x = stage_smoothed(lv, T, l, b, sm);
+    const GlobalW w{F.W, sites(F)};
+    for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x)
+      F.t[idx] = smooth_win(F, T[l], w, x.s + x.site(F, idx), idx);
     cluster.sync();
   }
 }
 
-// The chain of `cycles` V-cycles z = V(v); z += V(v - A0 z), ..., up to
-// the last cycle's final stage (chain_to_last's stages, on the cluster):
-// afterwards chain_result_win of lv[0] on a window of lv[0].x is the
-// chain's result at idx. On entry lv[0].r = v and lv[0].x = D0 v, set and
-// behind a cluster barrier; z is the chain's accumulator.
-__device__ void chain_to_last_cl(const Level* lv, const Taps* T, int nlev, const float* v,
-                                 float* z, int cycles, float* sm, cg::cluster_group& cluster) {
+// The chain of `cycles` V-cycles z = V(v); z += V(v - A0 z), ..., a
+// linear operator in v (the Pallas kernels' Richardson preconditioner),
+// up to the last cycle's final stage: afterwards chain_result_win of lv[0]
+// on the window stage_smoothed(lv, T, 0, ...) is the chain's result at
+// idx. On entry lv[0].r = v and lv[0].x = D0 v, set and behind a cluster
+// barrier; z is the chain's accumulator. lstar, keep and sm as
+// vcycle_to_fine_cl takes them.
+__device__ void chain_to_last_cl(const Level* lv, const Taps* T, int nlev, int lstar,
+                                 const float* v, float* z, int cycles, const float* keep,
+                                 float* sm, cg::cluster_group& cluster) {
   const Level& L0 = lv[0];
   const int n0 = sites(L0);
   const Band b = band(L0);
   for (int c = 0; c < cycles - 1; ++c) {
-    vcycle_to_fine_cl(lv, T, nlev, sm, cluster);
+    vcycle_to_fine_cl(lv, T, nlev, lstar, keep, sm, cluster);
     {
-      const Window x = stage_in(L0.x, L0, T[0], b, 1, sm);
+      const Window x = stage_smoothed(lv, T, 0, b, sm);
       const GlobalW w{L0.W, n0};
       for (int idx = b.lo + threadIdx.x; idx < b.hi; idx += blockDim.x) {
         const float s = smooth_win(L0, T[0], w, x.s + x.site(L0, idx), idx);
@@ -530,7 +747,7 @@ __device__ void chain_to_last_cl(const Level* lv, const Taps* T, int nlev, const
     }
     cluster.sync();
   }
-  vcycle_to_fine_cl(lv, T, nlev, sm, cluster);
+  vcycle_to_fine_cl(lv, T, nlev, lstar, keep, sm, cluster);
 }
 
 template <class WS>
@@ -644,18 +861,62 @@ inline int window_floats(const Level* lv, const Taps* T, int nwin, int ncomp, in
   return most;
 }
 
-// The cluster size of `kernel` for a CTA taking smem_of(P) bytes of
-// dynamic shared memory: kMaxCluster CTAs if such a cluster can be
-// resident on the device, else half as many; an error if neither can.
-template <class Kernel, class SmemOf>
-int cluster_config(Kernel kernel, SmemOf smem_of, int* cluster, int* smem) {
+// The dynamic shared memory a CTA of `kernel` may take on the current
+// device: the opt-in limit less the kernel's static shared memory.
+template <class Kernel>
+int dyn_smem_max(Kernel kernel, int* bytes) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
-  const int dyn_max = optin - (int)fa.sharedSizeBytes;
+  *bytes = optin - (int)fa.sharedSizeBytes;
+  return (int)e;
+}
+
+// The finest level CTA 0 solves by default: in 2-D the coarsest level
+// alone, in 3-D any that fit. A 2-D level run as cluster stages costs two
+// (its transfers computed on windows, transfer_on_window), less than CTA
+// 0 spends on it; a 3-D level costs four, more (PERF.md §6).
+inline int cta_first_level(const Level* lv, int nlev) { return lv[0].nz == 1 ? nlev - 1 : 1; }
+
+// l*, the finest level from which CTA 0 solves the hierarchy in shared
+// memory: the least lstar >= *lstar (on entry the finest level allowed,
+// at least 1) whose smem_of(lstar, false, P) bytes, with the levels' W and
+// D kept for the launch, fit the device at the cluster of kMaxCluster / 2
+// (the larger windows). If none does, the coarsest level with its W and
+// D copied in at every coarse stage (*reload = 1, smem_of(l, true, P)).
+template <class Kernel, class SmemOf>
+int choose_lstar(Kernel kernel, int nlev, SmemOf smem_of, int* lstar, int* reload) {
+  int dyn_max = 0;
+  const int e = dyn_smem_max(kernel, &dyn_max);
+  if (e != 0) return e;
+  int l = *lstar < 1 ? 1 : *lstar;
+  while (l < nlev - 1 && smem_of(l, false, kMaxCluster / 2) > dyn_max) ++l;
+  *reload = smem_of(l, false, kMaxCluster / 2) > dyn_max ? 1 : 0;
+  *lstar = l;
+  return 0;
+}
+
+// Floats of CTA 0's coarse area: kept for the launch (W and D, none on
+// reload) and shared with the windows (the work area, and W and D on
+// reload)
+__host__ __device__ inline int cta_kept_floats(const Level* lv, int lstar, int nlev, bool reload) {
+  return reload ? 0 : cta_keep_floats(lv, lstar, nlev);
+}
+__host__ __device__ inline int cta_shared_floats(const Level* lv, const Taps* T, int lstar, int nlev,
+                                                 bool reload) {
+  return cta_work_floats(lv, T, lstar, nlev) + (reload ? cta_keep_floats(lv, lstar, nlev) : 0);
+}
+
+// The cluster size of `kernel` for a CTA taking smem_of(P) bytes of
+// dynamic shared memory: kMaxCluster CTAs if such a cluster can be
+// resident on the device, else half as many; an error if neither can.
+template <class Kernel, class SmemOf>
+int cluster_config(Kernel kernel, SmemOf smem_of, int* cluster, int* smem) {
+  int dyn_max = 0;
+  cudaError_t e = (cudaError_t)dyn_smem_max(kernel, &dyn_max);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_max);
   if (e == cudaSuccess)

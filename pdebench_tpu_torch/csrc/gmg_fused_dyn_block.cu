@@ -142,7 +142,7 @@ gmg_fused_dyn_block_kernel(const DynHier* __restrict__ desc,
 // windows (two component planes) and the coarsest level's copy.
 int smem_bytes(const DynHier& H, int P) {
   const int area = window_floats(H.lv, H.T, H.nlev, 2, P);
-  const int coarse = coarse_floats(H.lv[H.nlev - 1], H.T[H.nlev - 1], 2);
+  const int coarse = coarse2_floats(H.lv[H.nlev - 1], H.T[H.nlev - 1]);
   return (int)sizeof(float) * (coarse > area ? coarse : area);
 }
 

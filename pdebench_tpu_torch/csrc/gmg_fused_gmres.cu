@@ -46,9 +46,11 @@
 //   the zero-padded box of the input vector its band's taps reach into
 //   shared memory, reads it without bounds checks, and issues each site's
 //   weight loads kBatch at a time;
-// - the coarsest (probed) level is solved by one CTA from shared memory:
-//   its weights and D are copied in at each V-cycle's coarse stage, which
-//   also restricts into it, and all 10 sweeps run on block barriers;
+// - the coarse levels are solved by one CTA from shared memory: in 3-D
+//   every level from l* down that fits, in 2-D the coarsest
+//   (cta_first_level), their weights and D copied in once per launch; the
+//   coarse stage restricts into level l* and runs those levels' V-cycle,
+//   the coarsest level's 10 sweeps included, on block barriers;
 // - w, the vector being orthogonalised, lives in shared memory at its
 //   owner's sites across the j + 1 MGS terms (each thread owns fixed
 //   sites); each axpy w -= h_i V[i] is fused with the CTA partial of the
@@ -81,6 +83,8 @@ struct Hier {
   float* Av;  // W_op V[j], the preconditioner's input
   float* z1;  // the V-cycle chain's accumulator
   int nlev;
+  int lstar;   // CTA 0 solves levels lstar.. in shared memory
+  int reload;  // their W and D copied in at every coarse stage
 };
 
 __global__ void __launch_bounds__(kClusterThreads, 1)
@@ -106,9 +110,13 @@ gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
   const Level& L0 = H.lv[0];
   const int n0 = sites(L0);
   const Band b0 = band(L0);
-  float* w = cluster_smem;                             // w at this CTA's sites
-  float* sm = cluster_smem + band_cap(L0, gridDim.x);  // windows, coarse level
+  float* w = cluster_smem;                         // w at this CTA's sites
+  float* keep = H.reload ? nullptr : w + band_cap(L0, gridDim.x);  // CTA 0: W, D of levels lstar..
+  float* sm = w + band_cap(L0, gridDim.x) +
+              cta_kept_floats(H.lv, H.lstar, H.nlev, H.reload);  // windows, coarse work
   const bool leader = blockIdx.x == 0 && threadIdx.x == 0;
+
+  if (blockIdx.x == 0 && keep) cta_load(H.lv, H.lstar, H.nlev, keep);
 
   if (blockIdx.x == 0)
     for (int q = threadIdx.x; q < m * (m + 1); q += blockDim.x) Hc[q] = 0.f;
@@ -121,9 +129,9 @@ gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
   cluster.sync();
 
   // g0 = M r;  beta = ||g0||;  V[0] = g0 / max(beta, eps)
-  chain_to_last_cl(H.lv, H.T, H.nlev, r_in, H.z1, cycles, sm, cluster);
+  chain_to_last_cl(H.lv, H.T, H.nlev, H.lstar, r_in, H.z1, cycles, keep, sm, cluster);
   {
-    const Window x = stage_in(L0.x, L0, H.T[0], b0, 1, sm);
+    const Window x = stage_smoothed(H.lv, H.T, 0, b0, sm);
     double acc = 0.0;
     const GlobalW wt{L0.W, n0};
     for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x) {
@@ -155,10 +163,10 @@ gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
       }
     }
     cluster.sync();
-    chain_to_last_cl(H.lv, H.T, H.nlev, H.Av, H.z1, cycles, sm, cluster);
+    chain_to_last_cl(H.lv, H.T, H.nlev, H.lstar, H.Av, H.z1, cycles, keep, sm, cluster);
     // u = alive * M Av;  w = u;  partials of <V[0], u> and ||u||^2
     {
-      const Window x = stage_in(L0.x, L0, H.T[0], b0, 1, sm);
+      const Window x = stage_smoothed(H.lv, H.T, 0, b0, sm);
       double acc = 0.0, accu = 0.0;
       const GlobalW wt{L0.W, n0};
       for (int idx = b0.lo + threadIdx.x; idx < b0.hi; idx += blockDim.x) {
@@ -203,15 +211,18 @@ gmg_fused_gmres_kernel(const Hier* __restrict__ desc, const float* r_in,
   }
 }
 
-// Dynamic shared memory of a CTA over a cluster of P: w at its sites of
-// level 0, then the larger of its windows and the coarsest level's copy.
-int smem_bytes(const Hier& H, int P) {
-  int area = window_floats(H.lv, H.T, H.nlev - 1, 1, P);
+// Dynamic shared memory of a CTA over a cluster of P, CTA 0 solving
+// levels lstar..: w at its sites of level 0, the coarse levels' W and D
+// (unless reloaded), then the largest of its windows and the coarse
+// levels' work area.
+int smem_bytes(const Hier& H, int lstar, bool reload, int P) {
+  int area = window_floats(H.lv, H.T, lstar, 1, P);
   const int op = window_floats(&H.op, &H.Top, 1, 1, P);
-  const int coarse = coarse_floats(H.lv[H.nlev - 1], H.T[H.nlev - 1], 1);
+  const int coarse = cta_shared_floats(H.lv, H.T, lstar, H.nlev, reload);
   area = op > area ? op : area;
   area = coarse > area ? coarse : area;
-  return (int)sizeof(float) * (band_cap(H.lv[0], P) + area);
+  return (int)sizeof(float) *
+         (band_cap(H.lv[0], P) + cta_kept_floats(H.lv, lstar, H.nlev, reload) + area);
 }
 
 }  // namespace
@@ -242,17 +253,26 @@ int gmg_fused_gmres_pack(void* out, int nlev, const long long* ptrs,
   H->Av = reinterpret_cast<float*>(Av);
   H->z1 = reinterpret_cast<float*>(z1);
   H->nlev = nlev;
+  H->lstar = cta_first_level(H->lv, nlev);
   return 0;
 }
 
 // The cluster size and dynamic shared memory of a packed descriptor
-// (host copy) on the current device; an error if no cluster of 8 or 16
-// CTAs with that memory can be resident.
-int gmg_fused_gmres_config(const void* desc, int* cluster, int* smem) {
-  const Hier& H = *static_cast<const Hier*>(desc);
-  return cluster_config(gmg_fused_gmres_kernel, [&](int P) { return smem_bytes(H, P); },
-                        cluster, smem);
+// (host copy) on the current device, after choosing its l* (written into
+// the descriptor); an error if no cluster of 8 or 16 CTAs with that memory
+// can be resident.
+int gmg_fused_gmres_config(void* desc, int* cluster, int* smem) {
+  Hier& H = *static_cast<Hier*>(desc);
+  const int e = choose_lstar(gmg_fused_gmres_kernel, H.nlev,
+                             [&](int l, bool re, int P) { return smem_bytes(H, l, re, P); },
+                             &H.lstar, &H.reload);
+  if (e != 0) return e;
+  return cluster_config(gmg_fused_gmres_kernel,
+                        [&](int P) { return smem_bytes(H, H.lstar, H.reload, P); }, cluster, smem);
 }
+
+// l* of a descriptor gmg_fused_gmres_config has seen
+int gmg_fused_gmres_lstar(const void* desc) { return static_cast<const Hier*>(desc)->lstar; }
 
 // One Arnoldi cycle of m steps on r with the operator Wop (op_K, nz, ny,
 // nx): V (m+1, nz, ny, nx), Hc (m, m+1), beta (1 float) are written.

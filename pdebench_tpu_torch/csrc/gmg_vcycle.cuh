@@ -1,8 +1,7 @@
-// Multigrid V-cycle device code shared by the fused GMG kernels
-// (gmg_fused_cg.cu; the levels, transfers and host packing also by the
-// block kernels through gmg_block_vcycle.cuh, and the levels, per-site
-// helpers and host packing by the cluster kernels #5 and #6 through
-// gmg_cluster.cuh), for Hopper (sm_90a).
+// Multigrid level code shared by the fused GMG kernels, for Hopper
+// (sm_90a): the levels, per-site transfers, block sums and host packing
+// of the cooperative block kernel #4 (through gmg_block_vcycle.cuh) and
+// of the cluster kernels #2 / #3, #5 and #6 (through gmg_cluster.cuh).
 //
 // A hierarchy is levels 0..L-1 of a 2-D or 3-D scalar lattice; level l+1
 // halves level l ((n - 1) / 2 + 1 points per axis). A level is (nz, ny, nx)
@@ -20,11 +19,10 @@
 // stage loops over the flat site index, so loads stay coalesced whatever
 // nx is.
 //
-// The V-cycle stages here run inside a cooperative launch: a grid-stride
-// loop per stage, grid.sync() between stages. Work vectors written in the
-// kernel are read with __ldcg (through L2), so that no block reads a
-// stale L1 line after a barrier. The coarsest level is swept by block 0
-// alone, with block barriers only.
+// Work vectors written in a kernel are read with __ldcg (through L2), so
+// that no block reads a stale L1 line after a barrier. The cooperative
+// helpers here (put_partial, grid_total, coop_grid) serve kernel #4: a
+// grid-stride loop per stage, grid.sync() between stages.
 
 #pragma once
 
@@ -54,7 +52,7 @@ struct Level {
 
 __device__ __forceinline__ float ldw(const float* a) { return __ldcg(a); }
 
-__device__ __forceinline__ int sites(const Level& L) {
+__host__ __device__ __forceinline__ int sites(const Level& L) {
   return L.nz * L.ny * L.nx;
 }
 
@@ -71,32 +69,6 @@ __device__ __forceinline__ void site_of(const Level& L, int idx, int& k,
     k = q / L.ny;
     i = q - k * L.ny;
   }
-}
-
-// (A u) at flat site idx, taps in order, zero outside the level
-__device__ __forceinline__ float apply_at(const Level& L, const float* u,
-                                          int idx) {
-  const int n = sites(L);
-  float acc = 0.f;
-  if (L.nz == 1) {
-    // a 2-D level: no z index, no z bound (the branch is uniform across
-    // the grid, so 2-D levels pay no per-tap cost for the third axis)
-    const int i = idx / L.nx, j = idx - i * L.nx;
-    for (int k = 0; k < L.K; ++k) {
-      const int ii = i + L.dy[k], jj = j + L.dx[k];
-      if (ii >= 0 && ii < L.ny && jj >= 0 && jj < L.nx)
-        acc += __ldg(L.W + k * n + idx) * ldw(u + ii * L.nx + jj);
-    }
-    return acc;
-  }
-  int k0, i, j;
-  site_of(L, idx, k0, i, j);
-  for (int k = 0; k < L.K; ++k) {
-    const int kk = k0 + L.dz[k], ii = i + L.dy[k], jj = j + L.dx[k];
-    if (kk >= 0 && kk < L.nz && ii >= 0 && ii < L.ny && jj >= 0 && jj < L.nx)
-      acc += __ldg(L.W + k * n + idx) * ldw(u + (kk * L.ny + ii) * L.nx + jj);
-  }
-  return acc;
 }
 
 // full weighting at fine site (2kc, 2ic, 2jc) for coarse site idx of C,
@@ -166,13 +138,6 @@ __device__ __forceinline__ float prolong_at(const Level& F, const Level& C,
   return acc;
 }
 
-// post-smoothing value x + D (r - A x) at point idx of level F
-__device__ __forceinline__ float smooth_at(const Level& F, int idx) {
-  const float r = ldw(F.r + idx);
-  const float x = ldw(F.x + idx);
-  return x + __ldg(F.D + idx) * (r - apply_at(F, F.x, idx));
-}
-
 // block sum of v, valid in thread 0; sh holds at least 32 doubles
 __device__ double block_sum(double v, double* sh) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -213,97 +178,6 @@ __device__ double grid_total(const double* partial, double* sh) {
   return total;
 }
 
-// One V-cycle on lv[0].r, with lv[0].x = D0 r already set, up to and
-// including the prolongation into level 0: afterwards smooth_at(lv[0], idx)
-// is the V-cycle's result at idx. Ends with a grid barrier.
-__device__ void vcycle_to_fine(const Level* lv, int nlev,
-                               cg::grid_group& grid) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  for (int l = 0; l < nlev - 1; ++l) {
-    const Level& F = lv[l];
-    const Level& C = lv[l + 1];
-    const int nf = sites(F), nc = sites(C);
-    for (int idx = tid; idx < nf; idx += stride)
-      F.t[idx] = ldw(F.r + idx) - apply_at(F, F.x, idx);
-    grid.sync();
-    for (int idx = tid; idx < nc; idx += stride) {
-      const float rc = restrict_at(F, C, F.t, idx);
-      C.r[idx] = rc;
-      C.x[idx] = __ldg(C.D + idx) * rc;
-    }
-    grid.sync();
-  }
-  {
-    // coarsest level: one block, block barriers between Jacobi sweeps
-    const Level& C = lv[nlev - 1];
-    if (blockIdx.x == 0) {
-      const int n = sites(C);
-      float* src = C.x;
-      float* dst = C.t;
-      for (int s = 0; s < kCoarseSweeps - 1; ++s) {
-        for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
-          dst[idx] = ldw(src + idx) + __ldg(C.D + idx) *
-                     (ldw(C.r + idx) - apply_at(C, src, idx));
-        __syncthreads();
-        float* tmp = src; src = dst; dst = tmp;
-      }
-      if (src != C.t) {
-        for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
-          C.t[idx] = ldw(src + idx);
-      }
-    }
-    grid.sync();
-  }
-  for (int l = nlev - 2; l >= 0; --l) {
-    const Level& F = lv[l];
-    const Level& C = lv[l + 1];
-    const int nf = sites(F);
-    for (int idx = tid; idx < nf; idx += stride)
-      F.x[idx] = ldw(F.x + idx) + prolong_at(F, C, C.t, idx);
-    grid.sync();
-    if (l == 0) break;  // the caller's stage post-smooths level 0
-    for (int idx = tid; idx < nf; idx += stride) F.t[idx] = smooth_at(F, idx);
-    grid.sync();
-  }
-}
-
-// The chain of `cycles` V-cycles z = V(v); z += V(v - A0 z), ..., a
-// linear operator in v (the Pallas kernels' Richardson preconditioner),
-// up to the last cycle's final stage: afterwards chain_result_at(lv[0], z,
-// idx, cycles) is the chain's result at idx. On entry lv[0].r = v and
-// lv[0].x = D0 v, set and behind a grid barrier; z is the chain's
-// accumulator (n0 floats), v is not written.
-__device__ void chain_to_last(const Level* lv, int nlev, const float* v,
-                              float* z, int cycles, cg::grid_group& grid) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  const Level& L0 = lv[0];
-  const int n0 = sites(L0);
-  for (int c = 0; c < cycles - 1; ++c) {
-    vcycle_to_fine(lv, nlev, grid);
-    for (int idx = tid; idx < n0; idx += stride) {
-      const float s = smooth_at(L0, idx);
-      z[idx] = c == 0 ? s : ldw(z + idx) + s;
-    }
-    grid.sync();
-    for (int idx = tid; idx < n0; idx += stride) {
-      const float res = ldw(v + idx) - apply_at(L0, z, idx);
-      L0.r[idx] = res;
-      L0.x[idx] = __ldg(L0.D + idx) * res;
-    }
-    grid.sync();
-  }
-  vcycle_to_fine(lv, nlev, grid);
-}
-
-__device__ __forceinline__ float chain_result_at(const Level& L0,
-                                                 const float* z, int idx,
-                                                 int cycles) {
-  const float s = smooth_at(L0, idx);
-  return cycles > 1 ? ldw(z + idx) + s : s;
-}
-
 // ---- host side --------------------------------------------------------
 
 // Tap offsets (dz, dy, dx) of a level, K triples; cudaError_t.
@@ -325,9 +199,9 @@ inline int set_taps(Level& L, int K, const int* offs) {
 // level (W, D, r, x, t); dims: 4 ints per level (nz, ny, nx, K); offs:
 // 3 * K ints per level, (dz, dy, dx) per tap, levels concatenated (a 2-D
 // level: nz = 1, dz = 0). At least `min_levels` levels: two where the
-// caller post-smooths level 0 as its own stage after vcycle_to_fine; a
-// caller that takes one level reads a one-level V-cycle (the coarsest
-// sweeps alone) from lv[0].t.
+// caller post-smooths level 0 as its own stage after the V-cycle's
+// prolongation into it; a caller that takes one level reads a one-level
+// V-cycle (the coarsest sweeps alone) from lv[0].t.
 inline int pack_levels(Level* lv, int nlev, const long long* ptrs,
                        const int* dims, const int* offs, int min_levels = 2) {
   if (nlev < min_levels || nlev > kMaxLevels) return (int)cudaErrorInvalidValue;

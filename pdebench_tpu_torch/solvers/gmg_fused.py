@@ -3,8 +3,8 @@
 The mixed-precision refinement's inner step (krylov.refined_solve) runs
 multigrid V-cycles on a 2-D or 3-D stencil hierarchy. Each builder here
 wraps one hand-written kernel (one persistent launch whose hierarchy
-stays in L2: a cooperative grid for #2-#4, one thread-block cluster for
-#5 and #6) for CUDA tensors, and its plain PyTorch version
+stays in L2: one thread-block cluster for #2, #3, #5 and #6, a
+cooperative grid for #4) for CUDA tensors, and its plain PyTorch version
 for CPU tensors; each holds the math of the Pallas kernel it replaces
 (pdebench_tpu/solvers/gmg_fused.py):
 
@@ -280,26 +280,41 @@ def _block_hierarchy(gmg):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib_cg(name: str = "gmg_fused_cg") -> ctypes.CDLL:
-    """The library of a CG-and-Richardson kernel: gmg_fused_cg (scalar)
-    or gmg_fused_block_cg (d = 2 blocks), one C interface."""
-    lib = _build.load(name)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = lambda suffix: getattr(lib, f"{name}_{suffix}")
-    fn("desc_bytes").argtypes = []
-    fn("desc_bytes").restype = i
-    fn("grid").argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    fn("grid").restype = i
+def _lib_cg() -> ctypes.CDLL:
+    """The library of the scalar CG-and-Richardson kernel (#2 / #3), one
+    thread-block cluster per launch."""
+    lib = _build.load("gmg_fused_cg")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _bind_cluster(lib, "gmg_fused_cg")
+    lib.gmg_fused_cg_lstar.argtypes = [vp]
+    lib.gmg_fused_cg_lstar.restype = i
+    # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 4 per level),
+    # offsets (int32 x 3 per tap), p0, p1, Ap, most levels in one CTA
+    lib.gmg_fused_cg_pack.argtypes = [vp, i, vp, vp, vp, ll, ll, ll, i]
+    lib.gmg_fused_cg_pack.restype = i
+    # desc, r, z, iters, mode, cluster, smem, stream
+    lib.gmg_fused_cg_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
+    lib.gmg_fused_cg_launch.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_block_cg() -> ctypes.CDLL:
+    """The library of the block (d = 2) CG-and-Richardson kernel (#4),
+    one cooperative launch."""
+    lib = _build.load("gmg_fused_block_cg")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gmg_fused_block_cg_desc_bytes.argtypes = []
+    lib.gmg_fused_block_cg_desc_bytes.restype = i
+    lib.gmg_fused_block_cg_grid.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.gmg_fused_block_cg_grid.restype = i
     # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 4 per level),
     # offsets (int32 x 3 per tap), p, Ap, partial
-    fn("pack").argtypes = [
-        vp, i, vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong,
-    ]
-    fn("pack").restype = i
+    lib.gmg_fused_block_cg_pack.argtypes = [vp, i, vp, vp, vp, ll, ll, ll]
+    lib.gmg_fused_block_cg_pack.restype = i
     # desc, r, z, iters, mode, blocks, stream
-    fn("launch").argtypes = [vp, vp, vp, i, i, i, vp]
-    fn("launch").restype = i
+    lib.gmg_fused_block_cg_launch.argtypes = [vp, vp, vp, i, i, i, vp]
+    lib.gmg_fused_block_cg_launch.restype = i
     return lib
 
 
@@ -331,6 +346,8 @@ def _lib_gmres() -> ctypes.CDLL:
     lib = _build.load("gmg_fused_gmres")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _bind_cluster(lib, "gmg_fused_gmres")
+    lib.gmg_fused_gmres_lstar.argtypes = [vp]
+    lib.gmg_fused_gmres_lstar.restype = i
     # out, nlev, ptrs, dims, offs, op_K, op_offs, Av, z1
     lib.gmg_fused_gmres_pack.argtypes = [vp, i, vp, vp, vp, i, vp, ll, ll]
     lib.gmg_fused_gmres_pack.restype = i
@@ -480,11 +497,16 @@ class FusedInnerCG(_FusedHierarchy):
     "richardson": a chain of `inner_iters` V-cycles z += V(r - A0 z),
     linear in r, the preconditioner of the GMRES inner. A CPU tensor
     runs `plain` (PyTorch); a CUDA tensor runs `launch` (the kernel).
+    `cta_levels` sets how many coarse levels the kernel's CTA 0 solves in
+    shared memory, as many as fit up to it (0: the kernel's default, the
+    coarsest alone in 2-D and as many as fit in 3-D; 1: the coarsest
+    alone); the result is the same bit for bit.
     """
 
     _kernel = "gmg_fused_cg"
 
-    def __init__(self, lv, bands, inner_iters: int, device, mode: str = "cg"):
+    def __init__(self, lv, bands, inner_iters: int, device, mode: str = "cg",
+                 cta_levels: int = 0):
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "richardson" and inner_iters < 1:
@@ -492,6 +514,7 @@ class FusedInnerCG(_FusedHierarchy):
         super().__init__(lv, bands, device)
         self.inner_iters = int(inner_iters)
         self.mode = mode
+        self.cta_levels = int(cta_levels)
 
     def plain(self, r_flat: torch.Tensor) -> torch.Tensor:
         """The inner solve in PyTorch ops, on the hierarchy's device."""
@@ -520,27 +543,25 @@ class FusedInnerCG(_FusedHierarchy):
         return getattr(lib, f"{self._kernel}_{suffix}")
 
     def _setup_cuda(self):
-        lib = _lib_cg(self._kernel)
+        lib = _lib_cg()
         work, ptrs, dims, offs = self._level_arrays()
-        n0 = self.ncomp * self.sites
-        p = torch.zeros(n0, dtype=torch.float32, device=self.device)
-        Ap = torch.zeros_like(p)
-        blocks = self._grid(lib, self._entry(lib, "grid"))
-        partial = torch.zeros(2 * blocks, dtype=torch.float64, device=self.device)
-        desc = np.zeros(self._entry(lib, "desc_bytes")(), dtype=np.uint8)
-        code = self._entry(lib, "pack")(
+        vecs = torch.zeros((3, self.sites), dtype=torch.float32, device=self.device)  # p0, p1, Ap
+        desc = np.zeros(lib.gmg_fused_cg_desc_bytes(), dtype=np.uint8)
+        code = lib.gmg_fused_cg_pack(
             desc.ctypes.data_as(ctypes.c_void_p), len(self.W),
             ptrs.ctypes.data_as(ctypes.c_void_p),
             dims.ctypes.data_as(ctypes.c_void_p),
             offs.ctypes.data_as(ctypes.c_void_p),
-            p.data_ptr(), Ap.data_ptr(), partial.data_ptr(),
+            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(), self.cta_levels,
         )
-        _build.check(lib, code, f"{self._kernel}_pack")
+        _build.check(lib, code, "gmg_fused_cg_pack")
+        cluster, smem = _cluster_config(lib, "gmg_fused_cg", desc, self.device)
         # the buffers live as long as this object: the descriptor holds
         # their addresses
         self._cuda = dict(
-            lib=lib, work=work, p=p, Ap=Ap, partial=partial,
-            blocks=blocks, desc=torch.from_numpy(desc).to(self.device),
+            lib=lib, work=work, vecs=vecs, cluster=cluster, smem=smem,
+            lstar=lib.gmg_fused_cg_lstar(desc.ctypes.data_as(ctypes.c_void_p)),
+            launch_args=(cluster, smem), desc=torch.from_numpy(desc).to(self.device),
         )
 
     def _count(self) -> None:
@@ -551,7 +572,7 @@ class FusedInnerCG(_FusedHierarchy):
             LAUNCHES += 1
 
     def launch(self, r_flat: torch.Tensor) -> torch.Tensor:
-        """The inner solve as one cooperative kernel launch."""
+        """The inner solve as one kernel launch."""
         self._check(r_flat)
         self._check_cuda()
         if self._cuda is None:
@@ -562,7 +583,7 @@ class FusedInnerCG(_FusedHierarchy):
         z = torch.empty_like(r)
         code = self._entry(c["lib"], "launch")(
             _vp(c["desc"]), _vp(r), _vp(z), self.inner_iters, _MODES[self.mode],
-            c["blocks"], _build.current_stream(self.device),
+            *c["launch_args"], _build.current_stream(self.device),
         )
         _build.check(c["lib"], code, f"{self._kernel}_launch")
         self._count()
@@ -580,12 +601,36 @@ class FusedBlockInnerCG(FusedInnerCG):
     """The block (d = 2) inner solve: fn(r_lat_flat_f32) ->
     z_lat_flat_f32 on the block lattice's flat layout (site-major,
     component-minor: stencil.BlockLatticeOperator's embedding), one
-    launch of csrc/gmg_fused_block_cg.cu per call. Modes as
+    cooperative launch of csrc/gmg_fused_block_cg.cu per call. Modes as
     FusedInnerCG's. The kernel takes two planar component planes (2, ny,
     nx): the wrapper converts the vector once per call."""
 
     ncomp = 2
     _kernel = "gmg_fused_block_cg"
+
+    def _setup_cuda(self):
+        lib = _lib_block_cg()
+        work, ptrs, dims, offs = self._level_arrays()
+        n0 = self.ncomp * self.sites
+        p = torch.zeros(n0, dtype=torch.float32, device=self.device)
+        Ap = torch.zeros_like(p)
+        blocks = self._grid(lib, lib.gmg_fused_block_cg_grid)
+        partial = torch.zeros(2 * blocks, dtype=torch.float64, device=self.device)
+        desc = np.zeros(lib.gmg_fused_block_cg_desc_bytes(), dtype=np.uint8)
+        code = lib.gmg_fused_block_cg_pack(
+            desc.ctypes.data_as(ctypes.c_void_p), len(self.W),
+            ptrs.ctypes.data_as(ctypes.c_void_p),
+            dims.ctypes.data_as(ctypes.c_void_p),
+            offs.ctypes.data_as(ctypes.c_void_p),
+            p.data_ptr(), Ap.data_ptr(), partial.data_ptr(),
+        )
+        _build.check(lib, code, "gmg_fused_block_cg_pack")
+        # the buffers live as long as this object: the descriptor holds
+        # their addresses
+        self._cuda = dict(
+            lib=lib, work=work, p=p, Ap=Ap, partial=partial, launch_args=(blocks,),
+            desc=torch.from_numpy(desc).to(self.device),
+        )
 
     def _to_planes(self, r_flat: torch.Tensor) -> torch.Tensor:
         return r_flat.reshape(self.shape + (2,)).permute(2, 0, 1)
@@ -699,6 +744,7 @@ class FusedInnerGMRES(_FusedHierarchy):
         cluster, smem = _cluster_config(lib, "gmg_fused_gmres", desc, self.device)
         self._cuda = dict(
             lib=lib, work=work, vecs=vecs, cluster=cluster, smem=smem,
+            lstar=lib.gmg_fused_gmres_lstar(desc.ctypes.data_as(ctypes.c_void_p)),
             desc=torch.from_numpy(desc).to(self.device),
         )
 
@@ -760,13 +806,15 @@ def _in_scope(gmg, hierarchy=_scalar_hierarchy):
     return lv, bands
 
 
-def build_fused_inner_cg(gmg, inner_iters: int, device, mode: str = "cg") -> Optional[FusedInnerCG]:
+def build_fused_inner_cg(
+    gmg, inner_iters: int, device, mode: str = "cg", cta_levels: int = 0
+) -> Optional[FusedInnerCG]:
     """The fused inner solve for `gmg`'s hierarchy on `device`, or None
     out of scope (padded or block hierarchies)."""
     built = _in_scope(gmg)
     if built is None:
         return None
-    return FusedInnerCG(*built, inner_iters, device, mode=mode)
+    return FusedInnerCG(*built, inner_iters, device, mode=mode, cta_levels=cta_levels)
 
 
 def build_fused_richardson(gmg, n_cycles: int, device) -> Optional[FusedInnerCG]:

@@ -1,14 +1,19 @@
-"""Mutation check of kernels #5 (the dynamic-weight block V-cycle chain)
-and #6 (the fused Arnoldi cycle) on a CUDA card: which check sees which
-fault.
+"""Mutation check of kernels #2 / #3 (the fused inner CG and its
+Richardson mode), #5 (the dynamic-weight block V-cycle chain) and #6 (the
+fused Arnoldi cycle) on a CUDA card: which check sees which fault.
 
-    python3 scripts/torch_dyn_mutants.py
+    python3 scripts/torch_fused_mutants.py [mutant ...]
 
 For the unmutated control and each mutant: a copy of the package,
 chip_smoke.py and the dataset under build/pdebench_tpu_torch/mutants/<name>
 (built there, from the copy's sources), one mutation applied to the copy,
 then a subprocess in the copy that runs the mutated kernel's checks of
-chip_smoke.py, each phase on its own: for kernel #5 phase 3e
+chip_smoke.py, each phase on its own: for kernels #2 / #3 phase 3
+(`check_fused_cg` on poisson_basic's and poisson_p3_variable_kappa_mild's
+hierarchies: one PCG step, then 25), phase 3b (`check_richardson` on
+helmholtz_basic_k5's and helmholtz_k12_exponential_mode's: 1 and 2
+cycles, linearity) and the 2-D Poisson and basic_k5 solves (phases 4 and
+5: `drive`, one solve each, the asserted rounds); for kernel #5 phase 3e
 (`check_dyn_block` on navier_stokes_basic's hierarchy) and its
 Navier-Stokes main path (phase 8: `drive_ns`, one solve per case); for
 kernel #6 phase 3c (`check_gmres` on helmholtz_k12_exponential_mode's and
@@ -16,8 +21,20 @@ helmholtz_3d_k1_trig's hierarchies) and the two cases' solves (phases 5
 and 7: `drive`, one solve each). Prints per mutant and phase "caught"
 with the failing check's message, or "not caught". Each mutation reaches
 its kernel only (the cluster header is copied for the mutated kernel
-alone, the other kernels keep their sources):
+alone, the other kernels keep their sources). Named mutants run alone;
+with none, all of them do:
 
+  cgnobarrier  kernel #2 drops the cluster barrier after the stage that
+               writes the CTA partials of <p, Ap>: alpha is summed from
+               partials other CTAs may not have written yet
+  stalewindow  the Richardson chain's residual v - A0 z reads the window
+               left by the stage before (level 0's x) instead of restaging
+               z's after z changed (#3)
+  ctasweeps9   the coarsest level in CTA 0's shared memory swept 9 times
+               instead of 10 (#2 / #3)
+  stalekeep    CTA 0 keeps the coarse levels' W and D pointers of the
+               first descriptor it launched on and loads every later
+               launch's coarse levels from them (#2 / #3)
   stale      the wrapper packs one level descriptor per kernel object (at
              the first weight set it sees) and launches every later weight
              set on it (#5)
@@ -64,8 +81,38 @@ _NOBARRIER = (
     "      put_red(acc, red, i < j ? kMgs + ((i + 1) & 1) : kW, sh);\n      cluster.sync();\n",
     "      put_red(acc, red, i < j ? kMgs + ((i + 1) & 1) : kW, sh);\n      if (i != 0) cluster.sync();\n",
 )
+_CG_NOBARRIER = (
+    os.path.join(CSRC, "gmg_fused_cg.cu"),
+    "      put_red(acc, red, kPAp, sh);\n    }\n    cluster.sync();\n",
+    "      put_red(acc, red, kPAp, sh);\n    }\n",
+)
+_STALE_WINDOW = (
+    "      const Window zw = stage_in(z, L0, T[0], b, 1, sm);\n",
+    "      const Window zw = window_of(L0, T[0], b, sm);\n",
+)
+_STALE_KEEP = (
+    "__device__ void cta_load(const Level* lv, int lstar, int nlev, float* keep) {\n"
+    "  for (int l = lstar; l < nlev; ++l) {\n"
+    "    const Level& L = lv[l];\n",
+    "__device__ const float* mut_W[kMaxLevels];\n"
+    "__device__ const float* mut_D[kMaxLevels];\n"
+    "__device__ int mut_set;\n"
+    "__device__ void cta_load(const Level* lv, int lstar, int nlev, float* keep) {\n"
+    "  if (threadIdx.x == 0 && !mut_set)\n"
+    "    for (int l = 0; l < nlev; ++l) { mut_W[l] = lv[l].W; mut_D[l] = lv[l].D; }\n"
+    "  __syncthreads();\n"
+    "  if (threadIdx.x == 0) mut_set = 1;\n"
+    "  for (int l = lstar; l < nlev; ++l) {\n"
+    "    Level L = lv[l];\n"
+    "    if (mut_W[l]) { L.W = mut_W[l]; L.D = mut_D[l]; }\n",
+)
 # mutant -> (kernel source the header edits go to, edits)
 MUTANTS = {
+    "control23": ("gmg_fused_cg", []),
+    "cgnobarrier": ("gmg_fused_cg", [_CG_NOBARRIER]),
+    "stalewindow": ("gmg_fused_cg", [_STALE_WINDOW]),
+    "ctasweeps9": ("gmg_fused_cg", [_SWEEPS]),
+    "stalekeep": ("gmg_fused_cg", [_STALE_KEEP]),
     "control5": ("gmg_fused_dyn_block", []),
     "stale": ("gmg_fused_dyn_block", _STALE),
     "transpose": ("gmg_fused_dyn_block", [_APPLY]),
@@ -85,7 +132,21 @@ from pdebench_tpu_torch.oracle.navier_stokes import NavierStokesProblem
 dev = torch.device("cuda")
 kernel = sys.argv[1]
 cs.SOLVES = 1
-if kernel == "gmg_fused_dyn_block":
+if kernel == "gmg_fused_cg":
+    p2, p3 = "poisson_basic", "poisson_p3_variable_kappa_mild"
+    k5, k12 = "helmholtz_basic_k5", "helmholtz_k12_exponential_mode"
+    cases = cs.load_cases({p2, p3, k5, k12})
+    phases = (
+        ("3", lambda: cs.check_fused_cg({cid: cs.poisson_operator(cases[cid], dev) for cid in (p2, p3)},
+                                        np.random.default_rng(0), dev, {}, {})),
+        ("3b", lambda: cs.check_richardson({cid: cs.helmholtz_operator(cases[cid], dev) for cid in (k5, k12)},
+                                           np.random.default_rng(0), dev, {}, {})),
+        ("4", lambda: cs.drive(OracleSolver(device=dev), cases,
+                               {cid: (e, t, "fused-cg-cuda", o, 25)
+                                for cid, (e, t, o) in cs.POISSON.items()}, "4")),
+        ("5", lambda: cs.drive(OracleSolver(device=dev), cases, {k5: cs.HELMHOLTZ[k5] + (30,)}, "5")),
+    )
+elif kernel == "gmg_fused_dyn_block":
     cases = cs.load_cases(set(cs.NAVIER_STOKES))
     phases = (
         ("3e", lambda: cs.check_dyn_block(NavierStokesProblem(cases["navier_stokes_basic"], dev),
@@ -139,19 +200,23 @@ def make_copy(name: str, kernel: str, edits) -> str:
     return dst
 
 
-def main() -> int:
+def main(argv) -> int:
+    unknown = set(argv) - set(MUTANTS)
+    if unknown:
+        raise SystemExit(f"unknown mutants {sorted(unknown)}; known: {sorted(MUTANTS)}")
+    chosen = {name: MUTANTS[name] for name in (argv or MUTANTS)}
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
     # every copy first: a missing pattern raises before any check runs
-    copies = {name: make_copy(name, kernel, edits) for name, (kernel, edits) in MUTANTS.items()}
-    for name, (kernel, _) in MUTANTS.items():
+    copies = {name: make_copy(name, kernel, edits) for name, (kernel, edits) in chosen.items()}
+    for name, (kernel, _) in chosen.items():
         dst = copies[name]
         proc = subprocess.run([sys.executable, "-c", CHECK, kernel], cwd=dst, capture_output=True,
                               text=True, timeout=900)
         lines = [l for l in proc.stdout.splitlines()
-                 if l.startswith(("RESULT", "[3c]", "[3e]", "[5]", "[7]", "[8]"))]
+                 if l.startswith(("RESULT", "[3]", "[3b]", "[3c]", "[3e]", "[4]", "[5]", "[7]", "[8]"))]
         for line in lines:
             print(f"{name}: {line}", flush=True)
         if proc.returncode != 0:
@@ -160,4 +225,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

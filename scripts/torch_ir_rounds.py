@@ -5,20 +5,23 @@ on a CUDA card, for a fixed right-hand side and for several.
 
 Default case: helmholtz_3d_k1_trig. The oracle's linear solve is captured
 N times on the card (OracleSolver(device="cuda"), setup caches cleared
-before each, so the load vector b is assembled anew each time by
-index_add_, whose CUDA atomics sum in no fixed order), and once on the
+before each, so the load vector b is assembled anew each time; it sums
+in a fixed order, so the captures should agree bitwise), and once on the
 CPU (OracleSolver(device="cpu"), stopped at its linear solve; its b is
-moved to the card). For each b, on the first capture's operator and
-lattice:
+moved to the card). The fused inner the case's route takes on the card:
+kernel #2's 25 PCG steps (a symmetric solve), kernel #6's Arnoldi cycle
+(GMRES, at least dispatch.FUSED_ARNOLDI_MIN_DOFS dofs) or kernel #3's
+chain as the preconditioner of the PyTorch GMRES(30) (fewer). For each b,
+on the first capture's operator and lattice:
 
   - how far b lies from the first capture's (max |b - b_0| / max |b_0|);
-  - `dispatch.solve_constrained_ir` run `repeats` times with the fused
-    Arnoldi kernel as the inner cycle: the outer rounds and the final
-    residual of each run (a fixed b must give fixed rounds: the kernel
-    sums in a fixed order);
-  - the residual after each outer round, with the inner cycle run by the
-    kernel and by its plain version (PyTorch ops on the card), against
-    the solve's tolerance max(rtol ||rhs||, atol).
+  - `dispatch.solve_constrained_ir` run `repeats` times with the kernel:
+    the outer rounds and the final residual of each run (a fixed b must
+    give fixed rounds: the kernels sum in a fixed order);
+  - the residual after each outer round (after the last only, on the
+    Richardson route), with the kernel and with its plain version
+    (PyTorch ops on the card), against the solve's tolerance
+    max(rtol ||rhs||, atol).
 
 Prints the card's name and power limit first, one line per b and route,
 and last one JSON line with the numbers.
@@ -39,7 +42,8 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STEPS = 30  # the Arnoldi cycle's steps, one cycle per outer round
+CG_STEPS = 25  # the fused PCG steps per outer round
+STEPS = 30  # the Arnoldi cycle's steps (the GMRES restart), one cycle per outer round
 
 
 class _Stop(Exception):
@@ -94,7 +98,8 @@ def main(argv) -> int:
     dev = torch.device("cuda")
 
     caps = [capture(config, "cuda", stop=False) for _ in range(args.captures)]
-    (op, b0, mask, g, opts), _ = caps[0]
+    (op, b0, mask, g, opts), kw0 = caps[0]
+    symmetric = kw0.get("symmetric", caps[0][0][5] if len(caps[0][0]) > 5 else True)
     rhs_all = {f"cuda{i}": c[0][1] for i, c in enumerate(caps)}
     (_, b_cpu, _, g_cpu, _), _ = capture(config, "cpu", stop=True)
     rhs_all["cpu"] = b_cpu.to(dev)
@@ -102,11 +107,8 @@ def main(argv) -> int:
     lat = opts["_lattice32"]
     rtol, atol = float(opts.get("rtol", 1e-10)), float(opts.get("atol", 1e-14))
 
-    # the inner Arnoldi cycle, by the kernel or by its plain version, put
-    # where dispatch looks the hierarchy's fused inner up
-    keep = (1.0 - lat.embedding.embed(mask, True).to(torch.float32)).reshape(lat.grid_shape)
-    W32c = constrain_step_weights(lat.W, lat.offsets, keep)
-    fg = gmg_fused.build_fused_inner_gmres(lat.gmg, STEPS, dev, lat.offsets)
+    # the fused inner, by the kernel or by its plain version, put where
+    # dispatch looks the hierarchy's fused inner up
     seen_norms = []
 
     def recording(fn):
@@ -115,30 +117,46 @@ def main(argv) -> int:
             return fn(r)
         return inner
 
-    inners = {
-        "kernel": recording(lambda r: fg(r, W32c)),
-        "plain": recording(lambda r: fg.plain(r, W32c)),
-    }
+    if symmetric:
+        inner, steps, fused_key, name = "cg", CG_STEPS, ("cg", CG_STEPS), "fused-cg-cuda"
+        fc = gmg_fused.build_fused_inner_cg(lat.gmg, CG_STEPS, dev)
+        inners = {"kernel": recording(fc), "plain": recording(fc.plain)}
+    elif op.ndof >= dispatch.FUSED_ARNOLDI_MIN_DOFS:
+        inner, steps, fused_key, name = "gmres", STEPS, ("gmres", STEPS), "fused-gmres-cuda"
+        keep = (1.0 - lat.embedding.embed(mask, True).to(torch.float32)).reshape(lat.grid_shape)
+        W32c = constrain_step_weights(lat.W, lat.offsets, keep)
+        fg = gmg_fused.build_fused_inner_gmres(lat.gmg, STEPS, dev, lat.offsets)
+        inners = {
+            "kernel": recording(lambda r: fg(r, W32c)),
+            "plain": recording(lambda r: fg.plain(r, W32c)),
+        }
+    else:
+        # the chain preconditions every GMRES step: no per-round record
+        inner, steps, name = "gmres", STEPS, "gmres+fused-richardson-cuda"
+        fused_key = ("richardson", dispatch.RICHARDSON_CYCLES)
+        rich = gmg_fused.build_fused_richardson(lat.gmg, dispatch.RICHARDSON_CYCLES, dev)
+        inners = {"kernel": rich, "plain": rich.plain}
     tols = []
     tolerance = krylov._tolerance
     krylov._tolerance = lambda *a: tols.append(tolerance(*a)) or tols[-1]
 
     def solve(b, route):
         """(outer rounds, final residual, residual after each round)."""
-        lat.gmg.fused[("gmres", STEPS)] = inners[route]
+        lat.gmg.fused[fused_key] = inners[route]
         seen_norms.clear()
-        x, iters, res, conv, name = dispatch.solve_constrained_ir(
-            op, b, mask, g, lat, rtol, atol, inner="gmres", inner_iters=STEPS,
+        x, iters, res, conv, got = dispatch.solve_constrained_ir(
+            op, b, mask, g, lat, rtol, atol, inner=inner, inner_iters=steps,
             max_outer=dispatch.MAX_OUTER,
         )
-        if not conv or name != "fused-gmres-cuda":
-            raise AssertionError(f"{route}: converged {conv}, inner {name}")
+        if not conv or got != name:
+            raise AssertionError(f"{route}: converged {conv}, inner {got}")
         # the norm of each round's inner input is the residual the round
         # before left (in float32 lattice order)
-        return iters // STEPS, res, seen_norms[1:] + [res]
+        return iters // steps, res, seen_norms[1:] + [res]
 
-    out = {"case": args.case, "g_cpu_gap": g_gap, "rhs": {}}
-    print(f"{args.case}: {op.ndof} dofs; boundary values CPU vs card max |diff| {g_gap:.3e}", flush=True)
+    out = {"case": args.case, "inner": name, "g_cpu_gap": g_gap, "rhs": {}}
+    print(f"{args.case}: {op.ndof} dofs, inner {name}; boundary values CPU vs card max |diff| "
+          f"{g_gap:.3e}", flush=True)
     for key, b in rhs_all.items():
         gap = float((b - b0).abs().max() / b0.abs().max())
         runs = [solve(b, "kernel") for _ in range(args.repeats)]

@@ -12,9 +12,12 @@ between two CUDA events; the stencil kernel (`stencil_apply_2d`) on
 each 2-D lattice in float64 and float32 (on an elasticity lattice, one of
 its (a, b) planes), over runs of 20 calls; and kernel #5 on
 navier_stokes_basic's hierarchy (the Jacobian at the Stokes solution), 1
-and 2 cycles, over runs of 20 calls. With --3d, #6 runs on every 3-D
-Helmholtz case of the dataset whose solve takes it (a hierarchy the fused
-kernels take, at least dispatch.FUSED_ARNOLDI_MIN_DOFS sites). Two
+and 2 cycles, over runs of 20 calls. With --3d, #2 runs on every 3-D
+Poisson case of the dataset whose hierarchy the fused kernels take (not
+padded), #6 on every 3-D Helmholtz case of the dataset whose solve takes it (a hierarchy the fused
+kernels take, at least dispatch.FUSED_ARNOLDI_MIN_DOFS sites), and #3 on
+each of those and on helmholtz_3d_k1_trig at mesh resolution 12 (the
+25^3 hierarchy of the main path's 3-D Richardson route). Two
 checkouts run in one call, in turns (parent, change, change, parent),
 compare two versions of the kernels on one card.
 Prints the card's name and power limit, then one JSON line
@@ -61,13 +64,13 @@ def main(argv) -> int:
     helmholtz = ["helmholtz_basic_k5", "helmholtz_k12_exponential_mode"]
     elasticity = ["linear_elasticity_nu010", "linear_elasticity_nu030"]
     if args.three_d:
-        poisson += ["poisson_3d_smooth_trig", "poisson_3d_kappa_expr"]
         with open(os.path.join(root, "data", "benchmark_v2.jsonl")) as fh:
             for line in fh:
                 c = json.loads(line)
                 oc = c["oracle_config"]
-                if oc["pde"]["type"] == "helmholtz" and oc["domain"]["type"] == "unit_cube":
-                    helmholtz.append(c["id"])
+                if oc["domain"]["type"] == "unit_cube":
+                    {"poisson": poisson, "helmholtz": helmholtz}.get(oc["pde"]["type"], []).append(c["id"])
+        helmholtz.append("helmholtz_3d_k1_trig@12")
     cases = cs.load_cases(set(poisson + helmholtz + elasticity + ["navier_stokes_basic"]))
     rng = np.random.default_rng(0)
     ms = {}
@@ -91,16 +94,24 @@ def main(argv) -> int:
         time_stencil(cid, lat)
         r = cs.lattice_rhs(lat, mask, rng, dev)
         fused = gmg_fused.build_fused_inner_cg(lat.gmg, 25, dev)
-        time_it(f"gmg_fused_cg {cid}", lambda: fused(r))
+        if fused is None:
+            print(f"{cid}: {lat.shape} lattice, padded hierarchy: not kernel #2's route", flush=True)
+            continue
+        shape = "x".join(map(str, lat.shape))
+        time_it(f"gmg_fused_cg {cid} {shape}", lambda: fused(r))
     for cid in helmholtz:
         lat, mask, W32c = cs.helmholtz_operator(cases[cid], dev)
         sites = int(np.prod(lat.shape))
         fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
+        r = cs.lattice_rhs(lat, mask, rng, dev)
+        if cid.endswith("@12"):
+            rich = gmg_fused.build_fused_richardson(lat.gmg, 2, dev)
+            time_it(f"gmg_fused_richardson {cid}", lambda: rich(r))
+            continue
         if len(lat.shape) == 3 and (fg is None or sites < dispatch.FUSED_ARNOLDI_MIN_DOFS):
             print(f"{cid}: {lat.shape} lattice, not kernel #6's route", flush=True)
             continue
         time_stencil(cid, lat)
-        r = cs.lattice_rhs(lat, mask, rng, dev)
         rich = gmg_fused.build_fused_richardson(lat.gmg, 2, dev)
         time_it(f"gmg_fused_richardson {cid}", lambda: rich(r))
         shape = "x".join(map(str, lat.shape))

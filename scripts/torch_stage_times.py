@@ -1,7 +1,7 @@
-"""Per-stage times of kernels #5 and #6 on a CUDA card, and the cost of an
-empty barrier.
+"""Per-stage times of the fused kernels #2, #3, #5 and #6 on a CUDA card,
+and the cost of an empty barrier.
 
-    python3 scripts/torch_stage_times.py [--root DIR]
+    python3 scripts/torch_stage_times.py [--root DIR] [--kernels 2,3,5,6]
 
 1. Barriers: a small CUDA source built here times a kernel that does
    nothing but barriers: a cooperative grid of 256-thread blocks
@@ -12,10 +12,14 @@ empty barrier.
    under build/pdebench_tpu_torch/stage_times/, in which every
    `<group>.sync();` of the fused kernels' sources is wrapped in two
    stamps: thread 0 of each block writes %globaltimer and clock64 just
-   before the barrier and just after it into a device buffer. Kernel #5
-   runs on navier_stokes_basic's hierarchy (1 cycle), kernel #6 (m = 30)
-   on helmholtz_k12_exponential_mode's 2-D hierarchy and on
-   helmholtz_3d_k1_trig's 33^3 one, each once warm with the stamps on.
+   before the barrier and just after it into a device buffer. Kernel #2
+   (25 PCG steps) runs on poisson_basic's, poisson_p3_variable_kappa_mild's
+   and poisson_3d_kappa_expr's hierarchies, kernel #3 (2 V-cycles) on
+   helmholtz_basic_k5's and on helmholtz_3d_k1_trig's at mesh resolution
+   12 (25^3), kernel #5 on navier_stokes_basic's (1 cycle), kernel #6
+   (m = 30) on helmholtz_k12_exponential_mode's 2-D hierarchy and on
+   helmholtz_3d_k1_trig's 33^3 one, each once warm with the stamps on
+   (--kernels picks which).
    Per barrier site (the function that holds it and its ordinal there),
    summed over the launch: the stages' wall time (release to release),
    the slowest block's work (release to its arrival) and the rest, the
@@ -127,6 +131,7 @@ extern "C" int pdb_stamp_setup(void* buf, void* cnt, int cap) {
 SYNC = re.compile(r"\b(\w+)\.sync\(\);")
 FUNC = re.compile(r"^(?:__device__|__global__)[^(]*?\b(\w+)\s*\(")
 CAP = 8192  # stages recorded per launch
+BLOCKS = 256  # blocks recorded per launch (a cooperative grid of #2 / #3 had up to 227)
 
 
 def nvcc() -> str:
@@ -216,7 +221,7 @@ def summarize(stamps: np.ndarray, counts: np.ndarray, labels) -> dict:
     return dict(stages=nst, stamped_us=total, sites=out)
 
 
-def run_stages(root: str) -> dict:
+def run_stages(root: str, kernels) -> dict:
     dst, labels = stamped_copy(root)
     sys.path.insert(0, dst)
     import chip_smoke as cs
@@ -227,8 +232,8 @@ def run_stages(root: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     # stage-major records: stage q of block b at q * blocks + b
-    buf = torch.zeros(CAP * 160 * 8, dtype=torch.int64, device=dev)
-    cnt = torch.zeros(160, dtype=torch.int32, device=dev)
+    buf = torch.zeros(CAP * BLOCKS * 8, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(BLOCKS, dtype=torch.int32, device=dev)
 
     def stamped(lib, fn, name):
         fn()
@@ -257,26 +262,46 @@ def run_stages(root: str) -> dict:
         return res
 
     out = {}
-    cases = cs.load_cases({"navier_stokes_basic", "helmholtz_k12_exponential_mode", "helmholtz_3d_k1_trig"})
-    prob = NavierStokesProblem(cases["navier_stokes_basic"], dev)
-    x1 = prob.stokes_direct(prob.nu)
-    lv = prob.levels(prob.sst.wmapA.weights(prob.jacobian(x1, prob.nu)).float())
-    fused = gmg_fused.build_fused_dyn_block_vcycle(prob.spec, 1, dev)
-    r = torch.as_tensor(rng.standard_normal(2 * fused.sites), dtype=torch.float32, device=dev)
-    out["#5 navier_stokes_basic 1 cycle"] = stamped(gmg_fused._lib_dyn(), lambda: fused(r, lv),
-                                                     "#5 navier_stokes_basic 1 cycle")
-    for cid in ("helmholtz_k12_exponential_mode", "helmholtz_3d_k1_trig"):
-        lat, mask, W32c = cs.helmholtz_operator(cases[cid], dev)
-        rr = cs.lattice_rhs(lat, mask, rng, dev)
-        fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
-        out[f"#6 {cid} m=30"] = stamped(gmg_fused._lib_gmres(), lambda: fg.raw(rr, W32c),
-                                        f"#6 {cid} m=30")
+    cg_cases = ["poisson_basic", "poisson_p3_variable_kappa_mild", "poisson_3d_kappa_expr"]
+    rich_cases = ["helmholtz_basic_k5", "helmholtz_3d_k1_trig@12"]
+    gmres_cases = ["helmholtz_k12_exponential_mode", "helmholtz_3d_k1_trig"]
+    cases = cs.load_cases(set(cg_cases + rich_cases + gmres_cases + ["navier_stokes_basic"]))
+    if "2" in kernels:
+        for cid in cg_cases:
+            lat, mask = cs.poisson_operator(cases[cid], dev)
+            r = cs.lattice_rhs(lat, mask, rng, dev)
+            fc = gmg_fused.build_fused_inner_cg(lat.gmg, 25, dev)
+            key = f"#2 {cid} 25 PCG steps"
+            out[key] = stamped(gmg_fused._lib_cg(), lambda: fc(r), key)
+    if "3" in kernels:
+        for cid in rich_cases:
+            lat, mask, _ = cs.helmholtz_operator(cases[cid], dev)
+            r = cs.lattice_rhs(lat, mask, rng, dev)
+            rich = gmg_fused.build_fused_richardson(lat.gmg, 2, dev)
+            key = f"#3 {cid} 2 V-cycles"
+            out[key] = stamped(gmg_fused._lib_cg(), lambda: rich(r), key)
+    if "5" in kernels:
+        prob = NavierStokesProblem(cases["navier_stokes_basic"], dev)
+        x1 = prob.stokes_direct(prob.nu)
+        lv = prob.levels(prob.sst.wmapA.weights(prob.jacobian(x1, prob.nu)).float())
+        fused = gmg_fused.build_fused_dyn_block_vcycle(prob.spec, 1, dev)
+        r = torch.as_tensor(rng.standard_normal(2 * fused.sites), dtype=torch.float32, device=dev)
+        out["#5 navier_stokes_basic 1 cycle"] = stamped(gmg_fused._lib_dyn(), lambda: fused(r, lv),
+                                                         "#5 navier_stokes_basic 1 cycle")
+    if "6" in kernels:
+        for cid in gmres_cases:
+            lat, mask, W32c = cs.helmholtz_operator(cases[cid], dev)
+            rr = cs.lattice_rhs(lat, mask, rng, dev)
+            fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 30, dev, lat.offsets)
+            out[f"#6 {cid} m=30"] = stamped(gmg_fused._lib_gmres(), lambda: fg.raw(rr, W32c),
+                                            f"#6 {cid} m=30")
     return out
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="checkout whose kernels are stamped")
+    ap.add_argument("--kernels", default="2,3,5,6", help="fused kernels to stamp, of 2, 3, 5, 6")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_stage_times: no CUDA device", file=sys.stderr)
@@ -285,7 +310,7 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
-    out = {"root": args.root, "barriers_us": barrier_times(), "stages": run_stages(os.path.abspath(args.root))}
+    out = {"root": args.root, "barriers_us": barrier_times(), "stages": run_stages(os.path.abspath(args.root), args.kernels.split(","))}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -59,7 +59,9 @@ def test_stencil_kernel_matches_plain(dev, n, p, dtype):
     assert err <= TOL[dtype], err
 
 
-def _case_gmg(dev, case_id):
+def _case_gmg(dev, case_id, resolution=None):
+    """A Poisson case's f32 lattice operator with its GMG hierarchy and
+    the lattice mask; the mesh at `resolution` if given."""
     from pdebench_tpu_torch.fem.assemble import local_stiffness
     from pdebench_tpu_torch.oracle import base, scalar
     from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
@@ -67,6 +69,8 @@ def _case_gmg(dev, case_id):
     with open(DATA) as fh:
         cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
     cfg = scalar.override_bc_with_mms(cfg, cfg["pde"]["manufactured_solution"]["u"])
+    if resolution is not None:
+        cfg["mesh"]["resolution"] = resolution
     ctx = scalar.setup_scalar(cfg, dev)
     kappa = base.coefficient_fn(cfg["pde"]["coefficients"]["kappa"], ctx.dim, dev)
     lat = scalar.maybe_lattice32(ctx, local_stiffness(ctx.cb, kappa(ctx.qpts())))
@@ -113,7 +117,9 @@ def test_oracle_runs_the_kernels(dev):
     stencil_kernel.LAUNCHES = gmg_fused.LAUNCHES = 0
     res = OracleSolver(device=dev).solve(cfg)
     assert res.solver_info["inner"] == "fused-cg-cuda"
-    assert res.solver_info["iterations"] == 2 * 25  # two outer rounds
+    # three outer rounds, as the plain version takes on the card
+    # (chip_smoke.POISSON)
+    assert res.solver_info["iterations"] == 3 * 25
     assert stencil_kernel.LAUNCHES > 0 and gmg_fused.LAUNCHES > 0
     assert abs(res.baseline_error - 1.924806820736457e-4) <= 1e-6 * 1.924806820736457e-4
 
@@ -508,6 +514,67 @@ def test_3d_oracle_runs_the_kernels(dev):
         assert stencil_kernel.LAUNCHES > 0  # the f64 outer residual
         assert res.reference.shape == (25, 25, 25)
         assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
+
+
+# -- kernels #2 and #3 on one thread-block cluster ---------------------------
+
+
+@pytest.mark.parametrize("iters,tol", [(1, TOL_VCYCLE), (25, TOL_CG)])
+@pytest.mark.parametrize("resolution", [40, 48])
+def test_fused_cg_kernel_uneven_bands(dev, resolution, iters, tol):
+    """poisson_basic's hierarchy cut to 41/21/11/6 and 49/25/13/7 rows
+    (with its probed level), which a cluster of 16 or 8 CTAs does not
+    divide, the coarse ones fewer rows than CTAs: 1 and 25 PCG steps."""
+    lat, mask = _case_gmg(dev, "poisson_basic", resolution)
+    inner = gmg_fused.build_fused_inner_cg(lat.gmg, iters, dev)
+    r = _lattice_rhs(lat, mask, 16, dev)
+    z = inner(r)
+    z_plain = inner.plain(r)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("cycles", [1, 2])
+@pytest.mark.parametrize("resolution", [40, 48])
+def test_fused_richardson_kernel_uneven_bands(dev, resolution, cycles):
+    lat, mask, _ = _helmholtz(dev, "helmholtz_basic_k5", resolution)
+    rich = gmg_fused.build_fused_richardson(lat.gmg, cycles, dev)
+    r1, r2 = _lattice_rhs(lat, mask, 17, dev), _lattice_rhs(lat, mask, 18, dev)
+    z1 = rich(r1)
+    z_plain = rich.plain(r1)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z1, z_plain, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+    torch.testing.assert_close(rich(r1 + 2.0 * r2), z1 + 2.0 * rich(r2), rtol=TOL_LINEAR, atol=TOL_LINEAR * scale)
+
+
+@pytest.mark.parametrize("mode,iters", [("cg", 1), ("cg", 25), ("richardson", 1), ("richardson", 2)])
+@pytest.mark.parametrize("case_id", ["poisson_basic", "poisson_3d_smooth_trig"])
+def test_fused_cg_kernel_cta_levels_bitwise(dev, case_id, mode, iters):
+    """CTA 0 solving two coarse levels in shared memory gives, bit for
+    bit, what the same kernel gives with the finer of them as cluster
+    stages and CTA 0 on the coarsest level alone (l* = L - 1)."""
+    lat, mask = _case_gmg(dev, case_id)
+    built = [gmg_fused.build_fused_inner_cg(lat.gmg, iters, dev, mode=mode, cta_levels=m)
+             for m in (2, 1)]
+    r = _lattice_rhs(lat, mask, 19, dev)
+    before = gmg_fused.LAUNCHES_RICHARDSON if mode == "richardson" else gmg_fused.LAUNCHES
+    z, z_coarsest = (f(r) for f in built)
+    after = gmg_fused.LAUNCHES_RICHARDSON if mode == "richardson" else gmg_fused.LAUNCHES
+    assert after == before + 2
+    nlev = len(built[0].W)
+    assert built[0]._cuda["lstar"] == nlev - 2 and built[1]._cuda["lstar"] == nlev - 1
+    assert torch.equal(z, z_coarsest)
+    z_plain = built[0].plain(r)
+    tol = TOL_CG if iters == 25 else TOL_VCYCLE
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * float(z_plain.abs().max()))
+
+
+def test_fused_cg_kernel_zero_residual(dev):
+    """r = 0: every PCG denominator is 0 (guarded to 1), z stays 0."""
+    lat, mask = _case_gmg(dev, "poisson_basic")
+    inner = gmg_fused.build_fused_inner_cg(lat.gmg, 3, dev)
+    z = inner(torch.zeros(int(np.prod(lat.shape)), dtype=torch.float32, device=dev))
+    assert torch.equal(z, torch.zeros_like(z))
 
 
 # -- kernel #5: the dynamic-weight block V-cycle chain (Navier-Stokes) ------
