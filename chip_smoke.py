@@ -396,7 +396,7 @@ def true_residual(lat, W, r_lat, z, offsets=None, pad=None):
 
 
 def cluster_line(fused) -> str:
-    """A scalar cluster kernel's launch shape after its first launch: the
+    """A cluster kernel's launch shape after its first launch: the
     cluster, each CTA's dynamic shared memory and l*, the finest level
     CTA 0 solves in shared memory."""
     c = fused._cuda
@@ -583,7 +583,8 @@ def check_block_cg(ops, rng, dev, report):
         ms = median_ms(lambda: fused(r_lat), calls=5, samples=3)
         plain_ms = median_ms(lambda: fused.plain(r_lat), calls=1, samples=3)
         b = block_cg_bound(fused)
-        say("3d", f"fused_block_cg {cid} {len(fused.W)} levels {[tuple(W.shape) for W in fused.W]}: "
+        say("3d", f"fused_block_cg {cid} {len(fused.W)} levels {[tuple(W.shape) for W in fused.W]}, "
+                  f"{cluster_line(fused)}: "
                   f"max abs diff {diff:.3e} (scale {scale:.3e}, rtol=atol/scale={TOL_CG:g}) "
                   f"residual {rel:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                   f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
@@ -591,6 +592,19 @@ def check_block_cg(ops, rng, dev, report):
             raise AssertionError(f"fused block inner CG disagrees on {cid}: {diff}, residual {rel}")
         if cid == "linear_elasticity_nu010":
             report["gmg_fused_block_cg"] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
+        # CTA 0 on the coarsest level alone: the same result bit for bit,
+        # where it solves more than that level by default
+        if fused._cuda["lstar"] < len(fused.W) - 1:
+            other = gmg_fused.build_fused_block_inner_cg(lat.gmg, 25, dev, cta_levels=1)
+            same = bool(torch.equal(other(r_lat), zk))
+            say("3d", f"fused_block_cg {cid} with CTA 0 on the coarsest level alone: bitwise "
+                      f"equal {same}")
+            if not same:
+                raise AssertionError(f"fused block inner CG differs on {cid} with CTA 0 on the "
+                                     f"coarsest level alone")
+        else:
+            say("3d", f"fused_block_cg {cid}: CTA 0 takes the coarsest level alone by default, "
+                      f"no second build to compare")
 
         for cycles in (1, 2):
             rich = gmg_fused.build_fused_block_inner_cg(lat.gmg, cycles, dev, mode="richardson")

@@ -1,6 +1,6 @@
-// Thread-block-cluster stages of the fused kernels #2 / #3, #5 and #6
-// (gmg_fused_cg.cu, gmg_fused_dyn_block.cu, gmg_fused_gmres.cu), for
-// Hopper (sm_90a).
+// Thread-block-cluster stages of the fused kernels #2 / #3, #4, #5 and #6
+// (gmg_fused_cg.cu, gmg_fused_block_cg.cu, gmg_fused_dyn_block.cu,
+// gmg_fused_gmres.cu), for Hopper (sm_90a).
 //
 // A kernel here is one cluster of up to kMaxCluster CTAs of
 // kClusterThreads threads, launched as the whole grid (cluster_launch), so
@@ -23,13 +23,17 @@
 //   (__ldcg) after a barrier.
 // - Weights stay in global memory (L2-resident) and are read through the
 //   read-only path (__ldg), kBatch (kBatch2) taps' loads issued together,
-//   and summed in tap order: the plain versions' per-site sums (for block
-//   levels those of gmg_block_vcycle.cuh), where a tap outside the level
-//   adds an exact 0.
+//   and summed in tap order, where a tap outside the level adds an exact
+//   0. The scalar sums (taps_at) round as the plain versions do, with no
+//   fused multiply-add; the block sums of kernel #5 (taps2_at,
+//   smooth2_win) leave nvcc free to contract them into fused
+//   multiply-adds. Kernel #4 has its own block sums, rounded as its plain
+//   version.
 // - The coarse levels of a scalar hierarchy: CTA 0 solves every level
 //   from l* down in its shared memory, l* the finest level from which
 //   they fit, their W and D copied in once per launch (cta_load,
-//   cta_vcycle), with block barriers only. The block kernel #5 copies
+//   cta_vcycle; kernel #4 has their block form), with block barriers
+//   only. The block kernel #5 copies
 //   its coarsest level's W, D and right-hand side in at each V-cycle and
 //   sweeps it there (coarse_solve2).
 // - Sums: a CTA's partial of a dot product (block_sum, double) goes into
@@ -228,8 +232,9 @@ __device__ __forceinline__ float taps_at(const Level& L, const int* woff, WS w,
 }
 
 // (A u) at site idx of both components of a 2-D block level, u0 and u1
-// the site's places in the two component windows (apply2_at's sum: per
-// tap the (a <- 0) and (a <- 1) products summed, then added)
+// the site's places in the two component windows: per tap the (a <- 0)
+// and (a <- 1) products summed, then added, in the plain block apply's
+// order; nvcc may contract them into fused multiply-adds
 template <class WS>
 __device__ __forceinline__ void taps2_at(const Level& L, const int* woff, WS w,
                                          const float* u0, const float* u1, int idx,
@@ -279,9 +284,11 @@ struct BoxLd {
   }
 };
 
-// restrict_at's full weighting at coarse site idx of C from fine vector t
-// of F, the 3 x 3 (x 3) loads of a fine plane issued together, zero
-// outside F, summed as restrict_at sums (x, then y, then z)
+// Full weighting at fine site (2kc, 2ic, 2jc) for coarse site idx of C
+// from fine vector t of F, the 3 x 3 (x 3) loads of a fine plane issued
+// together, zero outside F, summed along x first, then y, then z (the
+// Pallas kernel sums By @ (res @ Bx^T), its By the kron'd z-y band in
+// 3-D); a 2-D level (nz = 1) has no z sum.
 template <class Ld>
 __device__ __forceinline__ float restrict_ld(const Level& F, const Level& C, Ld t, int idx) {
   const float w[3] = {0.25f, 0.5f, 0.25f};
@@ -318,8 +325,9 @@ __device__ __forceinline__ float restrict_cl(const Level& F, const Level& C, con
   return restrict_ld(F, C, GlobalLd{t, F.ny, F.nx}, idx);
 }
 
-// prolong_at's interpolation at fine site idx of F from coarse vector xc
-// of C, its (up to 8) loads issued together, summed as prolong_at sums
+// Tri- (bi-) linear interpolation at fine site idx of F from coarse
+// vector xc of C, its (up to 8) loads issued together, summed along x,
+// then y, then z
 template <class Ld>
 __device__ __forceinline__ float prolong_ld(const Level& F, const Level& C, Ld xc, int idx) {
   int k, i, j;
@@ -760,7 +768,7 @@ __device__ __forceinline__ float chain_result_win(const Level& L0, const Taps& T
 
 // post-smoothing value x + D (r - A x) at point idx of 2-D block level F,
 // x0 and x1 the site's places in the two component windows of F.x, w its
-// weights (smooth2_at's sums)
+// weights
 template <class WS>
 __device__ __forceinline__ void smooth2_win(const Level& F, const Taps& T, WS w,
                                             const float* x0, const float* x1, int idx,

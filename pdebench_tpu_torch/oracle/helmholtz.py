@@ -10,8 +10,13 @@ k^2 u_exact.
 At k >= 16 on 2-D meshes the oracle takes the host LU from the start
 (`high_k_direct`): the shifted-Laplacian preconditioner's iteration
 counts grow with k, and the reference measured the direct solve faster
-there. That is the oracle's own route choice, before any solve, and
-`solver_info["inner"]` records it as "host-lu".
+there. A 2-D solve whose own request is a direct one (preonly, or an LU
+pc: the reference re-solves of the no-exact cases) takes it from k = 15
+on: there the lattice IR stalls (helmholtz_no_exact_gaussian_source_k15),
+and the reference answers the same request with its host LU. Both are
+route choices made before any lattice or kernel is built
+(`host_lu_route`), and `solver_info["inner"]` records them as
+"host-lu".
 
 Port of pdebench_tpu/oracle/helmholtz.py.
 """
@@ -25,12 +30,17 @@ import torch
 
 from ..fem import symbolic
 from ..fem.assemble import LocalOperator, local_mass, local_stiffness
-from ..solvers.dispatch import solve_linear
+from ..solvers.dispatch import direct_request, solve_linear
 from . import base, scalar
 from .types import OracleResult, compute_rel_L2_grid
 
 # 2-D cases from this wavenumber on solve with the host LU
 HIGH_K_DIRECT = 16.0
+# ... and 2-D cases whose own request is direct from this one on: the
+# lattice IR converges on such requests at k = 8 and 12 (the re-solves of
+# helmholtz_no_exact_sign_changing_rhs_k8 and _nonzero_bc_k12) and stalls
+# at k = 15 (_gaussian_source_k15)
+DIRECT_REQUEST_MIN_K = 15.0
 # the shifted-Laplacian hierarchy is built from this many dofs on
 SHIFTED_GMG_MIN_DOFS = 8000
 
@@ -40,6 +50,15 @@ def shifted_laplacian(ctx, k2: float):
     the surrogate that the multigrid hierarchy is coarsened from."""
     A = local_stiffness(ctx.cb) + k2 * local_mass(ctx.cb)
     return LocalOperator(torch.as_tensor(A), ctx.space.dofmap_scalar, ctx.space.ndof).to_scipy()
+
+
+def host_lu_route(dim: int, k: float, opts: Dict[str, Any]) -> bool:
+    """Whether a solve takes the host LU before any lattice is built: on
+    2-D meshes at k >= HIGH_K_DIRECT, or at k >= DIRECT_REQUEST_MIN_K
+    when the case's own solver options ask for a direct solve."""
+    if dim != 2:
+        return False
+    return k >= HIGH_K_DIRECT or (k >= DIRECT_REQUEST_MIN_K and direct_request(opts))
 
 
 class HelmholtzSolver:
@@ -66,7 +85,7 @@ class HelmholtzSolver:
         f_fn = symbolic.lambdify_spatial(src, dim, self.device)
         opts = base.solver_opts(config)
 
-        high_k_direct = dim == 2 and k >= HIGH_K_DIRECT
+        high_k_direct = host_lu_route(dim, k, opts)
         if high_k_direct:
             opts = dict(opts, ksp_type="preonly", pc_type="lu")
 

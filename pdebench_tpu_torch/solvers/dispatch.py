@@ -63,6 +63,14 @@ RICHARDSON_CYCLES = 2
 MAX_OUTER = 40
 
 
+def direct_request(opts: Dict[str, Any]) -> bool:
+    """Whether a case's solver options ask for a direct solve (preonly,
+    or an LU-type pc)."""
+    ksp = str(opts.get("ksp_type", "cg")).lower()
+    pc = str(opts.get("pc_type", "jacobi")).lower()
+    return ksp in _DIRECT_KSP or pc in _DIRECT_PC
+
+
 def fused_gate(lattice32) -> bool:
     """The port's scope for the fused kernels: a scalar 2-D or 3-D
     LatticeGMG whose hierarchy halves at every level. No memory budget:
@@ -223,7 +231,7 @@ def solve_linear(
     rtol = float(opts.get("rtol", 1e-10))
     atol = float(opts.get("atol", 1e-14))
 
-    use_direct = ksp in _DIRECT_KSP or pc in _DIRECT_PC
+    use_direct = direct_request(opts)
     info: Dict[str, Any] = {"ksp_type": ksp, "pc_type": pc, "rtol": rtol}
     lat32 = opts.get("_lattice32")
 

@@ -2,11 +2,10 @@
 
 The mixed-precision refinement's inner step (krylov.refined_solve) runs
 multigrid V-cycles on a 2-D or 3-D stencil hierarchy. Each builder here
-wraps one hand-written kernel (one persistent launch whose hierarchy
-stays in L2: one thread-block cluster for #2, #3, #5 and #6, a
-cooperative grid for #4) for CUDA tensors, and its plain PyTorch version
-for CPU tensors; each holds the math of the Pallas kernel it replaces
-(pdebench_tpu/solvers/gmg_fused.py):
+wraps one hand-written kernel (one launch of one thread-block cluster
+whose hierarchy stays in L2) for CUDA tensors, and its plain PyTorch
+version for CPU tensors; each holds the math of the Pallas kernel it
+replaces (pdebench_tpu/solvers/gmg_fused.py):
 
   build_fused_inner_cg     mode "cg": `inner_iters` GMG-PCG steps, the
                            whole SPD inner solve (csrc/gmg_fused_cg.cu)
@@ -301,19 +300,19 @@ def _lib_cg() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _lib_block_cg() -> ctypes.CDLL:
     """The library of the block (d = 2) CG-and-Richardson kernel (#4),
-    one cooperative launch."""
+    one thread-block cluster per launch."""
     lib = _build.load("gmg_fused_block_cg")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gmg_fused_block_cg_desc_bytes.argtypes = []
-    lib.gmg_fused_block_cg_desc_bytes.restype = i
-    lib.gmg_fused_block_cg_grid.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    lib.gmg_fused_block_cg_grid.restype = i
+    _bind_cluster(lib, "gmg_fused_block_cg")
+    lib.gmg_fused_block_cg_lstar.argtypes = [vp]
+    lib.gmg_fused_block_cg_lstar.restype = i
     # out, nlev, ptrs (int64 x 5 per level), dims (int32 x 4 per level),
-    # offsets (int32 x 3 per tap), p, Ap, partial
-    lib.gmg_fused_block_cg_pack.argtypes = [vp, i, vp, vp, vp, ll, ll, ll]
+    # offsets (int32 x 3 per tap), p0, p1, Ap, r1, zp, most levels in one
+    # CTA
+    lib.gmg_fused_block_cg_pack.argtypes = [vp, i, vp, vp, vp, ll, ll, ll, ll, ll, i]
     lib.gmg_fused_block_cg_pack.restype = i
-    # desc, r, z, iters, mode, blocks, stream
-    lib.gmg_fused_block_cg_launch.argtypes = [vp, vp, vp, i, i, i, vp]
+    # desc, r, z, iters, mode, cluster, smem, stream
+    lib.gmg_fused_block_cg_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
     lib.gmg_fused_block_cg_launch.restype = i
     return lib
 
@@ -469,12 +468,6 @@ class _FusedHierarchy:
         offs = _taps3(o for lvl in self.offsets for o in lvl)
         return work, ptrs, dims, offs
 
-    def _grid(self, lib, fn) -> int:
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(self.device):
-            _build.check(lib, fn(self.sites, ctypes.byref(blocks)), fn.__name__)
-        return blocks.value
-
     def _check(self, r_flat: torch.Tensor) -> None:
         if r_flat.device != self.device:
             raise ValueError(f"r on {r_flat.device}, hierarchy on {self.device}")
@@ -561,7 +554,7 @@ class FusedInnerCG(_FusedHierarchy):
         self._cuda = dict(
             lib=lib, work=work, vecs=vecs, cluster=cluster, smem=smem,
             lstar=lib.gmg_fused_cg_lstar(desc.ctypes.data_as(ctypes.c_void_p)),
-            launch_args=(cluster, smem), desc=torch.from_numpy(desc).to(self.device),
+            desc=torch.from_numpy(desc).to(self.device),
         )
 
     def _count(self) -> None:
@@ -578,16 +571,16 @@ class FusedInnerCG(_FusedHierarchy):
         if self._cuda is None:
             self._setup_cuda()
         c = self._cuda
-        # the kernel's layout: component planes, contiguous
-        r = self._to_planes(r_flat).contiguous()
+        # the kernels read r and write z in the lattice's flat layout
+        r = r_flat.contiguous()
         z = torch.empty_like(r)
         code = self._entry(c["lib"], "launch")(
             _vp(c["desc"]), _vp(r), _vp(z), self.inner_iters, _MODES[self.mode],
-            *c["launch_args"], _build.current_stream(self.device),
+            c["cluster"], c["smem"], _build.current_stream(self.device),
         )
         _build.check(c["lib"], code, f"{self._kernel}_launch")
         self._count()
-        return self._from_planes(z)
+        return z
 
     def __call__(self, r_flat: torch.Tensor) -> torch.Tensor:
         if r_flat.device.type == "cpu":
@@ -601,9 +594,10 @@ class FusedBlockInnerCG(FusedInnerCG):
     """The block (d = 2) inner solve: fn(r_lat_flat_f32) ->
     z_lat_flat_f32 on the block lattice's flat layout (site-major,
     component-minor: stencil.BlockLatticeOperator's embedding), one
-    cooperative launch of csrc/gmg_fused_block_cg.cu per call. Modes as
-    FusedInnerCG's. The kernel takes two planar component planes (2, ny,
-    nx): the wrapper converts the vector once per call."""
+    thread-block-cluster launch of csrc/gmg_fused_block_cg.cu per call,
+    which reads r and writes z in that layout. Modes and `cta_levels` as
+    FusedInnerCG's, the default (0) every coarse level that fits CTA 0's
+    shared memory."""
 
     ncomp = 2
     _kernel = "gmg_fused_block_cg"
@@ -611,24 +605,24 @@ class FusedBlockInnerCG(FusedInnerCG):
     def _setup_cuda(self):
         lib = _lib_block_cg()
         work, ptrs, dims, offs = self._level_arrays()
-        n0 = self.ncomp * self.sites
-        p = torch.zeros(n0, dtype=torch.float32, device=self.device)
-        Ap = torch.zeros_like(p)
-        blocks = self._grid(lib, lib.gmg_fused_block_cg_grid)
-        partial = torch.zeros(2 * blocks, dtype=torch.float64, device=self.device)
+        # p0, p1, Ap, level 0's second right-hand side, the chain's running
+        # sum: planar (2, ny, nx) each
+        vecs = torch.zeros((5, self.ncomp * self.sites), dtype=torch.float32, device=self.device)
         desc = np.zeros(lib.gmg_fused_block_cg_desc_bytes(), dtype=np.uint8)
         code = lib.gmg_fused_block_cg_pack(
             desc.ctypes.data_as(ctypes.c_void_p), len(self.W),
             ptrs.ctypes.data_as(ctypes.c_void_p),
             dims.ctypes.data_as(ctypes.c_void_p),
             offs.ctypes.data_as(ctypes.c_void_p),
-            p.data_ptr(), Ap.data_ptr(), partial.data_ptr(),
+            *(v.data_ptr() for v in vecs), self.cta_levels,
         )
         _build.check(lib, code, "gmg_fused_block_cg_pack")
+        cluster, smem = _cluster_config(lib, "gmg_fused_block_cg", desc, self.device)
         # the buffers live as long as this object: the descriptor holds
         # their addresses
         self._cuda = dict(
-            lib=lib, work=work, p=p, Ap=Ap, partial=partial, launch_args=(blocks,),
+            lib=lib, work=work, vecs=vecs, cluster=cluster, smem=smem,
+            lstar=lib.gmg_fused_block_cg_lstar(desc.ctypes.data_as(ctypes.c_void_p)),
             desc=torch.from_numpy(desc).to(self.device),
         )
 
@@ -825,15 +819,16 @@ def build_fused_richardson(gmg, n_cycles: int, device) -> Optional[FusedInnerCG]
 
 
 def build_fused_block_inner_cg(
-    gmg, inner_iters: int, device, mode: str = "cg"
+    gmg, inner_iters: int, device, mode: str = "cg", cta_levels: int = 0,
 ) -> Optional[FusedBlockInnerCG]:
     """The fused block (d = 2) inner solve for a BlockLatticeGMG on
     `device`, mode "cg" or "richardson" as build_fused_inner_cg; None out
-    of scope (padded, non-2-D or d != 2 hierarchies)."""
+    of scope (padded, non-2-D or d != 2 hierarchies). `cta_levels` as
+    FusedBlockInnerCG takes it."""
     built = _in_scope(gmg, _block_hierarchy)
     if built is None:
         return None
-    return FusedBlockInnerCG(*built, inner_iters, device, mode=mode)
+    return FusedBlockInnerCG(*built, inner_iters, device, mode=mode, cta_levels=cta_levels)
 
 
 def build_fused_inner_gmres(gmg, m: int, device, op_offsets) -> Optional[FusedInnerGMRES]:

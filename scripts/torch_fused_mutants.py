@@ -1,6 +1,7 @@
 """Mutation check of kernels #2 / #3 (the fused inner CG and its
-Richardson mode), #5 (the dynamic-weight block V-cycle chain) and #6 (the
-fused Arnoldi cycle) on a CUDA card: which check sees which fault.
+Richardson mode), #4 (the block inner CG and its Richardson mode), #5
+(the dynamic-weight block V-cycle chain) and #6 (the fused Arnoldi
+cycle) on a CUDA card: which check sees which fault.
 
     python3 scripts/torch_fused_mutants.py [mutant ...]
 
@@ -13,7 +14,11 @@ chip_smoke.py, each phase on its own: for kernels #2 / #3 phase 3
 hierarchies: one PCG step, then 25), phase 3b (`check_richardson` on
 helmholtz_basic_k5's and helmholtz_k12_exponential_mode's: 1 and 2
 cycles, linearity) and the 2-D Poisson and basic_k5 solves (phases 4 and
-5: `drive`, one solve each, the asserted rounds); for kernel #5 phase 3e
+5: `drive`, one solve each, the asserted rounds); for kernel #4 phase 3d
+(`check_block_cg` on linear_elasticity_nu010's and _nu030's hierarchies:
+one PCG step, 25, the variants bit for bit, Richardson at 1 and 2
+cycles; then `check_block_transpose` on the rough-mu lattice) and the
+elasticity solves (phase 6); for kernel #5 phase 3e
 (`check_dyn_block` on navier_stokes_basic's hierarchy) and its
 Navier-Stokes main path (phase 8: `drive_ns`, one solve per case); for
 kernel #6 phase 3c (`check_gmres` on helmholtz_k12_exponential_mode's and
@@ -35,6 +40,14 @@ with none, all of them do:
   stalekeep    CTA 0 keeps the coarse levels' W and D pointers of the
                first descriptor it launched on and loads every later
                launch's coarse levels from them (#2 / #3)
+  blocknobarrier  kernel #4 drops the cluster barrier after the stage
+               that writes the CTA partials of <p, Ap>
+  blockstalewindow  #4's Richardson residual r - A0 z reads the window
+               left by the stage before instead of restaging z's
+  blockstalekeep  #4's CTA 0 keeps the coarse block levels' W and D
+               pointers of the first hierarchy it launched on
+  blocktranspose  #4's block taps read W[k, b, a] for W[k, a, b] (every
+               level)
   stale      the wrapper packs one level descriptor per kernel object (at
              the first weight set it sees) and launches every later weight
              set on it (#5)
@@ -106,6 +119,35 @@ _STALE_KEEP = (
     "    Level L = lv[l];\n"
     "    if (mut_W[l]) { L.W = mut_W[l]; L.D = mut_D[l]; }\n",
 )
+_BLOCK = os.path.join(CSRC, "gmg_fused_block_cg.cu")
+_BLOCK_NOBARRIER = (
+    _BLOCK,
+    "      put_red(acc, red, kPAp, sh);\n    }\n    cluster.sync();\n",
+    "      put_red(acc, red, kPAp, sh);\n    }\n",
+)
+_BLOCK_STALE_WINDOW = (
+    _BLOCK,
+    "        const Window zw = stage_in(zp, L0, H.T[0], b0, 2, sm);\n",
+    "        const Window zw = window_of(L0, H.T[0], b0, sm);\n",
+)
+_BLOCK_STALE_KEEP = (
+    _BLOCK,
+    "__device__ void cta2_load(const Level* lv, int lstar, int nlev, float* keep) {\n"
+    "  for (int l = lstar; l < nlev; ++l) {\n"
+    "    const Level& L = lv[l];\n",
+    "__device__ const float* mut_W[kMaxLevels];\n"
+    "__device__ const float* mut_D[kMaxLevels];\n"
+    "__device__ int mut_set;\n"
+    "__device__ void cta2_load(const Level* lv, int lstar, int nlev, float* keep) {\n"
+    "  if (threadIdx.x == 0 && !mut_set)\n"
+    "    for (int l = 0; l < nlev; ++l) { mut_W[l] = lv[l].W; mut_D[l] = lv[l].D; }\n"
+    "  __syncthreads();\n"
+    "  if (threadIdx.x == 0) mut_set = 1;\n"
+    "  for (int l = lstar; l < nlev; ++l) {\n"
+    "    Level L = lv[l];\n"
+    "    if (mut_W[l]) { L.W = mut_W[l]; L.D = mut_D[l]; }\n",
+)
+_BLOCK_TRANSPOSE = (_BLOCK,) + _APPLY
 # mutant -> (kernel source the header edits go to, edits)
 MUTANTS = {
     "control23": ("gmg_fused_cg", []),
@@ -113,6 +155,11 @@ MUTANTS = {
     "stalewindow": ("gmg_fused_cg", [_STALE_WINDOW]),
     "ctasweeps9": ("gmg_fused_cg", [_SWEEPS]),
     "stalekeep": ("gmg_fused_cg", [_STALE_KEEP]),
+    "control4": ("gmg_fused_block_cg", []),
+    "blocknobarrier": ("gmg_fused_block_cg", [_BLOCK_NOBARRIER]),
+    "blockstalewindow": ("gmg_fused_block_cg", [_BLOCK_STALE_WINDOW]),
+    "blockstalekeep": ("gmg_fused_block_cg", [_BLOCK_STALE_KEEP]),
+    "blocktranspose": ("gmg_fused_block_cg", [_BLOCK_TRANSPOSE]),
     "control5": ("gmg_fused_dyn_block", []),
     "stale": ("gmg_fused_dyn_block", _STALE),
     "transpose": ("gmg_fused_dyn_block", [_APPLY]),
@@ -145,6 +192,18 @@ if kernel == "gmg_fused_cg":
                                {cid: (e, t, "fused-cg-cuda", o, 25)
                                 for cid, (e, t, o) in cs.POISSON.items()}, "4")),
         ("5", lambda: cs.drive(OracleSolver(device=dev), cases, {k5: cs.HELMHOLTZ[k5] + (30,)}, "5")),
+    )
+elif kernel == "gmg_fused_block_cg":
+    e10, e30 = "linear_elasticity_nu010", "linear_elasticity_nu030"
+    cases = cs.load_cases({e10, e30})
+    phases = (
+        ("3d", lambda: cs.check_block_cg({cid: cs.elasticity_operator(cases[cid], dev) for cid in (e10, e30)},
+                                         np.random.default_rng(0), dev, {})),
+        ("3d rough-mu", lambda: cs.check_block_transpose(
+            *cs.elasticity_operator(cases[e10], dev, rough=True), np.random.default_rng(0), dev)),
+        ("6", lambda: cs.drive(OracleSolver(device=dev), cases,
+                               {cid: (e, t, "fused-block-cg-cuda", o, 25)
+                                for cid, (e, t, o) in cs.ELASTICITY.items()}, "6")),
     )
 elif kernel == "gmg_fused_dyn_block":
     cases = cs.load_cases(set(cs.NAVIER_STOKES))
@@ -216,7 +275,8 @@ def main(argv) -> int:
         proc = subprocess.run([sys.executable, "-c", CHECK, kernel], cwd=dst, capture_output=True,
                               text=True, timeout=900)
         lines = [l for l in proc.stdout.splitlines()
-                 if l.startswith(("RESULT", "[3]", "[3b]", "[3c]", "[3e]", "[4]", "[5]", "[7]", "[8]"))]
+                 if l.startswith(("RESULT", "[3]", "[3b]", "[3c]", "[3d]", "[3e]", "[4]", "[5]", "[6]",
+                                  "[7]", "[8]"))]
         for line in lines:
             print(f"{name}: {line}", flush=True)
         if proc.returncode != 0:

@@ -1,6 +1,7 @@
 """CUDA-event times of the fused GMG kernels at the main paths' shapes.
 
-    python3 scripts/torch_kernel_times.py [--root DIR] [--3d]
+    python3 scripts/torch_kernel_times.py [--root DIR] [--3d] [--stencil-device]
+    python3 scripts/torch_kernel_times.py [--root DIR] --block-variants
 
 Builds the operators and hierarchies of chip_smoke.py's 2-D cases (with
 --3d also its 3-D ones) through the `chip_smoke.py` of the checkout at DIR
@@ -19,9 +20,17 @@ kernels take, at least dispatch.FUSED_ARNOLDI_MIN_DOFS sites), and #3 on
 each of those and on helmholtz_3d_k1_trig at mesh resolution 12 (the
 25^3 hierarchy of the main path's 3-D Richardson route). Two
 checkouts run in one call, in turns (parent, change, change, parent),
-compare two versions of the kernels on one card.
+compare two versions of the kernels on one card. With --stencil-device,
+the stencil kernel's device time per call is read too: 20 calls under
+torch.profiler, the device kernels' time summed and divided by 20 (the
+events time the host's launch cost as well, which dominates at these
+sizes). With --block-variants only kernel #4 runs, on both elasticity
+hierarchies, as built by default and with CTA 0 on the coarsest level
+alone (`cta_levels=1`), where the checkout's builder takes that
+argument: the variants in turns, forward and then backward, each the
+median of 5 runs.
 Prints the card's name and power limit, then one JSON line
-{"root": DIR, "ms": {"<kernel> <case>": ms, ...}}.
+{"root": DIR, "ms": {"<kernel> <case>": ms, ...}, "device_us": {...}}.
 
 Imports neither jax nor pdebench_tpu.
 """
@@ -41,10 +50,61 @@ import torch.nn.functional as F
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def profiled_us(fn, calls: int = 20) -> float:
+    """Device time per call of fn: the device kernels torch.profiler
+    records over `calls` calls, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    return sum(spans) / calls
+
+
+def block_variants(cs, gmg_fused, cases, elasticity, dev, rng, ms) -> None:
+    """Kernel #4 on each elasticity hierarchy in the variants the
+    checkout's builder takes, in turns (forward, then backward)."""
+    import inspect
+
+    params = inspect.signature(gmg_fused.build_fused_block_inner_cg).parameters
+    variants = {"default": {}}
+    if "cta_levels" in params:
+        variants["CTA 0 on the coarsest level"] = dict(cta_levels=1)
+    for cid in elasticity:
+        lat, mask = cs.elasticity_operator(cases[cid], dev)
+        r = cs.lattice_rhs(lat, mask, rng, dev)
+        built = {name: gmg_fused.build_fused_block_inner_cg(lat.gmg, 25, dev, **kw)
+                 for name, kw in variants.items()}
+        for name, fused in built.items():
+            fused(r)
+            c = fused._cuda
+            print(f"{cid} {name}: {', '.join(f'{k} {c[k]}' for k in ('cluster', 'smem', 'lstar') if k in c)}",
+                  flush=True)
+        order = list(built) + list(built)[::-1]
+        for turn, name in enumerate(order):
+            fused = built[name]
+            t = cs.median_ms(lambda: fused(r), calls=5, samples=5)
+            key = f"gmg_fused_block_cg {cid} {name} #{1 if turn < len(built) else 2}"
+            ms[key] = t
+            print(f"{key}: {t:.4f} ms", flush=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="checkout whose package and chip_smoke.py run")
     ap.add_argument("--3d", dest="three_d", action="store_true", help="time the 3-D cases too")
+    ap.add_argument("--stencil-device", action="store_true",
+                    help="profile the stencil kernel's device time per call too")
+    ap.add_argument("--block-variants", action="store_true",
+                    help="time only kernel #4, in its variants, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device", file=sys.stderr)
@@ -73,7 +133,11 @@ def main(argv) -> int:
         helmholtz.append("helmholtz_3d_k1_trig@12")
     cases = cs.load_cases(set(poisson + helmholtz + elasticity + ["navier_stokes_basic"]))
     rng = np.random.default_rng(0)
-    ms = {}
+    ms, device_us = {}, {}
+    if args.block_variants:
+        block_variants(cs, gmg_fused, cases, elasticity, dev, rng, ms)
+        print(json.dumps({"root": args.root, "ms": ms}), flush=True)
+        return 0
 
     def time_it(key, fn, calls=5):
         ms[key] = cs.median_ms(fn, calls=calls, samples=5)
@@ -86,8 +150,12 @@ def main(argv) -> int:
             W = W[..., 0, 1].contiguous() if W.dim() == 5 else W
             u = torch.as_tensor(rng.standard_normal(lat.shape), device=dev).to(W.dtype)
             up = F.pad(u, (lat.pad,) * 4)
-            time_it(f"stencil_apply_2d {cid} {str(W.dtype)[6:]}",
-                    lambda: stencil_kernel.stencil_apply_2d(up, W, lat.offsets, lat.pad), calls=20)
+            key = f"stencil_apply_2d {cid} {str(W.dtype)[6:]}"
+            time_it(key, lambda: stencil_kernel.stencil_apply_2d(up, W, lat.offsets, lat.pad), calls=20)
+            if args.stencil_device:
+                device_us[key] = profiled_us(
+                    lambda: stencil_kernel.stencil_apply_2d(up, W, lat.offsets, lat.pad))
+                print(f"{key}: {device_us[key]:.3f} us device time per call", flush=True)
 
     for cid in poisson:
         lat, mask = cs.poisson_operator(cases[cid], dev)
@@ -130,7 +198,7 @@ def main(argv) -> int:
         r = torch.as_tensor(rng.standard_normal(2 * dyn.sites), dtype=torch.float32, device=dev)
         time_it(f"gmg_fused_dyn_block_vcycle navier_stokes_basic {cycles} cycle(s)",
                 lambda: dyn(r, lv), calls=20)
-    print(json.dumps({"root": args.root, "ms": ms}), flush=True)
+    print(json.dumps({"root": args.root, "ms": ms, "device_us": device_us}), flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Profile one warm solve of pdebench_tpu_torch on a CUDA card.
 
-    python3 scripts/torch_profile_solve.py [case_id ...]
+    python3 scripts/torch_profile_solve.py [--root DIR] [--solves N] [case_id ...]
 
 For each dataset case (default: the eleven dataset cases of chip_smoke.py's
 main paths, Poisson, Helmholtz and elasticity in 2-D, Poisson and Helmholtz
@@ -14,13 +14,25 @@ intervals the profiler recorded), the idle share 1 - busy / wall, and the
 kernels by device time; first the card's name and power limit. Exits
 non-zero when the profiler recorded no device activity.
 
+--root DIR imports `pdebench_tpu_torch` from the checkout at DIR (default:
+this script's own), so two checkouts run in one call, in turns (parent,
+change, change, parent), compare on one card. --solves N (default 0)
+first runs N whole-case solves, setup caches cleared before each, as
+chip_smoke.py's phases 4-7 do, and prints each one's baseline_time,
+t_setup, t_warm and t_cold, and the seconds of its cold run spent
+building the fused kernels' objects (`gmg_fused.build_fused_*`) and in
+their device setup (`_setup_cuda`: descriptor, cluster configuration),
+then the medians.
+
 Imports neither jax nor pdebench_tpu.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -93,11 +105,80 @@ def profile_case(config, owner, attr):
     return out
 
 
+class SetupClock:
+    """Seconds spent in gmg_fused's kernel builders and in its classes'
+    `_setup_cuda` while active (nested calls counted once)."""
+
+    def __init__(self, gmg_fused):
+        self.seconds = {"build": 0.0, "setup_cuda": 0.0}
+        self._depth = {"build": 0, "setup_cuda": 0}
+        self._undo = []
+        for name in dir(gmg_fused):
+            obj = getattr(gmg_fused, name)
+            if name.startswith("build_fused_") and callable(obj):
+                self._wrap(gmg_fused, name, "build")
+            elif isinstance(obj, type) and "_setup_cuda" in vars(obj):
+                self._wrap(obj, "_setup_cuda", "setup_cuda")
+
+    def _wrap(self, owner, attr, key):
+        inner = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            self._depth[key] += 1
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                self._depth[key] -= 1
+                if self._depth[key] == 0:
+                    self.seconds[key] += time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, inner))
+
+    def close(self):
+        for owner, attr, inner in reversed(self._undo):
+            setattr(owner, attr, inner)
+
+
+def timed_solves(config, n: int, cid: str) -> None:
+    """n whole-case solves, setup caches cleared before each: their
+    baseline_time, t_setup, t_warm, t_cold and kernel-setup seconds."""
+    from pdebench_tpu_torch.oracle import OracleSolver, base
+    from pdebench_tpu_torch.solvers import gmg_fused
+
+    solver = OracleSolver(device="cuda")
+    rows = []
+    for i in range(n):
+        base.clear_setup_caches()
+        clock = SetupClock(gmg_fused)
+        try:
+            res = solver.solve(config)
+        finally:
+            clock.close()
+        info = res.solver_info
+        row = dict(baseline_time=res.baseline_time, t_setup=info["t_setup"],
+                   t_warm=info["t_warm"], t_cold=info["t_cold"], **clock.seconds)
+        rows.append(row)
+        print(f"{cid} solve {i + 1}: " + ", ".join(f"{k} {v:.4f} s" for k, v in row.items()),
+              flush=True)
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    print(f"{cid} median of {n}: " + ", ".join(f"{k} {v:.4f} s" for k, v in med.items()),
+          flush=True)
+
+
 def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=ROOT, help="checkout whose package runs")
+    ap.add_argument("--solves", type=int, default=0,
+                    help="timed whole-case solves before the profiled one")
+    ap.add_argument("cases", nargs="*")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_solve: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
     import importlib
 
     smi = subprocess.run(
@@ -105,7 +186,8 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    ids = argv or list(DEFAULT)
+    print(f"root {root}", flush=True)
+    ids = args.cases or list(DEFAULT)
     configs = {}
     with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
         for line in fh:
@@ -116,6 +198,8 @@ def main(argv) -> int:
     for cid in ids:
         pde = configs[cid]["pde"]["type"]
         module = importlib.import_module(f"pdebench_tpu_torch.oracle.{pde}")
+        if args.solves > 0:
+            timed_solves(configs[cid], args.solves, cid)
         if pde == "navier_stokes":
             # the whole warm Newton solve (its method on the class: the
             # wrapper gets the problem as its first argument)

@@ -1,7 +1,7 @@
-"""Per-stage times of the fused kernels #2, #3, #5 and #6 on a CUDA card,
-and the cost of an empty barrier.
+"""Per-stage times of the fused kernels #2, #3, #4, #5 and #6 on a CUDA
+card, and the cost of an empty barrier.
 
-    python3 scripts/torch_stage_times.py [--root DIR] [--kernels 2,3,5,6]
+    python3 scripts/torch_stage_times.py [--root DIR] [--kernels 2,3,4,5,6]
 
 1. Barriers: a small CUDA source built here times a kernel that does
    nothing but barriers: a cooperative grid of 256-thread blocks
@@ -16,7 +16,8 @@ and the cost of an empty barrier.
    (25 PCG steps) runs on poisson_basic's, poisson_p3_variable_kappa_mild's
    and poisson_3d_kappa_expr's hierarchies, kernel #3 (2 V-cycles) on
    helmholtz_basic_k5's and on helmholtz_3d_k1_trig's at mesh resolution
-   12 (25^3), kernel #5 on navier_stokes_basic's (1 cycle), kernel #6
+   12 (25^3), kernel #4 (25 block PCG steps) on linear_elasticity_nu010's
+   and _nu030's, kernel #5 on navier_stokes_basic's (1 cycle), kernel #6
    (m = 30) on helmholtz_k12_exponential_mode's 2-D hierarchy and on
    helmholtz_3d_k1_trig's 33^3 one, each once warm with the stamps on
    (--kernels picks which).
@@ -265,7 +266,8 @@ def run_stages(root: str, kernels) -> dict:
     cg_cases = ["poisson_basic", "poisson_p3_variable_kappa_mild", "poisson_3d_kappa_expr"]
     rich_cases = ["helmholtz_basic_k5", "helmholtz_3d_k1_trig@12"]
     gmres_cases = ["helmholtz_k12_exponential_mode", "helmholtz_3d_k1_trig"]
-    cases = cs.load_cases(set(cg_cases + rich_cases + gmres_cases + ["navier_stokes_basic"]))
+    block_cases = ["linear_elasticity_nu010", "linear_elasticity_nu030"]
+    cases = cs.load_cases(set(cg_cases + rich_cases + gmres_cases + block_cases + ["navier_stokes_basic"]))
     if "2" in kernels:
         for cid in cg_cases:
             lat, mask = cs.poisson_operator(cases[cid], dev)
@@ -280,6 +282,13 @@ def run_stages(root: str, kernels) -> dict:
             rich = gmg_fused.build_fused_richardson(lat.gmg, 2, dev)
             key = f"#3 {cid} 2 V-cycles"
             out[key] = stamped(gmg_fused._lib_cg(), lambda: rich(r), key)
+    if "4" in kernels:
+        for cid in block_cases:
+            lat, mask = cs.elasticity_operator(cases[cid], dev)
+            r = cs.lattice_rhs(lat, mask, rng, dev)
+            block = gmg_fused.build_fused_block_inner_cg(lat.gmg, 25, dev)
+            key = f"#4 {cid} 25 block PCG steps"
+            out[key] = stamped(gmg_fused._lib_block_cg(), lambda: block(r), key)
     if "5" in kernels:
         prob = NavierStokesProblem(cases["navier_stokes_basic"], dev)
         x1 = prob.stokes_direct(prob.nu)
@@ -301,7 +310,7 @@ def run_stages(root: str, kernels) -> dict:
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="checkout whose kernels are stamped")
-    ap.add_argument("--kernels", default="2,3,5,6", help="fused kernels to stamp, of 2, 3, 5, 6")
+    ap.add_argument("--kernels", default="2,3,4,5,6", help="fused kernels to stamp, of 2, 3, 4, 5, 6")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_stage_times: no CUDA device", file=sys.stderr)

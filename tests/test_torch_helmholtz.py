@@ -109,6 +109,36 @@ def test_small_case_routes_match_reference(res_, k, inner, pc):
         assert res.solver_info["pc_used"] == ref.solver_info["pc_used"] == pc
 
 
+@pytest.mark.parametrize(
+    "case_id,resolve,want",
+    [
+        # the case's own request (gmres/ilu) at k = 15 stays on the lattice
+        ("helmholtz_no_exact_gaussian_source_k15", False, False),
+        ("helmholtz_k15_two_mode_superposition", False, False),
+        # preonly/lu re-solves the lattice IR answers stay there ...
+        ("helmholtz_no_exact_sign_changing_rhs_k8", True, False),
+        ("helmholtz_no_exact_nonzero_bc_k12", True, False),
+        # ... from k = 15 on they take the host LU (the IR stalls at 15)
+        ("helmholtz_no_exact_gaussian_source_k15", True, True),
+        ("helmholtz_no_exact_two_gaussians_k18", True, True),
+        # k >= 16 takes it whatever it asks; 3-D never
+        ("helmholtz_direct_lu_k24_high_freq", False, True),
+        ("helmholtz_3d_k6_high", False, False),
+    ],
+)
+def test_host_lu_route_decision(case_id, resolve, want):
+    """The route decision alone, on a dataset case's config or its
+    reference re-solve's: no mesh, lattice or solve."""
+    from pdebench_tpu_torch.oracle import base, helmholtz, scalar
+
+    cfg = _case(case_id)
+    if resolve:
+        cfg = scalar.merge_reference_config(cfg)
+    dim = 3 if cfg["domain"]["type"] == "unit_cube" else 2
+    k = float(cfg["pde"]["pde_params"]["k"])
+    assert helmholtz.host_lu_route(dim, k, base.solver_opts(cfg)) is want
+
+
 def test_reference_config_resolve_matches_reference():
     """A case without a manufactured solution: baseline_error against a
     finer re-solve (here cut to res 24 P1 against res 32 P2)."""

@@ -269,17 +269,19 @@ ELASTICITY = {
 }
 
 
-def _elasticity(dev, case_id, rough=False):
+def _elasticity(dev, case_id, rough=False, resolution=None):
     """The case's f32 block lattice operator with its block GMG hierarchy
-    and the dof mask; `rough` scales the shear modulus cell by cell (a
-    factor between 1/2 and 2), which makes the per-site tap blocks
-    non-symmetric."""
+    and the dof mask, at the case's mesh resolution or `resolution`;
+    `rough` scales the shear modulus cell by cell (a factor between 1/2
+    and 2), which makes the per-site tap blocks non-symmetric."""
     from pdebench_tpu_torch.fem.assemble import local_elasticity
     from pdebench_tpu_torch.oracle import linear_elasticity, scalar
     from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
 
     with open(DATA) as fh:
         cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+    if resolution is not None:
+        cfg["mesh"]["resolution"] = resolution
     cfg = scalar.override_bc_with_mms(cfg, list(cfg["pde"]["manufactured_solution"]["u"]))
     lam, mu = linear_elasticity.lame_from_params(cfg["pde"]["pde_params"])
     ctx = scalar.setup_scalar(cfg, dev, ncomp=-1)
@@ -353,6 +355,55 @@ def test_fused_block_richardson_kernel_matches_plain(dev, case_id, cycles):
     torch.testing.assert_close(rich(r1 + 2.0 * r2), z1 + 2.0 * rich(r2), rtol=TOL_LINEAR, atol=TOL_LINEAR * scale)
 
 
+@pytest.mark.parametrize("mode,iters", [("cg", 1), ("cg", 25), ("richardson", 1), ("richardson", 2)])
+@pytest.mark.parametrize("case_id,resolution", [("linear_elasticity_nu030", None),
+                                                ("linear_elasticity_nu010", 40)])
+def test_fused_block_cg_kernel_cta_levels_bitwise(dev, case_id, resolution, mode, iters):
+    """Kernel #4's CTA 0 solving two coarse block levels in shared memory
+    gives, bit for bit, what it gives with the finer of them as cluster
+    stages and CTA 0 on the coarsest level alone (l* = L - 1): on nu030's
+    hierarchy (21^2 and 11^2 in CTA 0) and on nu010's cut to 81^2 (its
+    own 31^2 and 16^2 do not fit one CTA beside the windows)."""
+    lat, mask = _elasticity(dev, case_id, resolution=resolution)
+    built = [gmg_fused.build_fused_block_inner_cg(lat.gmg, iters, dev, mode=mode, cta_levels=m)
+             for m in (2, 1)]
+    r = _block_rhs(lat, mask, 19, dev)
+    z, z_coarsest = (f(r) for f in built)
+    nlev = len(built[0].W)
+    assert built[0]._cuda["lstar"] == nlev - 2 and built[1]._cuda["lstar"] == nlev - 1
+    assert torch.equal(z, z_coarsest)
+    z_plain = built[0].plain(r)
+    tol = TOL_CG if iters == 25 else TOL_VCYCLE
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * float(z_plain.abs().max()))
+
+
+@pytest.mark.parametrize("iters,tol", [(1, TOL_VCYCLE), (25, TOL_CG)])
+@pytest.mark.parametrize("resolution", [40, 48])
+def test_fused_block_cg_kernel_uneven_bands(dev, resolution, iters, tol):
+    """nu010's hierarchy cut to 81/41/21/11 and 97/49/25/13 rows (with
+    the probed level), which a cluster of 16 or 8 CTAs does not divide,
+    the coarse ones fewer rows than CTAs: 1 and 25 PCG steps, and a
+    2-cycle Richardson chain."""
+    lat, mask = _elasticity(dev, "linear_elasticity_nu010", resolution=resolution)
+    assert not lat.gmg.padded and len(lat.gmg.levels) >= 3
+    inner = gmg_fused.build_fused_block_inner_cg(lat.gmg, iters, dev)
+    r = _block_rhs(lat, mask, 21, dev)
+    z = inner(r)
+    z_plain = inner.plain(r)
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * float(z_plain.abs().max()))
+    rich = gmg_fused.build_fused_block_inner_cg(lat.gmg, 2, dev, mode="richardson")
+    z, z_plain = rich(r), rich.plain(r)
+    torch.testing.assert_close(z, z_plain, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * float(z_plain.abs().max()))
+
+
+def test_fused_block_cg_kernel_zero_residual(dev):
+    """r = 0: every PCG denominator is 0 (guarded to 1), z stays 0."""
+    lat, _ = _elasticity(dev, "linear_elasticity_nu010")
+    inner = gmg_fused.build_fused_block_inner_cg(lat.gmg, 3, dev)
+    z = inner(torch.zeros(2 * int(np.prod(lat.shape)), dtype=torch.float32, device=dev))
+    assert torch.equal(z, torch.zeros_like(z))
+
+
 def test_elasticity_oracle_runs_the_kernels(dev):
     from pdebench_tpu_torch.oracle import OracleSolver
 
@@ -368,18 +419,31 @@ def test_elasticity_oracle_runs_the_kernels(dev):
     assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
 
 
-def test_rerouted_direct_request_whose_ir_stalls_raises_on_cuda(dev):
+def test_direct_request_at_k15_takes_the_host_lu_on_cuda(dev, monkeypatch):
     """helmholtz_no_exact_gaussian_source_k15: its reference re-solve asks
-    for preonly/lu and is rerouted through the lattice IR, which stalls.
-    On CUDA tensors the solve raises; it never moves to the host LU after
-    a kernel's IR failed."""
-    from pdebench_tpu_torch.oracle import OracleSolver
+    for preonly/lu at k = 15, where the lattice IR stalls. The oracle
+    sends that request to the host LU before any lattice or kernel is
+    built (helmholtz.host_lu_route), as the reference answers it, and the
+    case lands on its recorded error."""
+    from pdebench_tpu_torch.oracle import OracleSolver, helmholtz
 
     with open(DATA) as fh:
         cfg = next(json.loads(l)["oracle_config"] for l in fh
                    if json.loads(l)["id"] == "helmholtz_no_exact_gaussian_source_k15")
-    with pytest.raises(RuntimeError, match="did not converge"):
-        OracleSolver(device=dev).solve(cfg)
+    routes = []
+    real = helmholtz.host_lu_route
+
+    def spy(dim, k, opts):
+        routes.append((opts["ksp_type"], real(dim, k, opts)))
+        return routes[-1][1]
+
+    monkeypatch.setattr(helmholtz, "host_lu_route", spy)
+    res = OracleSolver(device=dev).solve(cfg)
+    # the case's own solve on the lattice, its re-solve on the host LU
+    assert routes == [("gmres", False), ("preonly", True)]
+    assert res.solver_info["inner"] == "gmres+fused-richardson-cuda"
+    ref_err = 0.016335751576818117  # results/oracle_sweep_progress.jsonl
+    assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
 
 
 @pytest.mark.parametrize("ksp", ["preonly", "cg"])
