@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the shapes of the
-main paths, then drives the four main paths through
+main paths (the stencil kernel's device time from a CUDA graph replay,
+beside its callers' apply_grid_w time), then drives the four main paths through
 `OracleSolver(device="cuda")` and checks their errors against the
 recorded values:
 
@@ -17,8 +18,8 @@ recorded values:
               fused Arnoldi cycle
   Elasticity  `linear_elasticity_nu010` (P2, 121 x 121 nodes) and
               `linear_elasticity_nu030` (P2, 161 x 161): the stencil
-              kernel (the f64 outer residual, 4 scalar applies per block
-              apply) and the fused block inner CG
+              kernel's block form (the f64 outer residual, one launch per
+              block apply) and the fused block inner CG
   3-D         `poisson_3d_smooth_trig` (P2, 33^3 lattice, 65 taps) and
               `poisson_3d_kappa_expr` (P2, 29^3): the fused inner CG;
               `helmholtz_3d_k1_trig` (P2, 33^3, k = 1): the fused Arnoldi
@@ -31,7 +32,9 @@ recorded values:
               resolution 48 (97 x 97 velocity nodes, 21,219 dofs): the
               whole-device Newton, its saddle FGMRES preconditioned by the
               fused dynamic-weight block V-cycle (97/49/25/13 hierarchy
-              rebuilt from every Newton step's convected Jacobian)
+              rebuilt from every Newton step's convected Jacobian), the
+              saddle apply's velocity block on the stencil kernel's block
+              form
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -56,7 +59,6 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 POISSON = {
@@ -102,9 +104,9 @@ LATTICE_3D = {
 }
 # Navier-Stokes: case id -> (recorded baseline_error, relative
 # tolerance). A Newton stop at rtol 1e-10 may move the solution by ~1e-10,
-# an error of ~3e-6 by up to ~3e-5 relative; the card reads 3.95e-10 and
-# 2.06e-8 on every solve (its sums run in a fixed order), so 1e-6 holds
-# with a margin of 50 over the larger
+# an error of ~3e-6 by up to ~3e-5 relative; the card reads 4.99e-10 and
+# 2.62e-8 on every solve (its sums run in a fixed order), so 1e-6 holds
+# with a margin of 38 over the larger
 NAVIER_STOKES = {
     "navier_stokes_low_re": (3.041429902434237e-06, 1e-6),
     "navier_stokes_basic": (3.0425996199305986e-06, 1e-6),
@@ -387,8 +389,7 @@ def true_residual(lat, W, r_lat, z, offsets=None, pad=None):
 
     offsets = lat.offsets if offsets is None else offsets
     pad = lat.pad if pad is None else pad
-    up = F.pad(z.reshape(lat.shape), (pad,) * (2 * len(lat.shape)))
-    Az = stencil_kernel.stencil_apply_torch(up, W, offsets, pad).reshape(-1)
+    Az = stencil_kernel.stencil_plain(z.reshape(lat.shape), W, offsets, pad).reshape(-1)
     return float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
 
 
@@ -404,45 +405,107 @@ def cluster_line(fused) -> str:
             f"(CTA 0 solves levels {c['lstar']}..{len(fused.W) - 1})")
 
 
+def graph_ms(fn, calls: int = 20, samples: int = 5) -> float:
+    """Device time per call: `calls` calls captured in one CUDA graph,
+    replayed between two events, median over `samples` replays. No host
+    work between the launches: for a launch-bound kernel this is the
+    kernel's own time on the card."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def stencil_line(phase, name, cid, lat, W, u, plain, tol, report, nbytes, flops):
+    """One stencil apply on the card against its plain version: the
+    wrapper's time (median_ms around the plan's call, the kernels line's
+    `ms`, as for every kernel), its device time (graph_ms, `device_ms`),
+    the caller-level apply_grid_w time (median_ms, `caller_ms`), the plain
+    version's, the bound."""
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    before = stencil_kernel.LAUNCHES
+    yk = lat.apply_grid_w(W, u)  # CUDA tensors: one kernel launch
+    launched = stencil_kernel.LAUNCHES - before
+    yp = plain(u, W, lat.offsets, lat.pad)
+    torch.cuda.synchronize()
+    err = float((yk - yp).abs().max() / yp.abs().max())
+    ms = median_ms(lambda: lat.plan(W, u))
+    device_ms = graph_ms(lambda: lat.plan(W, u))
+    caller_ms = median_ms(lambda: lat.apply_grid_w(W, u))
+    plain_ms = median_ms(lambda: plain(u, W, lat.offsets, lat.pad))
+    b = bound(nbytes * W.element_size(), flops, W.dtype)
+    tag = f"{'x'.join(map(str, u.shape))} K={len(lat.offsets)} pad={lat.pad} {str(W.dtype)[6:]}"
+    say(phase, f"{name} {cid} {tag}: max rel diff {err:.3e} (tol {tol:g}), {launched} launch; "
+               f"kernel {ms:.4f} ms (events), {device_ms:.4f} ms (device, graph replay), "
+               f"apply_grid_w {caller_ms:.4f} ms (caller, events), plain {plain_ms:.4f} ms, "
+               f"bound {b['bound_ms']:.2e} ms "
+               f"({b['bound_by']})")
+    if not err <= tol or launched != 1:
+        raise AssertionError(f"{name} disagrees or launched {launched} times at {cid} {tag}: {err}")
+    if name not in report and W.dtype == torch.float64:
+        report[name] = dict(max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms,
+                            device_ms=device_ms, caller_ms=caller_ms, **b)
+
+
 def check_stencil(ops, rng, dev, report):
-    """The stencil kernel on each lattice, f64 (the outer residual) and
-    f32; reported under stencil_apply_2d and stencil_apply_3d, at the
+    """The scalar stencil kernel on each lattice, f64 (the outer residual)
+    and f32; reported under stencil_apply_2d and stencil_apply_3d, at the
     first case of each dimension."""
     from pdebench_tpu_torch.solvers import stencil_kernel
 
-    kernel, plain = stencil_kernel.stencil_apply, stencil_kernel.stencil_apply_torch
     for cid, lat in ops.items():
-        dim = len(lat.shape)
-        name = f"stencil_apply_{dim}d"
-        n = int(np.prod(lat.shape))
+        n, K = int(np.prod(lat.shape)), len(lat.offsets)
         for W, tol in ((lat.W_f64, TOL_F64), (lat.W, TOL_F32)):
-            if W.dim() == 5:
-                # a block lattice (K, ny, nx, 2, 2) applies its (a, b)
-                # planes one by one: check the (0 <- 1) coupling plane
-                W = W[..., 0, 1].contiguous()
             u = torch.as_tensor(rng.standard_normal(lat.shape), device=dev).to(W.dtype)
-            up = F.pad(u, (lat.pad,) * (2 * dim))
-            args = (up, W, lat.offsets, lat.pad)
-            yk = kernel(*args)  # CUDA tensors: the kernel
-            yp = plain(*args)
-            torch.cuda.synchronize()
-            err = float((yk - yp).abs().max() / yp.abs().max())
-            ms = median_ms(lambda: kernel(*args))
-            plain_ms = median_ms(lambda: plain(*args))
-            K = len(lat.offsets)
-            b = bound(
-                (up.numel() + W.numel() + n) * W.element_size(), _taps_flops(K, n), W.dtype,
-            )
-            tag = f"{'x'.join(map(str, lat.shape))} K={K} pad={lat.pad} {str(W.dtype)[6:]}"
-            say("2", f"{name} {cid} {tag}: max rel diff {err:.3e} (tol {tol:g}); "
-                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.2e} ms "
-                     f"({b['bound_by']})")
-            if not err <= tol:
-                raise AssertionError(f"stencil kernel disagrees at {tag}: {err}")
-            if name not in report and W.dtype == torch.float64:
-                report[name] = dict(
-                    max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms, **b
-                )
+            stencil_line("2", f"stencil_apply_{len(lat.shape)}d", cid, lat, W, u,
+                         stencil_kernel.stencil_plain, tol, report, (K + 2) * n, _taps_flops(K, n))
+
+
+def check_block_stencil(ops, rng, dev, report):
+    """The d = 2 block stencil kernel on each block lattice, f64 and f32:
+    elasticity's operators (W_f64 for the outer residual) and the
+    Navier-Stokes velocity block (weights of a Jacobian); reported under
+    stencil_apply_block_2d at the first case. Bound: the K d^2 n weights
+    and 2 d n of u and y; 2 operations a tap and coupling, d n adds."""
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    for cid, (lat, weights) in ops.items():
+        n, K = int(np.prod(lat.shape)), len(lat.offsets)
+        for W, tol in zip(weights, (TOL_F64, TOL_F32)):
+            u = torch.as_tensor(rng.standard_normal(lat.shape + (2,)), device=dev).to(W.dtype)
+            stencil_line("2", "stencil_apply_block_2d", cid, lat, W, u,
+                         stencil_kernel.block_stencil_plain, tol, report,
+                         K * 4 * n + 2 * 2 * n, 4 * _taps_flops(K, n) + 2 * n)
+
+
+def ns_velocity_block(prob, rng):
+    """navier_stokes_basic's velocity block as a lattice operator for
+    stencil_line: its weight map (offsets, plan, apply) and the block
+    weights of the Jacobian at a random velocity (not symmetric per
+    site), f64 and f32."""
+    from types import SimpleNamespace
+
+    wm = prob.sst.wmapA
+    x = torch.as_tensor(rng.standard_normal(prob.nu_dofs + prob.np_dofs), device=prob.device)
+    W64 = wm.weights(prob.jacobian(x, prob.nu))
+    lat = SimpleNamespace(shape=wm.shape, offsets=wm.offsets, pad=wm.pad, plan=wm.plan,
+                          apply_grid_w=wm.apply_grid)
+    return lat, (W64, W64.float())
 
 
 def check_fused_cg(ops, rng, dev, report, report_as):
@@ -871,12 +934,20 @@ def main() -> int:
     rng = np.random.default_rng(0)
     report = {}
 
-    # (2) stencil kernel vs plain at every path's shapes, 2-D and 3-D
+    # (2) stencil kernel vs plain at every path's shapes, 2-D and 3-D,
+    # scalar and block (elasticity, the Navier-Stokes velocity block)
     check_stencil({cid: lat for cid, (lat, _) in p_ops.items()}
                   | {cid: lat for cid, (lat, _, _) in h_ops.items()}
-                  | {cid: lat for cid, (lat, _) in e_ops.items()}
                   | {cid: lat for cid, (lat, _) in p3_ops.items()}
                   | {cid: lat for cid, (lat, _, _) in h3_ops.items()}, rng, dev, report)
+    from pdebench_tpu_torch.oracle.navier_stokes import NavierStokesProblem
+
+    check_block_stencil(
+        {cid: (lat, (lat.W_f64, lat.W)) for cid, (lat, _) in e_ops.items()}
+        | {"navier_stokes_basic": ns_velocity_block(
+            NavierStokesProblem(cases["navier_stokes_basic"], dev), rng)},
+        rng, dev, report,
+    )
     # (3) fused inner CG, (3b) fused Richardson, (3c) fused Arnoldi, (3d)
     # fused block inner CG vs plain; 2-D, then the 3-D forms
     check_fused_cg(p_ops, rng, dev, report, {"poisson_basic": "gmg_fused_cg"})
@@ -894,8 +965,6 @@ def main() -> int:
     # default cuDNN TF32 setting from here on: the port's coarsening must
     # not depend on it
     torch.backends.cudnn.allow_tf32 = True
-    from pdebench_tpu_torch.oracle.navier_stokes import NavierStokesProblem
-
     check_dyn_block(NavierStokesProblem(cases["navier_stokes_basic"], dev), rng, dev, report)
 
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
@@ -903,8 +972,8 @@ def main() -> int:
     # main path: OracleSolver on the
     # card, the counters set to 0 just before each and read after; each
     # path maps its entries of the kernels line to the counters they read
-    # (one stencil kernel: stencil_apply_2d and _3d are its launches on
-    # the 2-D and the 3-D paths)
+    # (one stencil kernel: stencil_apply_2d, _3d and _block_2d are its
+    # launches on the 2-D scalar, 3-D and block paths)
     solver = OracleSolver(device="cuda")
     launches = {}
     paths = (
@@ -914,11 +983,12 @@ def main() -> int:
          {"stencil_apply_2d": "stencil_apply", "gmg_fused_richardson": "gmg_fused_richardson",
           "gmg_fused_gmres": "gmg_fused_gmres"}),
         ("6", {cid: (e, t, "fused-block-cg-cuda", o, 25) for cid, (e, t, o) in ELASTICITY.items()},
-         {"stencil_apply_2d": "stencil_apply", "gmg_fused_block_cg": "gmg_fused_block_cg"}),
+         {"stencil_apply_block_2d": "stencil_apply", "gmg_fused_block_cg": "gmg_fused_block_cg"}),
         ("7", LATTICE_3D,
          {"stencil_apply_3d": "stencil_apply", "gmg_fused_cg_3d": "gmg_fused_cg",
           "gmg_fused_richardson_3d": "gmg_fused_richardson", "gmg_fused_gmres_3d": "gmg_fused_gmres"}),
-        ("8", NAVIER_STOKES, {"gmg_fused_dyn_block_vcycle": "gmg_fused_dyn_block"}),
+        ("8", NAVIER_STOKES, {"stencil_apply_block_2d": "stencil_apply",
+                              "gmg_fused_dyn_block_vcycle": "gmg_fused_dyn_block"}),
     )
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
@@ -946,6 +1016,10 @@ def main() -> int:
         # the same kernel on 3-D lattices; the reference applies 3-D
         # stencils in XLA (LatticeOperator.apply_grid_w), not in Pallas
         "stencil_apply_3d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil.py:744"),
+        # the same kernel's d = 2 block form; the reference applies block
+        # stencils in XLA (BlockLatticeOperator.apply_grid_w, and the
+        # Navier-Stokes BlockLatticeWeightMap.apply_grid at :658)
+        "stencil_apply_block_2d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil.py:857"),
         "gmg_fused_cg": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         # mode "richardson" of the same pallas_call
         "gmg_fused_richardson": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),

@@ -213,7 +213,7 @@ __device__ __forceinline__ Window stage_fn(const Level& L, const Taps& T, Band b
 
 // (A u) at flat site idx of a scalar level, u the site's place in a
 // window (taps read it at woff): taps in order, each product rounded and
-// then added, as the plain version (stencil_apply_torch) sums: no fused
+// then added, as the plain version (stencil_plain) sums: no fused
 // multiply-add, so that the kernel's scalar V-cycles round as their plain
 // version does. A tap outside the level reads the window's zero.
 template <class WS>

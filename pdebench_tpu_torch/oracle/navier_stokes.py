@@ -32,9 +32,11 @@ runs, and recorded in solver_info["inner"]:
       in PyTorch ops (no kernel takes a padded level)
   newton-host-lu
       no saddle stencil (3-D or unstructured meshes, P3-P2 and P4-P3
-      lattices): residual and Jacobian on the device, each Newton step one host SuperLU
-      factorisation, then frozen-Jacobian steps while they cut the
-      residual by 25%
+      lattices), or velocity lattices of HOST_LU_MIN_SIDE nodes a side and
+      more at nu below HOST_LU_MAX_NU (host_lu_route, decided before any
+      lattice is built): residual and Jacobian on the device, each
+      Newton step one host SuperLU factorisation, then frozen-Jacobian
+      steps while they cut the residual by 25%
 
 The port takes the device Newton on every device, the CPU included,
 where the reference's default is the host LU (its device Newton is
@@ -99,6 +101,24 @@ ETA_MIN, ETA_MAX = 1e-4, 0.1
 ROUTE_HOST_LU = "newton-host-lu"
 ROUTE_DYN_VCYCLE = "newton-fgmres+dyn-vcycle"
 ROUTE_FUSED = "newton-fgmres+fused-dyn-vcycle"
+# velocity lattices of HOST_LU_MIN_SIDE nodes a side and more (mesh
+# resolution 72 and up at P2) at viscosities below HOST_LU_MAX_NU take the
+# host-LU Newton. On the H100 the device FGMRES stalls or breaks down on
+# 10 dataset cases, all of them there (nu 0.01-0.18), and converges on
+# every other case and reference re-solve, among them those on such
+# lattices at nu 0.2-0.3 (PERF.md §6, the dataset sweeps). Side 145 is the
+# smallest that failed; no case lies between nu 0.18 and 0.22.
+HOST_LU_MIN_SIDE = 145
+HOST_LU_MAX_NU = 0.2
+
+
+def host_lu_route(V, nu: float) -> bool:
+    """Whether a solve takes the host-LU Newton, decided from the velocity
+    space V and the viscosity before any lattice is built: V's nodes, as
+    a square lattice, are HOST_LU_MIN_SIDE or more a side, and nu lies
+    below HOST_LU_MAX_NU."""
+    n_nodes, dim = V.dof_coords.shape
+    return round(n_nodes ** (1 / dim)) >= HOST_LU_MIN_SIDE and nu < HOST_LU_MAX_NU
 
 
 def ns_source(u_exprs: List, p_expr, nu: float, dim: int) -> List[sp.Expr]:
@@ -180,7 +200,7 @@ class NavierStokesProblem:
 
         # -- the route ------------------------------------------------------
         self.sst = self.spec = self.fused = None
-        if dim == 2:
+        if dim == 2 and not host_lu_route(V, nu):
             self.sst = build_saddle_stencil(V, Q, self.G_loc)
         sst = self.sst
         if sst is not None:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .stencil import apply_block_stencil, apply_stencil, block_planes
+from .stencil_kernel import StencilPlan
 
 # ---------------------------------------------------------------------------
 # host-side stencil ops (setup only) — numpy, as in the reference
@@ -310,6 +310,8 @@ class GMGLevel:
     shape: Tuple[int, ...]
     diag_inv: torch.Tensor
     omega: float
+    # the stencil kernel's plan for W, built once
+    plan: StencilPlan = field(repr=False)
     # identity-padded shape restriction goes THROUGH when an axis point
     # count is even (halving needs odd); None = direct halving
     pad_to: Optional[Tuple[int, ...]] = None
@@ -317,18 +319,20 @@ class GMGLevel:
 
 def _make_level(W, offsets, shape, diag_inv, omega, device, dtype) -> GMGLevel:
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
+    pad = int(max(abs(o) for off in offsets for o in off))
     return GMGLevel(
         W=torch.tensor(np.asarray(W), device=device).to(dtype),
         offsets=offsets,
-        pad=int(max(abs(o) for off in offsets for o in off)),
+        pad=pad,
         shape=tuple(shape),
         diag_inv=torch.tensor(np.asarray(diag_inv), device=device).to(dtype),
         omega=float(omega),
+        plan=StencilPlan(shape, offsets, pad),
     )
 
 
 def _device_apply(level: GMGLevel, u: torch.Tensor) -> torch.Tensor:
-    return apply_stencil(level.W, level.offsets, level.pad, u)
+    return level.plan(level.W, u)
 
 
 _FW = (0.25, 0.5, 0.25)
@@ -501,13 +505,13 @@ class BlockGMGLevel:
     d: int
     diag_inv: torch.Tensor  # (..., d, d) block inverse
     omega: float
+    # the stencil kernel's block plan for W, built once
+    plan: StencilPlan = field(repr=False)
     pad_to: Optional[Tuple[int, ...]] = None  # see GMGLevel.pad_to
-    # W's (a, b) planes, contiguous, for the stencil kernel's wrapper
-    planes: list = field(default=None, repr=False)
 
 
 def _device_apply_block(lv: BlockGMGLevel, u: torch.Tensor) -> torch.Tensor:
-    return apply_block_stencil(lv.planes, lv.offsets, lv.pad, u)
+    return lv.plan(lv.W, u)
 
 
 def _device_restrict_block(u: torch.Tensor) -> torch.Tensor:
@@ -576,17 +580,17 @@ def block_lattice_gmg_from_numpy(
     lvs = []
     for lv in levels:
         offsets = tuple(tuple(int(v) for v in o) for o in lv["offsets"])
-        W = torch.tensor(np.asarray(lv["W"]), device=device).float()
+        pad = int(max(abs(o) for off in offsets for o in off))
         lvs.append(BlockGMGLevel(
-            W=W,
+            W=torch.tensor(np.asarray(lv["W"]), device=device).float(),
             offsets=offsets,
-            pad=int(max(abs(o) for off in offsets for o in off)),
+            pad=pad,
             shape=tuple(lv["shape"]),
             d=int(d),
             diag_inv=torch.tensor(np.asarray(lv["diag_inv"]), device=device).float(),
             omega=float(lv["omega"]),
             pad_to=None if lv.get("pad_to") is None else tuple(lv["pad_to"]),
-            planes=block_planes(W),
+            plan=StencilPlan(lv["shape"], offsets, pad, ncomp=int(d)),
         ))
     return BlockLatticeGMG(
         levels=lvs,
@@ -674,7 +678,7 @@ def attach_lattice_gmg(lat32, mask_np, A_override=None) -> None:
         constrain_stencil_weights,
     )
 
-    d = getattr(lat32, "ncomp", 1)
+    d = lat32.ncomp or 1
     mask_np = np.asarray(mask_np, dtype=bool)
     if A_override is not None:
         A_bc = constrained_csr(A_override, mask_np)

@@ -60,7 +60,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .krylov import lstsq_hessenberg
-from .stencil_kernel import stencil_apply_torch
+from .stencil_kernel import stencil_plain
 
 COARSE_SWEEPS = 10
 # the Arnoldi cycle's preconditioner: chained V-cycles per step
@@ -368,7 +368,7 @@ def _taps3(offsets) -> np.ndarray:
 
 def _apply_taps(W: torch.Tensor, offsets, pad: int, u: torch.Tensor) -> torch.Tensor:
     """The plain stencil apply of a 2-D or 3-D level, zero outside it."""
-    return stencil_apply_torch(F.pad(u, (pad,) * (2 * u.dim())), W, offsets, pad)
+    return stencil_plain(u, W, offsets, pad)
 
 
 def _transfer(Bz, By, Bx, u: torch.Tensor) -> torch.Tensor:

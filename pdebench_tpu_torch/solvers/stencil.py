@@ -10,11 +10,11 @@ with a fixed, small offset set o. The apply becomes |o| shifted
 multiply-adds over dense planes: no gathers, no scatters. This module
 builds the weight planes from an assembled CSR matrix whose dof
 coordinates form a lattice and applies them on lattice-shaped tensors.
-Vector systems (elasticity) are BLOCK stencils: a d x d block of weight
-planes per offset, applied as d * d scalar stencils over component
-planes. The 2-D and 3-D (unit_cube) applies go through
-`stencil_kernel.stencil_apply`: the CUDA kernel for CUDA tensors, its
-plain PyTorch version for CPU tensors.
+Vector systems (elasticity) are BLOCK stencils: a d x d block of weights
+per offset and site, on site-major, component-minor fields. Every apply,
+scalar or block, 2-D or 3-D, goes through the operator's
+`stencil_kernel.StencilPlan`, built once: one CUDA kernel launch on CUDA
+tensors, its plain PyTorch version on CPU tensors.
 
 Per-step block weights (the Navier-Stokes velocity block's convected
 Jacobian) come from `BlockLatticeWeightMap`, which maps a blocked
@@ -26,8 +26,9 @@ BlockLatticeOperator, BlockLatticeWeightMap and the operators' builders).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sps
@@ -133,15 +134,22 @@ def _unique_offsets(d: np.ndarray):
     return offs, o_idx
 
 
-def apply_stencil(
-    W: torch.Tensor, offsets: Sequence[Tuple[int, ...]], pad: int, u: torch.Tensor
-) -> torch.Tensor:
-    """y[p] = sum_k W[k, p] * u[p + offsets[k]], zero outside the lattice,
-    through the fused stencil kernel's wrapper (CUDA kernel on CUDA
-    tensors, plain version on CPU tensors)."""
-    if u.dim() not in (2, 3):
-        raise ValueError(f"expected a 2-D or 3-D lattice field, got {tuple(u.shape)}")
-    return stencil_kernel.stencil_apply(F.pad(u, (pad,) * (2 * u.dim())), W, offsets, pad)
+# the widest stencil the lattice operators take: wider offsets come from
+# periodic identifications, and the *_operator_from_local functions
+# refuse such operators
+MAX_PAD = 8
+
+
+class _Planned:
+    """The stencil kernel's plan of an operator or weight map (its shape,
+    offsets, pad and, for a block stencil, ncomp), built once, at the
+    first apply: an operator refused for its pad never builds one."""
+
+    ncomp: Optional[int] = None
+
+    @functools.cached_property
+    def plan(self) -> stencil_kernel.StencilPlan:
+        return stencil_kernel.StencilPlan(self.shape, self.offsets, self.pad, self.ncomp)
 
 
 def _site_offsets(lr: np.ndarray, lc: np.ndarray, shape):
@@ -160,7 +168,7 @@ def _site_offsets(lr: np.ndarray, lc: np.ndarray, shape):
     return _unique_offsets(unflatten(lc) - unflatten(lr))
 
 
-class LatticeOperator:
+class LatticeOperator(_Planned):
     """Stencil form of a lattice-structured sparse matrix."""
 
     def __init__(
@@ -223,8 +231,9 @@ class LatticeOperator:
         return self.apply_grid_w(self.W, u)
 
     def apply_grid_w(self, W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """Stencil apply with explicit weights (e.g. W_f64)."""
-        return apply_stencil(W, self.offsets, self.pad, u)
+        """Stencil apply with explicit weights (e.g. W_f64), zero outside
+        the lattice."""
+        return self.plan(W, u)
 
     def __call__(self, u_flat: torch.Tensor) -> torch.Tensor:
         """Apply on a flat dof vector (any dof ordering handled)."""
@@ -233,30 +242,7 @@ class LatticeOperator:
         return y[self.inv_j].to(u_flat.dtype)
 
 
-def block_planes(W: torch.Tensor):
-    """The (a, b) weight planes of a block stencil W (K, ny, nx, d, d) as
-    contiguous (K, ny, nx) tensors, planes[a][b] the (a <- b) coupling."""
-    d = W.shape[-1]
-    return [[W[..., a, b].contiguous() for b in range(d)] for a in range(d)]
-
-
-def apply_block_stencil(planes, offsets, pad: int, u: torch.Tensor) -> torch.Tensor:
-    """out[..., a] = sum_b stencil(planes[a][b], u[..., b]) on a (ny, nx, d)
-    array, zero outside the lattice: d * d scalar applies through the
-    stencil kernel's wrapper."""
-    d = len(planes)
-    comps = [u[..., b] for b in range(d)]
-    outs = []
-    for a in range(d):
-        acc = None
-        for b in range(d):
-            y = apply_stencil(planes[a][b], offsets, pad, comps[b])
-            acc = y if acc is None else acc + y
-        outs.append(acc)
-    return torch.stack(outs, dim=-1)
-
-
-class BlockLatticeOperator:
+class BlockLatticeOperator(_Planned):
     """Stencil form of a blocked-interleaved VECTOR lattice matrix.
 
     Dof (node, component a) sits at node*ncomp + a. The operator is a
@@ -334,9 +320,6 @@ class BlockLatticeOperator:
         self.inv_j = torch.as_tensor(lat_flat, device=self.device)
         self.grid_shape = shape + (d,)
         self.gmg = None
-        # the (a, b) planes of both weight sets, made contiguous once
-        self.planes = block_planes(self.W)
-        self.planes_f64 = block_planes(self.W_f64)
 
     @property
     def embedding(self) -> Lattice:
@@ -348,11 +331,9 @@ class BlockLatticeOperator:
         return self.apply_grid_w(self.W, u)
 
     def apply_grid_w(self, W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """Block stencil apply with the operator's own weights, W being
-        self.W or self.W_f64."""
-        assert W is self.W or W is self.W_f64
-        planes = self.planes_f64 if W is self.W_f64 else self.planes
-        return apply_block_stencil(planes, self.offsets, self.pad, u)
+        """Block stencil apply with explicit weights (K,) + shape + (d, d)
+        (e.g. W_f64), zero outside the lattice."""
+        return self.plan(W, u)
 
     def __call__(self, u_flat: torch.Tensor) -> torch.Tensor:
         u_lat = self.block_lattice.embed(u_flat.to(self.W.dtype), 0).reshape(self.grid_shape)
@@ -376,7 +357,7 @@ def tap_index(shape, offsets, pad: int) -> np.ndarray:
     return out
 
 
-class BlockLatticeWeightMap:
+class BlockLatticeWeightMap(_Planned):
     """Blocked local-matrix -> block-stencil-weight map for a fixed mesh.
 
     Per-step Newton Jacobians of VECTOR systems (the Navier-Stokes
@@ -422,22 +403,14 @@ class BlockLatticeWeightMap:
         ).reshape(-1)
         self._flat_np = flat
         self._n = len(self.offsets) * n_lat * d * d
-        self._taps_np = tap_index(shape, self.offsets, self.pad)
-        self._dev = {}
-
-    def _index(self, device):
-        """(gather-sum, taps) on `device`, made once."""
-        key = str(device)
-        if key not in self._dev:
-            self._dev[key] = (
-                GatherSum(self._flat_np, self._n, device),
-                torch.as_tensor(self._taps_np, device=device),
-            )
-        return self._dev[key]
+        self._sums = {}
 
     def weights(self, A_local: torch.Tensor) -> torch.Tensor:
         """(c, nl*d, nl*d) blocked batch -> (K,) + shape + (d, d)."""
-        W = self._index(A_local.device)[0](A_local)
+        key = str(A_local.device)
+        if key not in self._sums:
+            self._sums[key] = GatherSum(self._flat_np, self._n, A_local.device)
+        W = self._sums[key](A_local)
         return W.reshape((len(self.offsets),) + self.shape + (self.ncomp, self.ncomp))
 
     def weights_np(self, A_local_np: np.ndarray) -> np.ndarray:
@@ -451,14 +424,8 @@ class BlockLatticeWeightMap:
 
     def apply_grid(self, W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """u: shape + (d,) lattice array -> same shape, zero outside the
-        lattice: every tap gathered at once, then one contraction."""
-        taps = self._index(u.device)[1]
-        d, p = self.ncomp, self.pad
-        up = F.pad(u.movedim(-1, 0), (p,) * (2 * len(self.shape)))  # (d, padded...)
-        t = up.reshape(d, -1)[:, taps]  # (d, K, n)
-        K = len(self.offsets)
-        out = torch.einsum("knab,bkn->na", W.reshape(K, -1, d, d), t)
-        return out.reshape(u.shape)
+        lattice: the block stencil kernel with this step's weights W."""
+        return self.plan(W, u)
 
 
 def constrain_stencil_weights(
@@ -529,7 +496,7 @@ def lattice_operator_from_local(
     op = LatticeOperator(A, lat, device, dtype=dtype)
     # periodic identifications create wrap-around offsets (pad ~ n); the
     # stencil/GMG machinery assumes compact stencils
-    if op.pad > 8:
+    if op.pad > MAX_PAD:
         return None
     return op
 
@@ -556,6 +523,6 @@ def block_lattice_operator_from_local(
         (np.asarray(A_local).reshape(-1), (rows, cols)), shape=(ndof, ndof)
     ).tocsr()
     op = BlockLatticeOperator(A, lat, ncomp, device, dtype=dtype)
-    if op.pad > 8:  # wrap-around offsets (periodic meshes)
+    if op.pad > MAX_PAD:  # wrap-around offsets (periodic meshes)
         return None
     return op

@@ -2,6 +2,9 @@
 
     python3 scripts/torch_profile_solve.py [--root DIR] [--solves N] [case_id ...]
 
+A case id "<case>@<n>" is the dataset case at mesh resolution n
+(chip_smoke.py's helmholtz_3d_k1_trig@12).
+
 For each dataset case (default: the eleven dataset cases of chip_smoke.py's
 main paths, Poisson, Helmholtz and elasticity in 2-D, Poisson and Helmholtz
 in 3-D, Navier-Stokes): one OracleSolver(device="cuda") solve to
@@ -192,8 +195,12 @@ def main(argv) -> int:
     with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
         for line in fh:
             c = json.loads(line)
-            if c["id"] in ids:
-                configs[c["id"]] = c["oracle_config"]
+            for cid in ids:
+                name, _, res = cid.partition("@")
+                if c["id"] == name:
+                    configs[cid] = json.loads(line)["oracle_config"]  # its own copy
+                    if res:
+                        configs[cid]["mesh"] = dict(configs[cid]["mesh"], resolution=int(res))
     ok = True
     for cid in ids:
         pde = configs[cid]["pde"]["type"]

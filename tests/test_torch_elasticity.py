@@ -142,21 +142,24 @@ def test_block_lattice_operator_matches_reference(n, degree):
 @pytest.mark.parametrize("weights", ["W", "W_f64"])
 @pytest.mark.parametrize("n,degree", [(8, 1), (6, 2)])
 def test_block_operator_planes_are_its_weights(n, degree, weights):
-    """Each weight set's (a, b) planes, made contiguous at build, are its
-    W[..., a, b], and apply_grid_w with that set applies them (against
-    the numpy block apply of the same weights)."""
-    space, _, _, port, _ = _operators(n, degree)
+    """apply_grid_w with each weight set, one block apply on the
+    interleaved field (no per-plane copies of W), is the numpy block apply
+    of the same weights, and the block plain version with the same
+    parameters; the f32 set also matches the reference's apply."""
+    space, _, ref, port, _ = _operators(n, degree)
     W = getattr(port, weights)
-    planes = port.planes_f64 if weights == "W_f64" else port.planes
-    for a in range(2):
-        for b in range(2):
-            assert planes[a][b].is_contiguous() and planes[a][b].dtype == W.dtype
-            assert torch.equal(planes[a][b], W[..., a, b])
+    assert port.plan.w_shape == tuple(W.shape) and port.plan.u_shape == port.grid_shape
     u = np.random.default_rng(3).standard_normal(port.grid_shape)
-    y = port.apply_grid_w(W, torch.as_tensor(u, dtype=W.dtype)).numpy()
+    u_t = torch.as_tensor(u, dtype=W.dtype)
+    y = port.apply_grid_w(W, u_t)
+    assert y.dtype == W.dtype and tuple(y.shape) == port.grid_shape
+    assert torch.equal(y, stencil_kernel.block_stencil_plain(u_t, W, port.offsets, port.pad))
     y_np = gmg._apply_block_np(W.double().numpy(), port.offsets, u)
     tol = 1e-13 if weights == "W_f64" else 1e-5
-    np.testing.assert_allclose(y, y_np, rtol=tol, atol=tol * np.abs(y_np).max())
+    np.testing.assert_allclose(y.numpy(), y_np, rtol=tol, atol=tol * np.abs(y_np).max())
+    if weights == "W":
+        y_ref = np.asarray(ref.apply_grid_w(ref.W, jnp.asarray(u_t.numpy())))
+        assert np.abs(y.numpy() - y_ref).max() <= tol * np.abs(y_ref).max()
 
 
 def test_block_stencil_counts_kernel_launches_only_on_cuda():

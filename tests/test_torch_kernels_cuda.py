@@ -45,18 +45,22 @@ def _offsets(p):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n,p", [(121, 1), (241, 3)])
 def test_stencil_kernel_matches_plain(dev, n, p, dtype):
+    """P1 121^2 (poisson_basic) and P3 241^2: one launch on the unpadded
+    field, and the Pallas-signature wrapper on its padded copy."""
     offs = _offsets(p)
     assert len(offs) == {1: 7, 3: 37}[p]
     rng = np.random.default_rng(0)
     W = torch.as_tensor(rng.standard_normal((len(offs), n, n)), device=dev).to(dtype)
-    up = F.pad(torch.as_tensor(rng.standard_normal((n, n)), device=dev).to(dtype), (p,) * 4)
+    u = torch.as_tensor(rng.standard_normal((n, n)), device=dev).to(dtype)
+    plan = stencil_kernel.StencilPlan((n, n), offs, p)
     before = stencil_kernel.LAUNCHES
-    y = stencil_kernel.stencil_apply_2d(up, W, offs, p)
+    y = plan(W, u)
     assert stencil_kernel.LAUNCHES == before + 1
-    y_plain = stencil_kernel.stencil_apply_torch(up, W, offs, p)
+    y_plain = stencil_kernel.stencil_plain(u, W, offs, p)
     assert y.dtype == dtype and y.device == W.device
     err = float((y - y_plain).abs().max() / y_plain.abs().max())
     assert err <= TOL[dtype], err
+    assert torch.equal(stencil_kernel.stencil_apply_2d(F.pad(u, (p,) * 4), W, offs, p), y)
 
 
 def _case_gmg(dev, case_id, resolution=None):
@@ -181,8 +185,7 @@ def _lattice_rhs(lat, mask, seed, dev):
 
 def _true_residual(lat, W32c, r_lat, z):
     """||r - A z|| / ||r|| with A the stencil W32c on a 2-D or 3-D lattice."""
-    up = F.pad(z.reshape(lat.shape), (lat.pad,) * (2 * len(lat.shape)))
-    Az = stencil_kernel.stencil_apply_torch(up, W32c, lat.offsets, lat.pad).reshape(-1)
+    Az = stencil_kernel.stencil_plain(z.reshape(lat.shape), W32c, lat.offsets, lat.pad).reshape(-1)
     return float(torch.linalg.norm(r_lat - Az) / torch.linalg.norm(r_lat))
 
 
@@ -415,7 +418,10 @@ def test_elasticity_oracle_runs_the_kernels(dev):
     res = OracleSolver(device=dev).solve(cfg)
     assert res.solver_info["inner"] == "fused-block-cg-cuda"
     assert res.solver_info["iterations"] == outer * 25
-    assert stencil_kernel.LAUNCHES > 0 and gmg_fused.LAUNCHES_BLOCK > 0
+    # one launch per f64 block apply: the lifted rhs, the first residual
+    # and one a round, in the cold and the warm run (4 a block apply before
+    # the block kernel)
+    assert stencil_kernel.LAUNCHES == 2 * (outer + 2) and gmg_fused.LAUNCHES_BLOCK > 0
     assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
 
 
@@ -472,8 +478,10 @@ RESID_FLOOR = 1e-5  # true-operator residual of a float32 Arnoldi cycle
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_stencil_kernel_3d_matches_plain(dev, dtype):
-    """The kernel on a 33^3 lattice with the 65 taps of a P2 stencil."""
+@pytest.mark.parametrize("n", [33, 25])
+def test_stencil_kernel_3d_matches_plain(dev, n, dtype):
+    """The kernel on a 33^3 and a 25^3 lattice with the 65 taps of a P2
+    stencil."""
     from pdebench_tpu_torch.fem.assemble import cell_batch, local_stiffness
     from pdebench_tpu_torch.fem.mesh import unit_cube_mesh
     from pdebench_tpu_torch.fem.spaces import FunctionSpace
@@ -486,14 +494,99 @@ def test_stencil_kernel_3d_matches_plain(dev, dtype):
     offs, p = op.offsets, op.pad
     assert len(offs) == 65
     rng = np.random.default_rng(1)
-    W = torch.as_tensor(rng.standard_normal((65, 33, 33, 33)), device=dev).to(dtype)
-    up = F.pad(torch.as_tensor(rng.standard_normal((33, 33, 33)), device=dev).to(dtype), (p,) * 6)
+    W = torch.as_tensor(rng.standard_normal((65, n, n, n)), device=dev).to(dtype)
+    u = torch.as_tensor(rng.standard_normal((n, n, n)), device=dev).to(dtype)
+    plan = stencil_kernel.StencilPlan((n, n, n), offs, p)
     before = stencil_kernel.LAUNCHES
-    y = stencil_kernel.stencil_apply(up, W, offs, p)
+    y = plan(W, u)
     assert stencil_kernel.LAUNCHES == before + 1
-    y_plain = stencil_kernel.stencil_apply_torch(up, W, offs, p)
+    y_plain = stencil_kernel.stencil_plain(u, W, offs, p)
     err = float((y - y_plain).abs().max() / y_plain.abs().max())
     assert err <= TOL[dtype], err
+
+
+def _p2_block_offsets():
+    """The 19 (dy, dx) taps of a P2 vector lattice (elasticity, the
+    Navier-Stokes velocity block)."""
+    from pdebench_tpu_torch.fem.mesh import unit_square_mesh
+    from pdebench_tpu_torch.fem.spaces import FunctionSpace
+    from pdebench_tpu_torch.solvers.stencil import BlockLatticeWeightMap, detect_lattice
+
+    V = FunctionSpace(unit_square_mesh(4), 2)
+    wm = BlockLatticeWeightMap(detect_lattice(V.dof_coords), V.dofmap_scalar, 2)
+    assert len(wm.offsets) == 19 and wm.pad == 2
+    return wm.offsets, wm.pad
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [121, 161, 97])
+def test_block_stencil_kernel_matches_plain(dev, n, dtype):
+    """The d = 2 block kernel at nu010's and nu030's level-0 shapes (121^2,
+    161^2) and navier_stokes_basic's velocity lattice (97^2), on random
+    weights that are not symmetric per site: one launch per apply, within
+    TOL of the block plain version; a CPU tensor launches nothing."""
+    offs, p = _p2_block_offsets()
+    rng = np.random.default_rng(2)
+    W = torch.as_tensor(rng.standard_normal((19, n, n, 2, 2)), device=dev).to(dtype)
+    u = torch.as_tensor(rng.standard_normal((n, n, 2)), device=dev).to(dtype)
+    plan = stencil_kernel.StencilPlan((n, n), offs, p, ncomp=2)
+    before = stencil_kernel.LAUNCHES
+    y = plan(W, u)
+    assert stencil_kernel.LAUNCHES == before + 1
+    y_plain = stencil_kernel.block_stencil_plain(u, W, offs, p)
+    assert y.dtype == dtype and y.shape == u.shape
+    err = float((y - y_plain).abs().max() / y_plain.abs().max())
+    assert err <= TOL[dtype], err
+    y_cpu = plan(W.cpu(), u.cpu())
+    assert stencil_kernel.LAUNCHES == before + 1
+    assert float((y_cpu - y.cpu()).abs().max() / y_cpu.abs().max()) <= TOL[dtype]
+
+
+def test_stencil_kernel_refuses_what_it_does_not_take(dev):
+    """A d = 3 block stencil raises on CUDA tensors before any launch (its
+    plain version takes it)."""
+    plan = stencil_kernel.StencilPlan((5, 6), [(0, 0)], 0, ncomp=3)
+    W, u = torch.zeros((1, 5, 6, 3, 3), device=dev), torch.zeros((5, 6, 3), device=dev)
+    before = stencil_kernel.LAUNCHES
+    with pytest.raises(ValueError):
+        plan(W, u)
+    assert stencil_kernel.LAUNCHES == before
+    plan(W.cpu(), u.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stencil_kernel_3d_beyond_the_tile_matches_plain(dev, dtype):
+    """A 3-D stencil reaching 3 sites, beyond the tiled kernel's reach, on
+    a 33^3 lattice: the flat kernel takes it, one launch, within TOL of
+    the plain version."""
+    offs = [(0, 0, 0)] + [
+        tuple(v if a == i else 0 for a in range(3)) for i in range(3) for v in (-3, -2, -1, 1, 2, 3)
+    ]
+    n, K = 33, len(offs)
+    rng = np.random.default_rng(4)
+    W = torch.as_tensor(rng.standard_normal((K, n, n, n)), device=dev).to(dtype)
+    u = torch.as_tensor(rng.standard_normal((n, n, n)), device=dev).to(dtype)
+    plan = stencil_kernel.StencilPlan((n, n, n), offs, 3)
+    before = stencil_kernel.LAUNCHES
+    y = plan(W, u)
+    assert stencil_kernel.LAUNCHES == before + 1
+    y_plain = stencil_kernel.stencil_plain(u, W, offs, 3)
+    err = float((y - y_plain).abs().max() / y_plain.abs().max())
+    assert err <= TOL[dtype], err
+
+
+def test_block_operator_apply_is_one_launch(dev):
+    """An elasticity operator's f64 and f32 applies: one launch each, no
+    per-plane weight copies on the operator."""
+    lat, _ = _elasticity(dev, "linear_elasticity_nu010")
+    u = torch.as_tensor(np.random.default_rng(3).standard_normal(lat.grid_shape), device=dev)
+    for W in (lat.W_f64, lat.W):
+        before = stencil_kernel.LAUNCHES
+        y = lat.apply_grid_w(W, u.to(W.dtype))
+        assert stencil_kernel.LAUNCHES == before + 1
+        y_plain = stencil_kernel.block_stencil_plain(u.to(W.dtype), W, lat.offsets, lat.pad)
+        assert float((y - y_plain).abs().max() / y_plain.abs().max()) <= TOL[W.dtype]
+    assert not hasattr(lat, "planes") and not hasattr(lat.gmg.levels[0], "planes")
 POISSON_3D = {
     # case id -> (recorded baseline_error, outer rounds of 25 fused PCG steps)
     "poisson_3d_kappa_expr": (3.7355568479364103e-4, 2),

@@ -143,8 +143,8 @@ def _close(got, want, tol):
 def _residual(W, offsets, r_lat, z, shape):
     """||r - W z|| / ||r|| of a 3-D stencil with the lattice's taps."""
     pad = max(abs(o) for off in offsets for o in off)
-    up = torch.nn.functional.pad(torch.as_tensor(np.asarray(z)).reshape(shape), (pad,) * 6)
-    Az = stencil_kernel.stencil_apply_torch(up, torch.as_tensor(np.asarray(W)), offsets, pad).reshape(-1)
+    u = torch.as_tensor(np.asarray(z)).reshape(shape)
+    Az = stencil_kernel.stencil_plain(u, torch.as_tensor(np.asarray(W)), offsets, pad).reshape(-1)
     r = torch.as_tensor(r_lat)
     return float(torch.linalg.norm(r - Az) / torch.linalg.norm(r))
 
@@ -171,29 +171,34 @@ def test_lattice_operator_3d_equals_reference(degree):
 
 
 def test_stencil_apply_3d_wrapper():
-    """The stencil kernel's wrapper on a 3-D lattice: CPU tensors take the
+    """The stencil kernel's plan on a 3-D lattice: CPU tensors take the
     plain version (no launch counted), which is the reference's XLA apply;
     malformed arguments raise before any launch."""
     V, cb = _space(3, 2)
     A = np.asarray(local_stiffness(cb) + K2 * local_mass(cb))
     ref = ref_stencil.lattice_operator_from_local(A, V.dofmap_scalar, V.ndof, V.dof_coords, dtype=jnp.float64)
     W, offs, pad = torch.as_tensor(np.asarray(ref.W_f64)), [tuple(o) for o in ref.offsets], ref.pad
-    u = np.random.default_rng(4).standard_normal(ref.shape)
-    up = torch.nn.functional.pad(torch.as_tensor(u), (pad,) * 6)
+    u = torch.as_tensor(np.random.default_rng(4).standard_normal(ref.shape))
+    plan = stencil_kernel.StencilPlan(ref.shape, offs, pad)
     before = stencil_kernel.LAUNCHES
-    y = stencil_kernel.stencil_apply(up, W, offs, pad)
+    y = plan(W, u)
     assert stencil_kernel.LAUNCHES == before
-    np.testing.assert_allclose(y.numpy(), np.asarray(ref.apply_grid_w(ref.W_f64, jnp.asarray(u))), rtol=1e-13, atol=1e-13)
-    bad = {
-        "u_shape": (up[:-1], W, offs, pad),
-        "tap_beyond_pad": (up, W, offs[:-1] + [(pad + 1, 0, 0)], pad),
-        "tap_count": (up, W, offs[:-1], pad),
-        "two_d_taps": (up, W, [o[1:] for o in offs], pad),
-        "dtype": (up.float(), W, offs, pad),
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref.apply_grid_w(ref.W_f64, jnp.asarray(u.numpy()))), rtol=1e-13, atol=1e-13)
+    bad_plans = {
+        "tap_beyond_pad": (ref.shape, offs[:-1] + [(pad + 1, 0, 0)], pad),
+        "two_d_taps": (ref.shape, [o[1:] for o in offs], pad),
     }
-    for args in bad.values():
+    for args in bad_plans.values():
         with pytest.raises(ValueError):
-            stencil_kernel.stencil_apply(*args)
+            stencil_kernel.StencilPlan(*args)
+    bad_calls = {
+        "u_shape": (W, u[:-1]),
+        "tap_count": (W[:-1], u),
+        "dtype": (W, u.float()),
+    }
+    for args in bad_calls.values():
+        with pytest.raises(ValueError):
+            plan(*args)
 
 
 @pytest.mark.parametrize("degree", [1, 2])

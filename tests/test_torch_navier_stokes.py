@@ -10,6 +10,9 @@ port's host-LU Newton against the reference's CPU default: grid within
 1e-7, baseline_error within 1e-8. Newton and Krylov counts may differ (an
 inexact Newton sums in another order); the grid and the error may not."""
 
+import json
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,7 +38,7 @@ from pdebench_tpu_torch.fem.assemble import (
 from pdebench_tpu_torch.fem.mesh import unit_square_mesh
 from pdebench_tpu_torch.fem.refelem import element_tables, tabulate
 from pdebench_tpu_torch.fem.spaces import FunctionSpace
-from pdebench_tpu_torch.oracle import OracleSolver, mixed
+from pdebench_tpu_torch.oracle import OracleSolver, base, mixed
 from pdebench_tpu_torch.oracle import navier_stokes as ns
 from pdebench_tpu_torch.solvers.saddle_stencil import build_saddle_stencil
 from pdebench_tpu_torch.solvers.stencil import BlockLatticeWeightMap, detect_lattice
@@ -223,3 +226,43 @@ def test_device_linear_failure_falls_through_on_cpu(monkeypatch, ref_host_lu):
     assert info["inner"] == "newton-host-lu"
     assert "did not converge" in info["iterative_failed"] and "Newton step 0" in info["iterative_failed"]
     assert_same_solution(res, ref_host_lu)
+
+
+# the Navier-Stokes dataset cases whose device linear solves raised on the
+# H100 before the route rule (scripts/torch_sweep_cases.py --pde
+# navier_stokes; PERF.md §6)
+RAISED_ON_THE_CARD = {
+    "navier_stokes_high_re", "navier_stokes_high_frequency_flow",
+    "navier_stokes_low_nu_small_amplitude", "navier_stokes_exponential_stream",
+    "navier_stokes_multiscale_stream", "navier_stokes_shear_layer_stream",
+    "navier_stokes_quadrilateral_multiscale", "navier_stokes_two_vortices_gaussian_stream",
+    "navier_stokes_tanh_x_shear_stream", "navier_stokes_sin3x2y_stream",
+}
+
+
+def test_route_rule_sends_the_stalling_lattices_to_the_host_lu():
+    """host_lu_route over the 28 Navier-Stokes dataset configurations, no
+    solve: every case that raised on the card takes the host LU, the two
+    chip_smoke cases keep the device Newton; the route block decides it
+    before any saddle stencil is built."""
+    path = Path(__file__).resolve().parent.parent / "data" / "benchmark_v2.jsonl"
+    cases = [json.loads(line) for line in path.read_text().splitlines()]
+    cfgs = {c["id"]: c["oracle_config"] for c in cases
+            if c["oracle_config"]["pde"]["type"] == "navier_stokes"}
+    assert len(cfgs) == 28 and RAISED_ON_THE_CARD <= set(cfgs)
+    def velocity_space(cfg):
+        mesh = base.build_mesh(cfg["domain"], cfg.get("mesh", {}))
+        return FunctionSpace(mesh, int(cfg.get("fem", {}).get("degree_u", 2)), ncomp=mesh.dim)
+
+    host = {cid for cid, cfg in cfgs.items()
+            if ns.host_lu_route(velocity_space(cfg), float(cfg["pde"]["pde_params"]["nu"]))}
+    assert RAISED_ON_THE_CARD <= host
+    assert not {"navier_stokes_basic", "navier_stokes_low_re"} & host
+    # the two passing cases the rule also moves (velocity side 169 and 177,
+    # nu 0.12 and 0.08); polynomial_stream_higher_degree (side 145, nu
+    # 0.22) keeps the device Newton
+    assert host - RAISED_ON_THE_CARD == {
+        "navier_stokes_localized_vortex_gaussian", "navier_stokes_boundary_layer_stream",
+    }
+    prob = ns.NavierStokesProblem(cfgs["navier_stokes_high_re"], "cpu")
+    assert prob.route == ns.ROUTE_HOST_LU and prob.sst is None and prob.spec is None

@@ -1,6 +1,7 @@
-"""Lattice stencil operators and the stencil kernel's plain version against
-the JAX reference (its XLA stencil apply and the Pallas kernel in
-interpret mode). The CUDA kernel itself is held against the plain version
+"""Lattice stencil operators and the stencil kernel's plain versions
+(scalar and block, on unpadded fields) against the JAX reference (its XLA
+stencil applies and the Pallas kernel in interpret mode), and the kernel
+plan's checks. The CUDA kernel itself is held against the plain versions
 on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
 import jax.numpy as jnp
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from pdebench_tpu.fem import assemble as ref_assemble
-from pdebench_tpu.fem.mesh import unit_square_mesh
+from pdebench_tpu.fem.mesh import unit_cube_mesh, unit_square_mesh
 from pdebench_tpu.fem.spaces import FunctionSpace
 from pdebench_tpu.solvers import stencil as ref_stencil
 from pdebench_tpu.solvers.stencil_pallas import stencil_apply_2d as pallas_apply
@@ -79,6 +80,9 @@ def test_plain_stencil_matches_pallas_interpret(shape, tile):
     assert stencil_kernel.LAUNCHES == before  # CPU tensors: plain version
     assert y.dtype == torch.float32 and tuple(y.shape) == shape
     np.testing.assert_allclose(y.numpy(), y_ref, rtol=1e-5, atol=1e-5)
+    # the plain version on the unpadded field, zero outside the lattice
+    y = stencil_kernel.stencil_plain(torch.as_tensor(u), torch.as_tensor(W), PALLAS_OFFS, pad)
+    np.testing.assert_allclose(y.numpy(), y_ref, rtol=1e-5, atol=1e-5)
 
 
 def test_plain_stencil_f64_matches_reference_apply():
@@ -100,22 +104,76 @@ def test_plain_stencil_f64_matches_reference_apply():
 
 @pytest.mark.parametrize(
     "bad",
-    ["u_shape", "tap_beyond_pad", "tap_count", "dtype_mismatch"],
+    ["u_shape", "tap_beyond_pad", "tap_count", "dtype_mismatch", "u_pad_shape", "two_d_taps",
+     "too_many_taps", "pad_beyond_a_byte", "not_float", "block_w_shape"],
 )
 def test_stencil_wrapper_rejects_bad_arguments(bad):
-    W = torch.zeros((2, 5, 6))
-    up = torch.zeros((7, 8))
+    """The plan's constructor rejects bad offsets, a call bad shapes and
+    types, the Pallas-signature wrapper a u_pad that does not fit W."""
+    shape, pad, ncomp, err = (5, 6), 1, None, ValueError
+    W, u = torch.zeros((2,) + shape), torch.zeros(shape)
     offs = [(0, 0), (1, -1)]
     if bad == "u_shape":
-        up = torch.zeros((7, 9))
+        u = torch.zeros((5, 7))
     elif bad == "tap_beyond_pad":
         offs = [(0, 0), (2, 0)]
     elif bad == "tap_count":
         offs = [(0, 0)]
-    else:
-        up = up.double()
-    with pytest.raises(ValueError):
-        stencil_kernel.stencil_apply_2d(up, W, offs, 1)
+    elif bad == "dtype_mismatch":
+        u = u.double()
+    elif bad == "two_d_taps":
+        shape = (3,) + shape
+    elif bad == "too_many_taps":
+        offs = [(0, 0)] * (stencil_kernel.MAX_TAPS + 1)
+    elif bad == "pad_beyond_a_byte":
+        pad = 128
+    elif bad == "not_float":
+        W, u, err = W.int(), u.int(), TypeError
+    elif bad == "block_w_shape":
+        ncomp, u = 2, torch.zeros(shape + (2,))
+    with pytest.raises(err):
+        if bad == "u_pad_shape":
+            stencil_kernel.stencil_apply_2d(torch.zeros((7, 9)), W, offs, 1)
+        else:
+            stencil_kernel.StencilPlan(shape, offs, pad, ncomp)(W, u)
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.float64, 1e-13), (jnp.float32, 1e-5)])
+def test_plain_stencil_3d_matches_reference_operator(dtype, tol):
+    """The scalar plain version on a 3-D lattice (unit_cube P2, 65 taps,
+    every site within reach of an edge) against the reference's
+    LatticeOperator.apply_grid_w."""
+    mesh = unit_cube_mesh(2)
+    V = FunctionSpace(mesh, 2)
+    A = np.asarray(ref_assemble.local_stiffness(ref_assemble.cell_batch(mesh, 2)))
+    ref = ref_stencil.lattice_operator_from_local(A, V.dofmap_scalar, V.ndof, V.dof_coords, dtype=dtype)
+    W = np.asarray(ref.W_f64 if dtype == jnp.float64 else ref.W)
+    u = np.random.default_rng(5).standard_normal(ref.shape).astype(W.dtype)
+    assert len(ref.offsets) == 65 and ref.shape == (5, 5, 5)
+    y = stencil_kernel.stencil_plain(torch.as_tensor(u), torch.as_tensor(W), ref.offsets, ref.pad).numpy()
+    y_ref = np.asarray(ref.apply_grid_w(jnp.asarray(W), jnp.asarray(u)))
+    assert np.abs(y - y_ref).max() <= tol * np.abs(y_ref).max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-13), (np.float32, 1e-5)])
+def test_block_plain_matches_reference_weight_map(dtype, tol):
+    """The block plain version (the Navier-Stokes velocity block's apply)
+    against the reference's BlockLatticeWeightMap.apply_grid, on random
+    2 x 2 weights whose taps also reach outside the lattice."""
+    _, V = _local(4, 2)
+    wm_r = ref_stencil.BlockLatticeWeightMap(ref_stencil.detect_lattice(V.dof_coords), V.dofmap_scalar, 2)
+    wm = stencil.BlockLatticeWeightMap(stencil.detect_lattice(V.dof_coords), V.dofmap_scalar, 2)
+    assert wm.offsets == wm_r.offsets and wm.pad == wm_r.pad
+    rng = np.random.default_rng(6)
+    W = rng.standard_normal((len(wm.offsets),) + wm.shape + (2, 2)).astype(dtype)
+    u = rng.standard_normal(wm.shape + (2,)).astype(dtype)
+    before = stencil_kernel.LAUNCHES
+    y = wm.apply_grid(torch.as_tensor(W), torch.as_tensor(u))
+    assert stencil_kernel.LAUNCHES == before  # CPU tensors: the plain version
+    assert torch.equal(y, stencil_kernel.block_stencil_plain(torch.as_tensor(u), torch.as_tensor(W), wm.offsets, wm.pad))
+    y_ref = np.asarray(wm_r.apply_grid(jnp.asarray(W), jnp.asarray(u)))
+    assert y.dtype == torch.from_numpy(W).dtype
+    assert np.abs(y.numpy() - y_ref).max() <= tol * np.abs(y_ref).max()
 
 
 def test_constrain_stencil_weights_matches_reference():
