@@ -35,6 +35,18 @@ recorded values:
               rebuilt from every Newton step's convected Jacobian), the
               saddle apply's velocity block on the stencil kernel's block
               form
+  Heat        `heat_large_kappa_fast_diffusion` (P1 121^2, 20 steps) and
+              `heat_3d_basic_decay` (P2 29^3, 20 steps): the fused inner
+              CG at 12 PCG steps a round on the hierarchy of A = M + dt K,
+              the stencil kernel (the f64 mass apply each step, the f64
+              outer residual); `heat_basic` (P1 101^2, padded: the PyTorch
+              V-cycle, the stencil kernel in every level)
+  Biharmonic  `biharmonic_polynomial_zero_bc` (121^2: the fused inner CG,
+              two solves a case) and `biharmonic_basic_sin` (141^2, padded)
+  Convection- `convdiff_high_pe` (161^2, SUPG, steady) and
+  diffusion   `convdiff_parabolic_basic_manufactured` (91^2, 5 steps): GMRES
+              with the PyTorch V-cycle of the operator's own hierarchy, the
+              stencil kernel in it and in the f64 residual and mass apply
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -110,6 +122,24 @@ LATTICE_3D = {
 NAVIER_STOKES = {
     "navier_stokes_low_re": (3.041429902434237e-06, 1e-6),
     "navier_stokes_basic": (3.0425996199305986e-06, 1e-6),
+}
+# Heat, biharmonic and convection-diffusion: case id -> (recorded
+# baseline_error, relative tolerance, inner on the card). Their outer
+# rounds (per step in a step loop) are printed and must be the same on
+# every solve of a case: the load vectors and the mass apply sum in a
+# fixed order
+HEAT_2D = {
+    "heat_large_kappa_fast_diffusion": (4.25500140632074e-4, 1e-6, "fused-cg-cuda"),
+    "heat_basic": (1.3235693420538648e-4, 1e-6, "stencil-cg"),
+}
+HEAT_3D = {"heat_3d_basic_decay": (3.6806817825953483e-4, 1e-6, "fused-cg-cuda")}
+BIHARMONIC = {
+    "biharmonic_polynomial_zero_bc": (2.4851356778642905e-4, 1e-6, "fused-cg-cuda"),
+    "biharmonic_basic_sin": (2.6046594462895913e-4, 1e-6, "stencil-cg"),
+}
+CONVDIFF = {
+    "convdiff_high_pe": (5.438225968157223e-5, 1e-6, "gmres+vcycle"),
+    "convdiff_parabolic_basic_manufactured": (7.050554387484011e-4, 1e-6, "gmres+vcycle"),
 }
 SOLVES = 3  # whole-case solves per case on each main path
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
@@ -365,6 +395,28 @@ def elasticity_operator(config, device, rough=False):
     return lat, mask
 
 
+def heat_operator(config, device):
+    """A heat case's step operators as its oracle builds them: the f32
+    lattice of A = M + dt K with its GMG hierarchy, the lattice mask, and
+    its mass weight map with the f64 mass weights, as a lattice operator
+    for stencil_line."""
+    from types import SimpleNamespace
+
+    from pdebench_tpu_torch.oracle import base, heat, scalar
+    from pdebench_tpu_torch.solvers.stencil import lattice_weight_map
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, pde["manufactured_solution"]["u"])
+    ctx = scalar.setup_scalar(config, device)
+    A, M = heat.step_matrices(ctx, pde, base.time_params(pde)[2])
+    lat, _, _, _, _ = heat.step_operators(ctx, A, M, "cg", heat.INNER_ITERS)
+    wm = lattice_weight_map(lat.lattice, ctx.space.dofmap_scalar)
+    mass = SimpleNamespace(shape=wm.shape, offsets=wm.offsets, pad=wm.pad, plan=wm.plan,
+                           apply_grid_w=wm.apply_grid)
+    W64 = torch.as_tensor(wm.weights_np(M), device=device)
+    return lat, ctx.mask.cpu().numpy(), (mass, W64)
+
+
 def lattice_rhs(lat, mask, rng, device):
     """A random dof residual, zero on constrained dofs, in the lattice's
     flat layout (site-major, component-minor for block lattices)."""
@@ -508,10 +560,11 @@ def ns_velocity_block(prob, rng):
     return lat, (W64, W64.float())
 
 
-def check_fused_cg(ops, rng, dev, report, report_as):
+def check_fused_cg(ops, rng, dev, report, report_as, iters=25, phase="3"):
     """One PCG step (the V-cycle's arithmetic, tightly), then the main
-    path's 25 on each Poisson case's own hierarchy; the readings of the
-    case report_as names go into the kernels line under that name."""
+    path's `iters` (25 for Poisson and biharmonic, 12 a round of a heat
+    step) on each case's own hierarchy; the readings of the case report_as
+    names go into the kernels line under that name."""
     from pdebench_tpu_torch.solvers import gmg_fused
 
     for cid, (lat, mask) in ops.items():
@@ -520,12 +573,12 @@ def check_fused_cg(ops, rng, dev, report, report_as):
         zk, zp = step(r_lat), step.plain(r_lat)
         torch.cuda.synchronize()
         diff, scale, ok = allclose_scale(zk, zp, TOL_VCYCLE)
-        say("3", f"fused_inner_cg {cid} 1 PCG step: max abs diff {diff:.3e} "
-                 f"(scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
+        say(phase, f"fused_inner_cg {cid} 1 PCG step: max abs diff {diff:.3e} "
+                   f"(scale {scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
         if not ok:
             raise AssertionError(f"fused V-cycle step disagrees on {cid}: {diff}")
 
-        fused = gmg_fused.build_fused_inner_cg(lat.gmg, 25, dev)
+        fused = gmg_fused.build_fused_inner_cg(lat.gmg, iters, dev)
         zk = fused(r_lat)  # CUDA tensor: the kernel
         zp = fused.plain(r_lat)
         torch.cuda.synchronize()
@@ -536,11 +589,11 @@ def check_fused_cg(ops, rng, dev, report, report_as):
         ms = median_ms(lambda: fused(r_lat), calls=5, samples=3)
         plain_ms = median_ms(lambda: fused.plain(r_lat), calls=1, samples=3)
         b = cg_bound(fused)
-        say("3", f"fused_inner_cg {cid} {len(fused.W)} levels {[tuple(W.shape) for W in fused.W]}, "
-                 f"{cluster_line(fused)}: "
-                 f"max abs diff {diff:.3e} (scale {scale:.3e}, rtol=atol/scale={TOL_CG:g}) "
-                 f"residual {rel:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                 f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
+        say(phase, f"fused_inner_cg {cid} {iters} PCG steps, {len(fused.W)} levels "
+                   f"{[tuple(W.shape) for W in fused.W]}, {cluster_line(fused)}: "
+                   f"max abs diff {diff:.3e} (scale {scale:.3e}, rtol=atol/scale={TOL_CG:g}) "
+                   f"residual {rel:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                   f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
         if not ok or not rel < 1e-3:
             raise AssertionError(f"fused inner CG disagrees on {cid}: {diff}, residual {rel}")
         if cid in report_as:
@@ -886,7 +939,59 @@ def drive(solver, cases, want, phase):
                    f"({min(total):.4f}-{max(total):.4f})")
 
 
+def drive_cases(solver, cases, want, phase):
+    """SOLVES whole-case solves per case of the heat, biharmonic and
+    convection-diffusion paths, setup caches cleared before each: the
+    error within its tolerance of the record, a finite grid of the case's
+    shape, the inner asserted, no unconverged solve, kernel #1 launched in
+    every solve and #2 in every solve of a fused-cg-cuda case, and the
+    same outer rounds (per step in a step loop) on every solve."""
+    from pdebench_tpu_torch.oracle import base
+    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+
+    for cid, (ref_err, tol, inner_want) in want.items():
+        warm, total, rounds_seen = [], [], set()
+        for _ in range(SOLVES):
+            base.clear_setup_caches()
+            before = stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES
+            res = solver.solve(cases[cid])
+            n1, n2 = stencil_kernel.LAUNCHES - before[0], gmg_fused.LAUNCHES - before[1]
+            info = res.solver_info
+            grid = np.asarray(res.reference)
+            rel = abs(res.baseline_error - ref_err) / ref_err
+            rounds = info.get("outer_rounds", info.get("iterations"))
+            say(phase, f"{cid}: baseline_error {res.baseline_error!r} (recorded "
+                       f"{ref_err!r}, rel {rel:.2e}, tol {tol:g}); baseline_time "
+                       f"{res.baseline_time:.4f} s, t_setup {info['t_setup']:.4f} s, "
+                       f"warm solve {info['t_warm']:.4f} s, cold {info['t_cold']:.4f} s; "
+                       f"inner {info.get('inner')}, "
+                       + (f"{info['num_steps']} steps, outer rounds per step {rounds}"
+                          if "outer_rounds" in info else f"iterations {rounds}")
+                       + f", residual {info.get('residual')}; launches in this solve (cold "
+                       f"and warm runs): #1 {n1}, #2 {n2}")
+            g = cases[cid]["output"]["grid"]
+            shape = tuple(g[k] for k in ("nz", "ny", "nx") if k in g)
+            if grid.shape != shape or not np.isfinite(grid).all():
+                raise AssertionError(f"{cid}: bad grid {grid.shape}, expected {shape}")
+            if not rel <= tol:
+                raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
+            if info.get("inner") != inner_want or "iterative_failed" in info:
+                raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
+            if n1 < 1 or (inner_want == "fused-cg-cuda" and n2 < 1):
+                raise AssertionError(f"{cid}: kernel launches #1 {n1}, #2 {n2}")
+            rounds_seen.add(tuple(rounds) if isinstance(rounds, list) else rounds)
+            warm.append(info["t_warm"])
+            total.append(res.baseline_time)
+        if len(rounds_seen) != 1:
+            raise AssertionError(f"{cid}: the outer rounds moved between solves: {rounds_seen}")
+        say(phase, f"{cid} over {SOLVES} solves: warm solve median "
+                   f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
+                   f"baseline_time median {statistics.median(total):.4f} s "
+                   f"({min(total):.4f}-{max(total):.4f})")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     # (0) the card
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -919,7 +1024,8 @@ def main() -> int:
         say("1", f"{name}: " + " | ".join(usage))
 
     cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D)
-                       | set(NAVIER_STOKES))
+                       | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
+                       | set(CONVDIFF))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
@@ -966,6 +1072,19 @@ def main() -> int:
     # not depend on it
     torch.backends.cudnn.allow_tf32 = True
     check_dyn_block(NavierStokesProblem(cases["navier_stokes_basic"], dev), rng, dev, report)
+    # (3f) kernel #2 on the mass-dominated hierarchies of heat's A = M + dt
+    # K, one PCG step and the 12 of a heat round; kernel #1's f64 mass apply
+    heat_ops = {cid: heat_operator(cases[cid], dev)
+                for cid in ("heat_large_kappa_fast_diffusion", "heat_3d_basic_decay")}
+    for cid, (lat, mask, (mass, W64)) in heat_ops.items():
+        n, K = int(np.prod(mass.shape)), len(mass.offsets)
+        u = torch.as_tensor(rng.standard_normal(mass.shape), device=dev)
+        stencil_line("3f", f"stencil_apply_{len(mass.shape)}d", f"{cid} (mass, f64)", mass, W64,
+                     u, stencil_kernel.stencil_plain, TOL_F64, report, (K + 2) * n,
+                     _taps_flops(K, n))
+    check_fused_cg({cid: (lat, mask) for cid, (lat, mask, _) in heat_ops.items()}, rng, dev,
+                   report, {"heat_large_kappa_fast_diffusion": "gmg_fused_cg_heat",
+                            "heat_3d_basic_decay": "gmg_fused_cg_heat_3d"}, iters=12, phase="3f")
 
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
     # elasticity main path, (7) the 3-D main path, (8) the Navier-Stokes
@@ -989,13 +1108,22 @@ def main() -> int:
           "gmg_fused_richardson_3d": "gmg_fused_richardson", "gmg_fused_gmres_3d": "gmg_fused_gmres"}),
         ("8", NAVIER_STOKES, {"stencil_apply_block_2d": "stencil_apply",
                               "gmg_fused_dyn_block_vcycle": "gmg_fused_dyn_block"}),
+        # (9) heat in 2-D, (9b) in 3-D, (10) biharmonic, (11) convection-
+        # diffusion
+        ("9", HEAT_2D, {"stencil_apply_2d": "stencil_apply", "gmg_fused_cg_heat": "gmg_fused_cg"}),
+        ("9b", HEAT_3D, {"stencil_apply_3d": "stencil_apply",
+                         "gmg_fused_cg_heat_3d": "gmg_fused_cg"}),
+        ("10", BIHARMONIC, {"stencil_apply_2d": "stencil_apply", "gmg_fused_cg": "gmg_fused_cg"}),
+        ("11", CONVDIFF, {"stencil_apply_2d": "stencil_apply"}),
     )
+    drive_path = {"8": drive_ns, "9": drive_cases, "9b": drive_cases, "10": drive_cases,
+                  "11": drive_cases}
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
         gmg_fused.LAUNCHES_BLOCK = gmg_fused.LAUNCHES_BLOCK_RICHARDSON = 0
         gmg_fused.LAUNCHES_DYN_BLOCK = 0
-        (drive_ns if phase == "8" else drive)(solver, cases, want, phase)
+        drive_path.get(phase, drive)(solver, cases, want, phase)
         counts = {
             "stencil_apply": stencil_kernel.LAUNCHES,
             "gmg_fused_cg": gmg_fused.LAUNCHES,
@@ -1031,6 +1159,10 @@ def main() -> int:
         "gmg_fused_richardson_3d": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         "gmg_fused_gmres_3d": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
         "gmg_fused_dyn_block_vcycle": ("gmg_fused_dyn_block.cu", "pdebench_tpu/solvers/gmg_fused.py:934"),
+        # the same pallas_call at heat's 12 PCG steps a round, on the
+        # hierarchies of A = M + dt K (2-D P1 121^2, 3-D P2 29^3)
+        "gmg_fused_cg_heat": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        "gmg_fused_cg_heat_3d": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or
@@ -1040,6 +1172,7 @@ def main() -> int:
              replaces=rep, launches=launches[name], library_ms=None, **report[name])
         for name, (src, rep) in meta.items()
     ]
+    say("end", f"wall time {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,13 @@ fem/      meshes, reference elements, dof maps (numpy copies), symbolic
 solvers/  lattice stencil operators, stencil GMG, Krylov + mixed-
           precision refinement, dispatch, host LU; each CUDA kernel's
           wrapper sits beside its plain PyTorch version
-oracle/   OracleSolver front end and the Poisson oracle
+oracle/   OracleSolver front end and the ported oracles (Poisson,
+          Helmholtz, elasticity, Navier-Stokes, heat, biharmonic,
+          convection-diffusion)
 csrc/     CUDA sources, compiled with nvcc at first use (_build.py)
 
-Every entry point takes an explicit `device`; f64 for the outer solve and
+Every entry point runs on `device`, the card ("cuda") unless the caller
+asks for the CPU; f64 for the outer solve and
 f32 for the inner solve. A wrapper runs its plain PyTorch version only for
 a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
 """

@@ -11,8 +11,8 @@ the geometry and the constant-coefficient fast paths run in numpy while
 coefficients evaluated onto a device (fem/symbolic.py) keep the einsum
 on that device.
 
-Port of the scalar, elasticity and Taylor-Hood forms of
-pdebench_tpu/fem/assemble.py.
+Port of the scalar, convection-diffusion (advection, SUPG), elasticity
+and Taylor-Hood forms of pdebench_tpu/fem/assemble.py.
 """
 
 from __future__ import annotations
@@ -110,6 +110,15 @@ class CellBatch:
             t = builder()
             object.__setattr__(self, name, t)
         return t
+
+    def laplace_phys(self) -> np.ndarray:
+        """Physical basis Laplacians (n_cells, nq, nl), exact for affine
+        cell maps (simplices, axis-aligned rectangles): d2phi/dx_a dx_a =
+        invJ[a, k] invJ[a, l] d2phi/dxi_k dxi_l. Computed once and cached."""
+        return self._ref_tensor(
+            "_laplace_phys",
+            lambda: np.einsum("qikl,cqak,cqal->cqi", self.d2phi, self.invJ, self.invJ),
+        )
 
 
 def _det_inv(J: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -245,6 +254,60 @@ def local_load(cb: CellBatch, f_q):
     return xeinsum("qi,cq->ci", cb.phi, _weights(cb, f_q))
 
 
+# The convection-diffusion forms take host numpy operands and run on the
+# host, as the reference's do: a device beta would turn the (SUPG)
+# assembly into dozens of small device einsums.
+
+
+def local_advection(cb: CellBatch, beta_q: np.ndarray) -> np.ndarray:
+    """∫ (β·∇u) v with β (n_cells, nq, d) : (n_cells, nl, nl), row index
+    = test function v."""
+    aff = cb.affine_host()
+    if aff is not None:
+        iJ, detJ = aff
+        c = iJ.shape[0]
+        nq, nl, d = cb.dphi.shape
+        # β pulled back to reference coordinates: Bk[c, q, k] = β·(dxi_k/dx)
+        Bk = np.einsum("cqd,cdk->cqk", beta_q, iJ)
+        T = cb._ref_tensor(
+            "_T_adv",
+            lambda: np.einsum("q,qi,qjk->qkij", cb.qw, cb.phi, cb.dphi).reshape(nq * d, nl * nl),
+        )
+        Wb = (detJ[:, None, None] * Bk).reshape(c, nq * d)
+        return (Wb @ T).reshape(c, nl, nl)
+    g = cb.grad_phys()
+    return xeinsum("qi,cqjd,cqd,cq->cij", cb.phi, g, beta_q, cb.wdetJ)
+
+
+def local_supg(
+    cb: CellBatch, beta_q: np.ndarray, tau_c: np.ndarray, epsilon: float
+) -> np.ndarray:
+    """SUPG stabilization ∫ tau (β·∇v)(β·∇u - ε Δu) : (n_cells, nl, nl);
+    beta_q (n_cells, nq, d), tau_c (n_cells,) cell-wise tau. Δu from the
+    exact physical basis Laplacians, nonzero from degree 2 on."""
+    aff = cb.affine_host()
+    if aff is not None:
+        # β·∇φ via the reference pull-back (no (c, nq, nl, d) gradients)
+        iJ, _ = aff
+        Bk = np.einsum("cqd,cdk->cqk", beta_q, iJ)
+        bg = np.einsum("qik,cqk->cqi", cb.dphi, Bk)
+    else:
+        bg = xeinsum("cqid,cqd->cqi", cb.grad_phys(), beta_q)  # β·∇φ
+    w = cb.wdetJ * tau_c[:, None]
+    out = xeinsum("cqi,cqj,cq->cij", bg, bg, w)
+    if epsilon != 0.0:
+        out = out - epsilon * xeinsum("cqi,cqj,cq->cij", bg, cb.laplace_phys(), w)
+    return out
+
+
+def local_supg_load(
+    cb: CellBatch, beta_q: np.ndarray, tau_c: np.ndarray, f_q: np.ndarray
+) -> np.ndarray:
+    """SUPG right-hand side ∫ tau (β·∇v) f : (n_cells, nl)."""
+    bg = xeinsum("cqid,cqd->cqi", cb.grad_phys(), beta_q)
+    return xeinsum("cqi,cq->ci", bg, cb.wdetJ * tau_c[:, None] * f_q)
+
+
 def _cellwise(cb: CellBatch, coef) -> Optional[np.ndarray]:
     """coef as a per-cell (c,) host array, or None if it varies per
     quadrature point or lives on a device."""
@@ -338,6 +401,11 @@ def scatter_add(
     return out.index_add_(0, dofmap.reshape(-1), cell_vals.reshape(-1))
 
 
+# GatherSum.many gathers at most this many values at once (its
+# intermediate (rows, width, S) tensor stays a few hundred MB at f64)
+GATHER_CHUNK = 1 << 24
+
+
 class GatherSum:
     """scatter_add with a fixed summation order: (n_cells, nl) local
     contributions -> (ndof,) global vector, each dof the sum of its
@@ -360,6 +428,18 @@ class GatherSum:
     def __call__(self, cell_vals: torch.Tensor) -> torch.Tensor:
         src = torch.cat([cell_vals.reshape(-1), cell_vals.new_zeros(1)])
         return src[self.seg].sum(dim=1)
+
+    def many(self, cell_vals: torch.Tensor) -> torch.Tensor:
+        """(S, ...) batch of S contributions -> (S, ndof), each row as
+        __call__ sums it (a fixed order), the dofs taken in chunks of at
+        most GATHER_CHUNK gathered values."""
+        S = cell_vals.shape[0]
+        src = torch.cat([cell_vals.reshape(S, -1), cell_vals.new_zeros(S, 1)], dim=1).T
+        out = cell_vals.new_empty((self.ndof, S))
+        rows = max(1, GATHER_CHUNK // (self.seg.shape[1] * S))
+        for lo in range(0, self.ndof, rows):
+            out[lo:lo + rows] = src[self.seg[lo:lo + rows]].sum(dim=1)
+        return out.T.contiguous()
 
 
 class LocalOperator:

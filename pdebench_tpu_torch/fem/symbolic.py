@@ -78,10 +78,35 @@ def lambdify_numpy(expr: ExprLike, dim: int, with_time: bool = False) -> Callabl
     return _lambdify_numpy_cached(parse(expr), dim, with_time)
 
 
+def lambdify_numpy_steps(expr: ExprLike, dim: int) -> Callable:
+    """f(points (..., dim), ts (S,)) -> (S,) + points.shape[:-1] float64:
+    the expression at every time of ts in one vectorised numpy call. t
+    enters as an (S, 1, ...) array, so the terms without t are evaluated
+    once and broadcast (a separable u_t - div(kappa grad u) costs about
+    one evaluation, not S); every element is the same arithmetic as
+    lambdify_numpy's at that t."""
+    fn = _lambdify_raw(parse(expr), dim, True)
+
+    def call(points, ts):
+        points = np.asarray(points)
+        t = np.asarray(ts, dtype=np.float64).reshape((-1,) + (1,) * (points.ndim - 1))
+        out = fn(*[points[..., d] for d in range(dim)], t)
+        return np.ascontiguousarray(
+            np.broadcast_to(np.asarray(out, dtype=np.float64), t.shape[:1] + points.shape[:-1])
+        )
+
+    return call
+
+
+@lru_cache(maxsize=1024)
+def _lambdify_raw(e: sp.Expr, dim: int, with_time: bool) -> Callable:
+    syms = [X, Y, Z][:dim] + ([T] if with_time else [])
+    return sp.lambdify(syms, e, modules=["numpy"])
+
+
 @lru_cache(maxsize=1024)
 def _lambdify_numpy_cached(e: sp.Expr, dim: int, with_time: bool) -> Callable:
-    syms = [X, Y, Z][:dim] + ([T] if with_time else [])
-    fn = sp.lambdify(syms, e, modules=["numpy"])
+    fn = _lambdify_raw(e, dim, with_time)
 
     def call(points, t=None):
         args = [points[..., d] for d in range(dim)]

@@ -79,6 +79,7 @@ def clear_setup_caches() -> None:
     _GEOM_CACHE.clear()
     symbolic._parse_str.cache_clear()
     symbolic._lambdify_numpy_cached.cache_clear()
+    symbolic._lambdify_raw.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -132,21 +133,15 @@ def coefficient_fn(
 # ---------------------------------------------------------------------------
 
 
-def dirichlet_dofs_values(
-    space: FunctionSpace,
-    bc_spec: Dict[str, Any],
-    t: Optional[float] = None,
-) -> Tuple[np.ndarray, np.ndarray, Optional[Callable]]:
-    """Resolve a case's Dirichlet spec to (blocked dofs, values, value_fn(t)).
-
+def _dirichlet_segments(space: FunctionSpace, bc_spec: Dict[str, Any]):
+    """A case's Dirichlet spec as its segments, in order: per segment
+    (dof coordinates of its scalar dofs, its blocked dofs, one value
+    function fn(points, t) per component, whether it depends on t).
     Handles 'on': 'all' | side | list of {on, value} segments, and scalar
-    or vector (list) value expressions. value_fn is returned for
-    time-dependent BCs: value_fn(t) -> values at the same dofs.
-    """
+    or vector (list) value expressions."""
     d = bc_spec.get("dirichlet")
     if d is None:
-        return np.zeros(0, dtype=np.int64), np.zeros(0), None
-
+        return []
     segments: List[Dict[str, Any]]
     if isinstance(d, list):
         segments = d
@@ -159,35 +154,42 @@ def dirichlet_dofs_values(
 
     ncomp = space.ncomp
     dim = space.mesh.dim
-    all_dofs: List[np.ndarray] = []
-    fns: List[Tuple[np.ndarray, List[Callable], bool]] = []
-    any_time = False
-
+    out = []
     for seg in segments:
-        on = seg.get("on", "all")
-        sdofs = space.boundary_dofs_on(on)
+        sdofs = space.boundary_dofs_on(seg.get("on", "all"))
         value = seg.get("value", 0.0)
         exprs = value if isinstance(value, (list, tuple)) else [value] * ncomp
         if len(exprs) != ncomp:
             raise ValueError(f"BC value arity {len(exprs)} != ncomp {ncomp}")
-        seg_time = any(symbolic.depends_on_t(e) for e in exprs)
-        any_time = any_time or seg_time
-        comp_fns = [
-            symbolic.lambdify_numpy(e, dim, with_time=True) for e in exprs
-        ]
-        fns.append((sdofs, comp_fns, seg_time))
+        comp_fns = [symbolic.lambdify_numpy(e, dim, with_time=True) for e in exprs]
         blocked = (sdofs[:, None] * ncomp + np.arange(ncomp)[None, :]).reshape(-1)
-        all_dofs.append(blocked)
+        seg_time = any(symbolic.depends_on_t(e) for e in exprs)
+        out.append((space.dof_coords[sdofs], blocked, comp_fns, seg_time))
+    return out
 
-    dofs = np.concatenate(all_dofs) if all_dofs else np.zeros(0, dtype=np.int64)
+
+def dirichlet_dofs_values(
+    space: FunctionSpace,
+    bc_spec: Dict[str, Any],
+    t: Optional[float] = None,
+) -> Tuple[np.ndarray, np.ndarray, Optional[Callable]]:
+    """Resolve a case's Dirichlet spec to (blocked dofs, values, value_fn(t)).
+
+    Handles 'on': 'all' | side | list of {on, value} segments, and scalar
+    or vector (list) value expressions. value_fn is returned for
+    time-dependent BCs: value_fn(t) -> values at the same dofs.
+    """
+    segs = _dirichlet_segments(space, bc_spec)
+    if not segs:
+        return np.zeros(0, dtype=np.int64), np.zeros(0), None
+    any_time = any(seg_time for _, _, _, seg_time in segs)
+    dofs = np.concatenate([blocked for _, blocked, _, _ in segs])
 
     def value_fn(tv: float) -> np.ndarray:
-        out = []
-        for sdofs, comp_fns, _ in fns:
-            pts = space.dof_coords[sdofs]
-            vals = np.stack([f(pts, tv) for f in comp_fns], axis=1)  # (n, ncomp)
-            out.append(vals.reshape(-1))
-        return np.concatenate(out) if out else np.zeros(0)
+        return np.concatenate([
+            np.stack([f(pts, tv) for f in comp_fns], axis=1).reshape(-1)  # (n, ncomp)
+            for pts, _, comp_fns, _ in segs
+        ])
 
     t0 = 0.0 if t is None else float(t)
     values = value_fn(t0)
@@ -195,6 +197,45 @@ def dirichlet_dofs_values(
     # mask construction)
     uniq, first = np.unique(dofs, return_index=True)
     return uniq, values[first], (value_fn if any_time else None)
+
+
+def dirichlet_traceable(
+    space: FunctionSpace, bc_spec: Dict[str, Any], device
+) -> Tuple[np.ndarray, Callable[[float], torch.Tensor]]:
+    """Dirichlet values at any time, for step loops: (bc_dofs (blocked,
+    unique), g_fn) where g_fn(t) is a float64 tensor of length ndof on
+    `device`, the segments' values written at their dofs in segment order
+    (a dof on several segments takes the LAST one's value, as the
+    reference's g.at[blocked].set loop does; dirichlet_dofs_values keeps
+    the first), zeros elsewhere."""
+    segs = _dirichlet_segments(space, bc_spec)
+    device = torch.device(device)
+    if not segs:
+        return np.zeros(0, dtype=np.int64), lambda t: torch.zeros(
+            space.ndof, dtype=torch.float64, device=device
+        )
+    bc_dofs = np.unique(np.concatenate([blocked for _, blocked, _, _ in segs]))
+
+    def g_fn(t: float) -> torch.Tensor:
+        g = np.zeros(space.ndof)
+        for pts, blocked, comp_fns, _ in segs:
+            g[blocked] = np.stack([f(pts, float(t)) for f in comp_fns], axis=1).reshape(-1)
+        return torch.as_tensor(g, device=device)
+
+    return bc_dofs, g_fn
+
+
+def time_params(pde_cfg: Dict[str, Any], default_t_end=0.1, default_dt=0.01):
+    """(t0, t_end, dt, num_steps) from a case's pde.time block.
+
+    num_steps = int((t_end - t0)/dt + 0.5), the rounding of the
+    reference's heat and wave oracles."""
+    tc = pde_cfg.get("time", {}) or {}
+    t0 = float(tc.get("t0", 0.0))
+    t_end = float(tc.get("t_end", pde_cfg.get("t_final", default_t_end)))
+    dt = float(tc.get("dt", pde_cfg.get("dt", default_dt)))
+    num_steps = max(int((t_end - t0) / dt + 0.5), 1)
+    return t0, t_end, dt, num_steps
 
 
 # ---------------------------------------------------------------------------

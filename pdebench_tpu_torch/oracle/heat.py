@@ -1,0 +1,251 @@
+"""Heat oracle: du/dt - div(kappa grad u) = f, backward Euler.
+
+Pipeline: assemble M and K once on the host, form A = M + dt K, and build
+before the timed run (charged to setup): A's f32 lattice operator, its
+stencil-GMG hierarchy, the f64 mass weights on the same lattice and the
+inner solve's kernel object. The timed run sums every step's load vector
+in one batched fixed-order pass (`GatherSum.many`), then runs the step
+loop on the device: b = M u_n + dt f(t_{n+1}) through the stencil kernel,
+and one mixed-precision refinement per step (f64 outer stencil residual,
+f32 inner: 12 GMG-PCG steps a round with a hierarchy, in one fused kernel
+launch on an unpadded one; 30 Jacobi-PCG steps without) with the
+Dirichlet values g(t_{n+1}).
+
+A step that does not converge raises on a CUDA device; on the CPU the
+whole loop is solved again with the host SuperLU (one factorization, a
+back-substitution a step), as the reference does.
+
+Scheme (reference: pdebench/oracle/heat.py):
+  a = (u v + dt kappa grad u . grad v) dx
+  L = (u_prev + dt f(t_{n+1})) v dx
+  u0   = u_exact(t0) (MMS) or initial_condition
+  BCs  = u_exact(t_{n+1}) on all boundary facets (MMS) or the case's bc
+  f    = u_t - div(kappa grad u_exact) derived symbolically (MMS)
+  num_steps = int((t_end - t0)/dt + 0.5)
+
+Port of pdebench_tpu/oracle/heat.py (its lattice route: the reference's
+non-IR solve_constrained, taken by non-CG ksp types, is not ported).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..fem import symbolic
+from ..fem.assemble import LocalOperator, local_load, local_mass, local_stiffness
+from ..solvers import dispatch
+from ..solvers.direct import ConstrainedLU
+from . import base, scalar
+from .types import OracleResult, compute_rel_L2_grid
+
+# inner steps of one refinement round: with a GMG hierarchy, without
+INNER_ITERS = (12, 30)
+
+
+def step_matrices(ctx, pde: Dict[str, Any], dt: float) -> Tuple[np.ndarray, np.ndarray]:
+    """(A = M + dt K, M): a heat case's step matrix and mass matrix as
+    host cell-local batches (kappa evaluated on the host)."""
+    kspec = pde.get("coefficients", {}).get("kappa") or None
+    kappa_q = base.coefficient_fn(kspec, ctx.dim, "cpu")(ctx.qpts()).numpy()
+    M = local_mass(ctx.cb)
+    return M + dt * local_stiffness(ctx.cb, kappa_q), M
+
+
+def step_operators(ctx, A: np.ndarray, M: np.ndarray, inner: str, inner_iters: Tuple[int, int]):
+    """The constant pieces of a step loop on A = M + dt L (host cell-local
+    batches): (lattice operator with its hierarchy, the hierarchy's
+    failure or None, the f64 mass apply, A as a LocalOperator, the inner
+    steps a round). Builds the inner's kernel object too. Raises
+    NotImplementedError where the dofs form no lattice or the mass
+    stencil is wider than the weight map takes."""
+    space, device = ctx.space, ctx.device
+    lat32 = scalar.maybe_lattice32(ctx, A)
+    if lat32 is None:
+        raise NotImplementedError("time loops on meshes whose dofs form no lattice are not ported yet")
+    gmg_failed = scalar.attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
+    appliers = scalar.stencil_appliers64(lat32, space.dofmap_scalar, M)
+    if appliers is None:
+        raise NotImplementedError("mass stencils reaching beyond 4 lattice sites are not ported yet")
+    op = LocalOperator(torch.as_tensor(A, device=device), space.dofmap_scalar, space.ndof)
+    n_inner = inner_iters[0] if lat32.gmg is not None else inner_iters[1]
+    dispatch.prepare_inner(op, ctx.mask, lat32, inner, n_inner)
+    return lat32, gmg_failed, appliers[0], op, n_inner
+
+
+def step_loads(ctx, cell_loads: Sequence[np.ndarray]) -> torch.Tensor:
+    """(S, ndof) load vectors of S steps from their host cell
+    contributions, summed in one batched fixed-order pass on the device."""
+    vals = torch.as_tensor(np.stack(cell_loads), device=ctx.device)
+    return ctx.gather_sum().many(vals)
+
+
+def step_loop(
+    op: LocalOperator,
+    lat32,
+    mass_apply: Callable,
+    u0: torch.Tensor,
+    loads: torch.Tensor,
+    g_fn: Callable,
+    ts: np.ndarray,
+    dt: float,
+    mask: torch.Tensor,
+    rtol: float,
+    atol: float,
+    *,
+    inner: str,
+    inner_iters: int,
+) -> Tuple[Optional[torch.Tensor], Dict[str, Any]]:
+    """Backward-Euler steps u_{n+1} = A^{-1} (M u_n + dt loads[n]) with
+    u_{n+1} = g_fn(ts[n]) on the Dirichlet dofs, one refinement per step.
+
+    Returns (u, info): info has the inner's name, the iterations and the
+    per-step outer rounds. A step that does not converge raises on a CUDA
+    device; on the CPU the loop goes on from its iterate, as the
+    reference's scan does, and info["iterative_failed"] names the first
+    such step."""
+    u = u0
+    names, rounds, iterations, residual, failed = [], [], 0, None, None
+    for n, t in enumerate(ts):
+        b = mass_apply(u) + dt * loads[n]
+        x, its, residual, conv, name = dispatch.solve_constrained_ir(
+            op, b, mask, g_fn(t), lat32, rtol, atol,
+            inner=inner, inner_iters=inner_iters, max_outer=dispatch.STEP_MAX_OUTER,
+        )
+        names.append(name)
+        rounds.append(its // inner_iters)
+        iterations += its
+        if not conv and failed is None:
+            failed = dict(
+                step=n + 1, t=float(t), inner=name, outer_rounds=rounds[-1], residual=residual,
+            )
+            if b.device.type != "cpu":
+                raise RuntimeError(
+                    f"step {n + 1} of {len(ts)} did not converge on {b.device}: {failed} "
+                    f"(rtol {rtol}, atol {atol})"
+                )
+        u = x
+    if len(set(names)) != 1:
+        raise RuntimeError(f"the steps took different inner solves: {sorted(set(names))}")
+    info = dict(inner=names[0], iterations=iterations, residual=residual, outer_rounds=rounds)
+    if failed is not None:
+        info["iterative_failed"] = failed
+    return u, info
+
+
+def host_lu_steps(
+    op: LocalOperator, M: np.ndarray, u0: np.ndarray, loads: torch.Tensor,
+    g_fn: Callable, ts: np.ndarray, dt: float, mask: torch.Tensor,
+) -> np.ndarray:
+    """The same steps with the host SuperLU: A factored once, one
+    back-substitution a step (CPU tensors only)."""
+    flu = ConstrainedLU(op.to_scipy(), mask.cpu().numpy())
+    M_op = LocalOperator(torch.as_tensor(M), op.dofmap.cpu().numpy(), op.ndof)
+    uh = np.asarray(u0, dtype=np.float64)
+    for n, t in enumerate(ts):
+        b = M_op(torch.as_tensor(uh)).numpy() + dt * loads[n].cpu().numpy()
+        uh = flu.solve(b, g_fn(t).cpu().numpy())
+    return uh
+
+
+class HeatSolver:
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def solve(
+        self, config: Dict[str, Any], _compute_baseline: bool = True
+    ) -> OracleResult:
+        pde = config["pde"]
+        mms_u = pde.get("manufactured_solution", {}).get("u")
+        if mms_u is not None:
+            config = scalar.override_bc_with_mms(config, mms_u)
+        t0, t_end, dt, num_steps = base.time_params(pde)
+        t_final = t0 + num_steps * dt
+        ctx = scalar.setup_scalar(config, self.device, t0=t0)
+        dim = ctx.dim
+
+        kspec = pde.get("coefficients", {}).get("kappa") or {}
+        if mms_u is not None:
+            kexpr = kspec.get("expr", kspec.get("value", 1.0)) if kspec else 1.0
+            src = symbolic.heat_source(mms_u, kexpr, dim)
+            ic = mms_u
+        else:
+            src = pde.get("source_term", 0.0)
+            ic = pde.get("initial_condition", 0.0)
+        f_steps = symbolic.lambdify_numpy_steps(src, dim)
+        u0 = base.interpolate_nodal(ctx.space, ic, t=t0)
+        _, g_fn = base.dirichlet_traceable(ctx.space, config.get("bc", {}), self.device)
+
+        opts = base.solver_opts(config)
+        if str(opts.get("ksp_type", "cg")).lower() not in ("cg", "minres"):
+            raise NotImplementedError(
+                f"heat with ksp_type {opts['ksp_type']!r} takes the reference's "
+                "solve_constrained, which is not ported"
+            )
+        rtol, atol = float(opts["rtol"]), float(opts.get("atol", 1e-14))
+        cb, qpts = ctx.cb, ctx.qpts()
+        ts = t0 + dt * np.arange(1, num_steps + 1)
+        A, M = step_matrices(ctx, pde, dt)
+
+        def build():
+            return step_operators(ctx, A, M, "cg", INNER_ITERS) + (
+                torch.as_tensor(u0, device=self.device),
+            )
+
+        lat32, gmg_failed, mass_apply, op, n_inner, u0_dev = base.charge_setup(ctx, build)
+
+        def run():
+            loads = step_loads(ctx, [local_load(cb, f_q) for f_q in f_steps(qpts, ts)])
+            u, info = step_loop(
+                op, lat32, mass_apply, u0_dev, loads, g_fn, ts, dt, ctx.mask, rtol, atol,
+                inner="cg", inner_iters=n_inner,
+            )
+            if "iterative_failed" in info:
+                # CPU only: step_loop raises on a CUDA device
+                u = host_lu_steps(op, M, u0, loads, g_fn, ts, dt, ctx.mask)
+                info.update(inner="host-lu", fallback="direct")
+            else:
+                u = u.cpu().numpy()
+            return ctx.sample(u), info
+
+        (fem_grid, info), t_warm, t_cold = base.timed_run(run, self.device)
+        baseline_time = ctx.t_setup + t_warm
+        if gmg_failed:
+            info["gmg_failed"] = gmg_failed
+
+        baseline_error = 1e-2
+        if _compute_baseline:
+            err = scalar.mms_baseline_error(config, fem_grid, t_end=t_final)
+            if err is None and "reference_config" in config:
+                ref = self.solve(
+                    scalar.merge_reference_config(config, refine_dt=dt * 0.5),
+                    _compute_baseline=False,
+                )
+                err = compute_rel_L2_grid(fem_grid, ref.reference)
+            baseline_error = err if err is not None else 0.0
+
+        solver_info = {
+            "library": "pdebench_tpu_torch",
+            "device": str(self.device),
+            "pde": "heat",
+            "mesh_resolution": int(config.get("mesh", {}).get("resolution", 0)),
+            "element_degree": ctx.space.degree,
+            "num_steps": num_steps,
+            "dt": dt,
+            "ksp_type": opts["ksp_type"],
+            "pc_type": opts["pc_type"],
+            "rtol": rtol,
+            "t_setup": ctx.t_setup,
+            "t_warm": t_warm,
+            "t_cold": t_cold,
+            **info,
+        }
+        return OracleResult(
+            baseline_error=float(baseline_error),
+            baseline_time=float(baseline_time),
+            reference=fem_grid,
+            solver_info=solver_info,
+            num_dofs=ctx.space.ndof,
+        )

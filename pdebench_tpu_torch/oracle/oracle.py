@@ -1,8 +1,9 @@
 """Oracle dispatcher: case pde type -> solver on an explicit device.
 
 Port of pdebench_tpu/oracle/oracle.py. Poisson, Helmholtz, linear
-elasticity and Navier-Stokes are ported; the other 10 PDE types of the
-reference raise NotImplementedError until their slice lands.
+elasticity, Navier-Stokes, heat, biharmonic and convection-diffusion are
+ported; the other 7 PDE types of the reference raise NotImplementedError
+until their slice lands.
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ _SOLVERS = {
     "helmholtz": ("helmholtz", "HelmholtzSolver"),
     "linear_elasticity": ("linear_elasticity", "LinearElasticitySolver"),
     "navier_stokes": ("navier_stokes", "NavierStokesSolver"),
+    "heat": ("heat", "HeatSolver"),
+    "biharmonic": ("biharmonic", "BiharmonicSolver"),
+    "convection_diffusion": ("convection_diffusion", "ConvectionDiffusionSolver"),
 }
 
 _NOT_PORTED = (
-    "heat", "wave", "convection_diffusion",
-    "reaction_diffusion", "burgers", "biharmonic",
+    "wave", "reaction_diffusion", "burgers",
     "stokes", "darcy", "hyperelasticity", "cahn_hilliard",
 )
 
@@ -31,12 +34,13 @@ _NOT_PORTED = (
 class OracleSolver:
     """Ground-truth solver front end.
 
-    `device` is required ("cpu", "cuda", "cuda:1", ...): the solve runs
-    there and nowhere else. On a CUDA device the lattice route runs the
-    CUDA kernels; on the CPU it runs their plain PyTorch versions.
+    `device` ("cuda" unless the caller asks for another: "cpu", "cuda:1",
+    ...): the solve runs there and nowhere else. On a CUDA device the
+    lattice route runs the CUDA kernels; on the CPU it runs their plain
+    PyTorch versions. Constructing one touches no device.
     """
 
-    def __init__(self, device):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
 
     def solve(self, oracle_config: Dict[str, Any]) -> OracleResult:

@@ -162,6 +162,53 @@ def maybe_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
     )
 
 
+def attach_gmg(lat32, ndof: int, mask_np: np.ndarray) -> Optional[str]:
+    """Attach a stencil-GMG hierarchy, coarsened from the operator's own
+    constrained weights, to a 2-D or 3-D lattice operator of GMG_MIN_DOFS
+    dofs or more; no-op otherwise. Returns None, or why the hierarchy
+    could not be built (the coarsest level too large to invert): the
+    operator then keeps no hierarchy and its solves take Jacobi, as in
+    the reference, and the caller records the reason. Other exceptions
+    are faults and propagate."""
+    from ..solvers.dispatch import GMG_MIN_DOFS
+    from ..solvers.gmg import attach_lattice_gmg
+
+    if len(lat32.shape) not in (2, 3) or ndof < GMG_MIN_DOFS:
+        return None
+    try:
+        attach_lattice_gmg(lat32, np.asarray(mask_np))
+    except ValueError as e:
+        lat32.gmg = None
+        return f"{e}"
+    return None
+
+
+def stencil_appliers64(lat32, dofmap, *A_locals) -> Optional[list]:
+    """Float64 dof-order appliers of cell-local operators that share
+    lat32's lattice (a step loop's mass matrix), or None where the cells'
+    node pairs reach further than the weight map takes. Returns one
+    fn(v_dof) -> A v per A_local: the weights scattered once on the host
+    in a fixed order, every apply one stencil kernel launch (its plain
+    version on CPU tensors) from the weight map's plan."""
+    from ..solvers.stencil import lattice_weight_map
+
+    wmap = lattice_weight_map(lat32.lattice, np.asarray(dofmap))
+    if wmap is None:
+        return None
+    lattice, inv = lat32.lattice, lat32.inv_j
+
+    def make(A_local):
+        W64 = torch.as_tensor(wmap.weights_np(A_local), device=lat32.device)
+
+        def apply64(v: torch.Tensor) -> torch.Tensor:
+            v_lat = lattice.embed(v, 0.0).reshape(wmap.shape)
+            return wmap.apply_grid(W64, v_lat).reshape(-1)[inv]
+
+        return apply64
+
+    return [make(a) for a in A_locals]
+
+
 def maybe_block_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
     """Block-stencil (f32) form of a VECTOR operator on a node lattice
     (structured meshes); None otherwise. 3-D block lattices have no
@@ -221,11 +268,19 @@ def override_bc_with_mms(
     return out
 
 
-def merge_reference_config(config: Dict[str, Any]) -> Dict[str, Any]:
-    """Overlay a case's reference_config for the finer re-solve."""
+def merge_reference_config(
+    config: Dict[str, Any], refine_dt: Optional[float] = None
+) -> Dict[str, Any]:
+    """Overlay a case's reference_config for the finer re-solve.
+
+    refine_dt: the transient oracles pass dt * 0.5, the re-solve's step
+    when reference_config carries no `time` of its own; a `time` there
+    overlays pde.time key by key (the case keeps its t0 and t_end)."""
     ref = config.get("reference_config", {})
     out = copy.deepcopy(config)
     out.pop("reference_config", None)
+    if refine_dt is not None and "time" not in ref:
+        out.setdefault("pde", {}).setdefault("time", {})["dt"] = float(refine_dt)
     for key, val in ref.items():
         if key == "time" and isinstance(val, dict):
             out.setdefault("pde", {}).setdefault("time", {}).update(val)

@@ -61,6 +61,9 @@ FUSED_ARNOLDI_MIN_DOFS = 20000
 # the nonsymmetric inner's Richardson preconditioner: chained V-cycles
 RICHARDSON_CYCLES = 2
 MAX_OUTER = 40
+# outer rounds of one step of a time loop (the reference's per-step
+# solve_constrained_ir default)
+STEP_MAX_OUTER = 60
 
 
 def direct_request(opts: Dict[str, Any]) -> bool:
@@ -129,7 +132,6 @@ def solve_constrained_ir(
     emb, inv = lattice32.embedding, lattice32.inv_j
     gshape = lattice32.grid_shape
     W64 = lattice32.W_f64
-    dev = lattice32.device
 
     def raw64(v):
         v_lat = emb.embed(v, 0.0).reshape(gshape)
@@ -141,8 +143,40 @@ def solve_constrained_ir(
 
     # absent sites of masked lattices are treated as constrained
     mask_lat = emb.embed(mask, True)
+    inner_custom, M32, inner_name = _inner_route(op, lattice32, mask_lat, inner, inner_iters)
+
+    def A32(v_lat):
+        vz = torch.where(mask_lat, 0.0, v_lat)
+        y = lattice32.apply_grid(vz.reshape(gshape)).reshape(-1)
+        return torch.where(mask_lat, v_lat, y)
+
+    x, info = refined_solve(
+        A64, A32, rhs, x0=x0, M32=M32, rtol=rtol, atol=atol,
+        inner_iters=inner_iters, max_outer=max_outer,
+        inner_fwd=lambda r: emb.embed(r, 0.0),
+        inner_bwd=lambda z: z[inv],
+        inner=inner,
+        inner_custom=inner_custom,
+    )
+    return x, info.iterations, info.residual, info.converged, inner_name
+
+
+def prepare_inner(op: LocalOperator, mask: torch.Tensor, lattice32, inner: str, inner_iters: int) -> str:
+    """Build now what solve_constrained_ir's inner takes on this operator
+    (the fused kernel object, kept on the hierarchy), so that a step loop
+    charges it to setup; returns the inner's name."""
+    mask_lat = lattice32.embedding.embed(mask, True)
+    return _inner_route(op, lattice32, mask_lat, inner, inner_iters)[2]
+
+
+def _inner_route(op: LocalOperator, lattice32, mask_lat: torch.Tensor, inner: str, inner_iters: int):
+    """(inner_custom, M32, inner name) of the IR's inner on this lattice
+    operator: the route rule of the module docstring."""
+    gshape = lattice32.grid_shape
+    dev = lattice32.device
+    emb = lattice32.embedding
     gmg = lattice32.gmg
-    kind = "cuda" if b.device.type == "cuda" else "torch"
+    kind = "cuda" if dev.type == "cuda" else "torch"
     inner_custom, M32 = None, None
     if gmg is None:
         diag_lat = emb.embed(op.diagonal(), 1.0)
@@ -200,21 +234,7 @@ def solve_constrained_ir(
         vcyc = gmg.precond()
         M32 = lambda r_lat: vcyc(r_lat.reshape(gshape)).reshape(-1)
         inner_name = "stencil-cg" if inner == "cg" else "gmres+vcycle"
-
-    def A32(v_lat):
-        vz = torch.where(mask_lat, 0.0, v_lat)
-        y = lattice32.apply_grid(vz.reshape(gshape)).reshape(-1)
-        return torch.where(mask_lat, v_lat, y)
-
-    x, info = refined_solve(
-        A64, A32, rhs, x0=x0, M32=M32, rtol=rtol, atol=atol,
-        inner_iters=inner_iters, max_outer=max_outer,
-        inner_fwd=lambda r: emb.embed(r, 0.0),
-        inner_bwd=lambda z: z[inv],
-        inner=inner,
-        inner_custom=inner_custom,
-    )
-    return x, info.iterations, info.residual, info.converged, inner_name
+    return inner_custom, M32, inner_name
 
 
 def solve_linear(

@@ -99,8 +99,8 @@ def _coarsen_stencil(
     pad_c = -(-(pad_f + 2) // 2)
     s = 2 * pad_c + 1  # comb spacing in coarse points
 
-    # responses to coarse indicator combs, one per phase
-    resp = {}
+    # responses to coarse indicator combs, one per phase: resp[phase + site]
+    resp = np.zeros((s,) * dim + shape_c)
     for phase in itertools.product(range(s), repeat=dim):
         e = np.zeros(shape_c)
         e[tuple(slice(p, None, s) for p in phase)] = 1.0
@@ -108,6 +108,7 @@ def _coarsen_stencil(
             _apply_stencil_np(W, offsets, _prolong_np(e, shape))
         )
 
+    # A_c[i, i + off] is the response at i to the comb holding i + off
     offs_c = list(itertools.product(range(-pad_c, pad_c + 1), repeat=dim))
     grids = np.meshgrid(*[np.arange(n) for n in shape_c], indexing="ij")
     Wc = np.zeros((len(offs_c),) + shape_c)
@@ -116,15 +117,7 @@ def _coarsen_stencil(
         valid = np.ones(shape_c, dtype=bool)
         for c, n in zip(col, shape_c):
             valid &= (c >= 0) & (c < n)
-        phases = [np.mod(c, s) for c in col]
-        vals = np.zeros(shape_c)
-        for phase in itertools.product(range(s), repeat=dim):
-            m = valid.copy()
-            for p, ph in zip(phases, phase):
-                m &= p == ph
-            if m.any():
-                vals[m] = resp[phase][tuple(g[m] for g in grids)]
-        Wc[k] = vals
+        Wc[k] = np.where(valid, resp[tuple(np.mod(c, s) for c in col) + tuple(grids)], 0.0)
     # drop all-zero offsets
     keep = [k for k in range(len(offs_c)) if np.abs(Wc[k]).max() > 0]
     return Wc[keep], [offs_c[k] for k in keep], shape_c

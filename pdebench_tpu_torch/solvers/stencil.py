@@ -18,10 +18,12 @@ tensors, its plain PyTorch version on CPU tensors.
 
 Per-step block weights (the Navier-Stokes velocity block's convected
 Jacobian) come from `BlockLatticeWeightMap`, which maps a blocked
-cell-local batch to block weights in a fixed summation order.
+cell-local batch to block weights in a fixed summation order; the scalar
+`LatticeWeightMap` gives the step loops' float64 mass apply its weights.
 
 Port of pdebench_tpu/solvers/stencil.py (LatticeOperator,
-BlockLatticeOperator, BlockLatticeWeightMap and the operators' builders).
+BlockLatticeOperator, LatticeWeightMap, BlockLatticeWeightMap and the
+functions that make the operators from cell-local matrices).
 """
 
 from __future__ import annotations
@@ -58,7 +60,11 @@ class Lattice:
 
     def embed(self, v: torch.Tensor, fill) -> torch.Tensor:
         """Dof vector -> flat lattice vector (absent sites = fill)."""
-        perm = torch.as_tensor(self.perm, device=v.device)
+        # perm on v's device, copied there once (step loops embed every step)
+        perms = self.__dict__.setdefault("_perm_on", {})
+        perm = perms.get(v.device)
+        if perm is None:
+            perm = perms[v.device] = torch.as_tensor(self.perm, device=v.device)
         if not self.masked:
             return v[perm]
         pad = torch.full((1,), fill, dtype=v.dtype, device=v.device)
@@ -357,6 +363,69 @@ def tap_index(shape, offsets, pad: int) -> np.ndarray:
     return out
 
 
+def _cell_pair_offsets(lattice: Lattice, dofmap_scalar: np.ndarray):
+    """The offsets of every (row, column) node pair within a cell on the
+    lattice (column site - row site), each pair's index into them (c, nl,
+    nl) and each pair's row site (c, nl, nl)."""
+    shape = lattice.shape
+    site = lattice.inv[np.asarray(dofmap_scalar)]  # (c, nl)
+    coords = []
+    rem = site
+    for s in reversed(shape):
+        coords.append(rem % s)
+        rem = rem // s
+    coords = np.stack(list(reversed(coords)), axis=-1)  # (c, nl, dim)
+    doff = coords[:, None, :, :] - coords[:, :, None, :]  # (c, i, j, dim)
+    offs, o_idx = _unique_offsets(doff.reshape(-1, len(shape)))
+    c, nl = site.shape
+    rows = np.broadcast_to(site[:, :, None], (c, nl, nl))
+    return offs, o_idx.reshape(c, nl, nl), rows
+
+
+class LatticeWeightMap(_Planned):
+    """Cell-local matrix -> stencil weights for a fixed mesh (scalar).
+
+    The weights of any cell-local batch (c, nl, nl) on the mesh's
+    lattice, on the offsets of its cells' node pairs: `weights_np` sums
+    the batch into (K,) + shape planes on the host with one bincount (a
+    fixed order), `apply_grid` applies such planes through the plan (one
+    stencil kernel launch on CUDA tensors). A step loop's mass apply
+    (scalar.stencil_appliers64) builds its weights once."""
+
+    def __init__(self, lattice: Lattice, dofmap: np.ndarray):
+        offs, o_idx, rows = _cell_pair_offsets(lattice, dofmap)
+        self.offsets = [tuple(int(v) for v in o) for o in offs]
+        self.pad = int(np.abs(offs).max()) if len(offs) else 0
+        self.shape = lattice.shape
+        n_lat = int(np.prod(self.shape))
+        self._flat_np = (o_idx * n_lat + rows).reshape(-1)
+        self._n = len(self.offsets) * n_lat
+
+    def weights_np(self, A_local_np: np.ndarray) -> np.ndarray:
+        """(c, nl, nl) host batch -> (K,) + shape float64 weights."""
+        W = np.bincount(
+            self._flat_np,
+            weights=np.asarray(A_local_np, dtype=np.float64).reshape(-1),
+            minlength=self._n,
+        )
+        return W.reshape((len(self.offsets),) + self.shape)
+
+    def apply_grid(self, W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """u: lattice-shaped -> same shape, zero outside the lattice."""
+        return self.plan(W, u)
+
+
+def lattice_weight_map(
+    lattice: Lattice, dofmap: np.ndarray, max_pad: int = 4
+) -> Optional[LatticeWeightMap]:
+    """LatticeWeightMap, or None when the cells' node pairs are not a
+    compact stencil (periodic wrap-around offsets)."""
+    wm = LatticeWeightMap(lattice, dofmap)
+    if wm.pad == 0 or wm.pad > max_pad:
+        return None
+    return wm
+
+
 class BlockLatticeWeightMap(_Planned):
     """Blocked local-matrix -> block-stencil-weight map for a fixed mesh.
 
@@ -374,26 +443,14 @@ class BlockLatticeWeightMap(_Planned):
 
     def __init__(self, lattice: Lattice, dofmap_scalar: np.ndarray, ncomp: int):
         shape = lattice.shape
-        dim = len(shape)
         d = int(ncomp)
         n_lat = int(np.prod(shape))
-        dm = np.asarray(dofmap_scalar)
-        site = lattice.inv[dm]  # (c, nl)
-        coords = []
-        rem = site
-        for s in reversed(shape):
-            coords.append(rem % s)
-            rem = rem // s
-        coords = np.stack(list(reversed(coords)), axis=-1)  # (c, nl, dim)
-        doff = coords[:, None, :, :] - coords[:, :, None, :]  # (c, i, j, dim)
-        offs, o_idx = _unique_offsets(doff.reshape(-1, dim))
+        offs, o_idx, rows = _cell_pair_offsets(lattice, dofmap_scalar)
         self.offsets = [tuple(int(v) for v in o) for o in offs]
         self.pad = int(np.abs(offs).max()) if len(offs) else 0
         self.shape = shape
         self.ncomp = d
-        c, nl = site.shape
-        rows = np.broadcast_to(site[:, :, None], (c, nl, nl))
-        base_idx = o_idx.reshape(c, nl, nl) * n_lat + rows  # (c, i, j)
+        base_idx = o_idx * n_lat + rows  # (c, i, j)
         # blocked local batch index order is [c, i*d+a, j*d+b]: flat
         # targets in that order, (c, i, a, j, b)
         a = np.arange(d)

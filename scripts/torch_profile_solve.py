@@ -11,7 +11,9 @@ in 3-D, Navier-Stokes): one OracleSolver(device="cuda") solve to
 build the kernels and warm every cache, then a second solve whose warm
 linear solve (the oracle's second `solve_linear` call, the one
 `t_warm` times; for Navier-Stokes its second `NavierStokesProblem.run`,
-the whole warm Newton solve) runs under torch.profiler. Prints per case the wall time of
+the whole warm Newton solve; for heat and transient convection-diffusion
+the second `heat.step_loop`, the warm run's whole step loop) runs under
+torch.profiler. Prints per case the wall time of
 that call, the device busy time (the union of the device activity
 intervals the profiler recorded), the idle share 1 - busy / wall, and the
 kernels by device time; first the card's name and power limit. Exits
@@ -211,15 +213,22 @@ def main(argv) -> int:
             # the whole warm Newton solve (its method on the class: the
             # wrapper gets the problem as its first argument)
             out = profile_case(configs[cid], module.NavierStokesProblem, "run")
+            what = "Newton run"
+        elif pde == "heat" or (pde == "convection_diffusion" and configs[cid]["pde"].get("time")):
+            heat = importlib.import_module("pdebench_tpu_torch.oracle.heat")
+            out = profile_case(configs[cid], heat, "step_loop")
+            what = "step loop"
         else:
             out = profile_case(configs[cid], module, "solve_linear")
+            what = "solve_linear"
         busy = busy_seconds(out["prof"])
         info = out["info"]
-        what = "Newton run" if pde == "navier_stokes" else "solve_linear"
         print(f"{cid}: profiled warm {what} {out['wall'] * 1e3:.3f} ms wall, device busy "
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / out['wall']:.3f}; inner "
               f"{info.get('inner')}, iterations {info.get('iterations')}, Krylov iterations "
-              f"{info.get('kry_its')}", flush=True)
+              f"{info.get('kry_its')}"
+              + (f", outer rounds per step {info['outer_rounds']}" if "outer_rounds" in info else ""),
+              flush=True)
         print(out["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=12),
               flush=True)
         ok = ok and busy > 0.0

@@ -933,3 +933,105 @@ def test_unconverged_ns_linear_solve_on_cuda_raises(dev, monkeypatch):
     monkeypatch.setattr(ns, "NS_MAX_OUTER", 1)
     with pytest.raises(RuntimeError, match="Newton step 0"):
         OracleSolver(device=dev).solve(_ns_mms(12))
+
+
+# -- heat, biharmonic, convection-diffusion: kernel #2 at 12 PCG steps on
+# -- A = M + dt K, the f64 mass apply, the step loops on the card ----------
+
+# case id -> recorded baseline_error (results/oracle_sweep_progress.jsonl)
+HEAT_LARGE_KAPPA = 4.25500140632074e-4
+CONVDIFF_PARABOLIC = 7.050554387484011e-4
+
+
+def _config(case_id):
+    with open(DATA) as fh:
+        return next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+
+
+def _heat_operator(dev, case_id):
+    """A heat case's step operators as its oracle builds them: the f32
+    lattice of A = M + dt K with its hierarchy, the mass apply, the lattice
+    mask, and M and the context for the weight map."""
+    from pdebench_tpu_torch.oracle import base, heat, scalar
+
+    cfg = _config(case_id)
+    pde = cfg["pde"]
+    cfg = scalar.override_bc_with_mms(cfg, pde["manufactured_solution"]["u"])
+    ctx = scalar.setup_scalar(cfg, dev)
+    A, M = heat.step_matrices(ctx, pde, base.time_params(pde)[2])
+    lat, _, mass_apply, _, n_inner = heat.step_operators(ctx, A, M, "cg", heat.INNER_ITERS)
+    assert n_inner == 12
+    return lat, ctx.mask.cpu().numpy(), mass_apply, M, ctx
+
+
+@pytest.mark.parametrize("iters,tol", [(1, TOL_VCYCLE), (12, TOL_CG)])
+@pytest.mark.parametrize("case_id", ["heat_large_kappa_fast_diffusion", "heat_3d_basic_decay"])
+def test_fused_cg_kernel_heat_hierarchy_matches_plain(dev, case_id, iters, tol):
+    """Kernel #2 on the mass-dominated hierarchies of A = M + dt K (P1
+    121^2, P2 29^3): one PCG step, then heat's 12."""
+    lat, mask, *_ = _heat_operator(dev, case_id)
+    inner = gmg_fused.build_fused_inner_cg(lat.gmg, iters, dev)
+    r = np.random.default_rng(5).standard_normal(lat.lattice.n_dof)
+    r[mask] = 0.0
+    r_lat = torch.as_tensor(lat.lattice.embed_np(r.astype(np.float32), 0.0), device=dev)
+    before = gmg_fused.LAUNCHES
+    z = inner(r_lat)
+    assert gmg_fused.LAUNCHES == before + 1
+    z_plain = inner.plain(r_lat)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("case_id", ["heat_large_kappa_fast_diffusion", "heat_3d_basic_decay"])
+def test_mass_apply_matches_plain(dev, case_id):
+    """The f64 mass apply of a step loop: one stencil kernel launch on the
+    card, within 1e-12 of the plain version of the same weights on the CPU."""
+    from pdebench_tpu_torch.solvers.stencil import lattice_weight_map
+
+    lat, _, mass_apply, M, ctx = _heat_operator(dev, case_id)
+    wm = lattice_weight_map(lat.lattice, ctx.space.dofmap_scalar)
+    v = np.random.default_rng(6).standard_normal(ctx.space.ndof)
+    before = stencil_kernel.LAUNCHES
+    got = mass_apply(torch.as_tensor(v, device=dev))
+    assert stencil_kernel.LAUNCHES == before + 1
+    v_lat = torch.as_tensor(lat.lattice.embed_np(v, 0.0)).reshape(wm.shape)
+    want = stencil_kernel.stencil_plain(
+        v_lat, torch.as_tensor(wm.weights_np(M)), wm.offsets, wm.pad
+    ).reshape(-1)[lat.lattice.inv]
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= TOL[torch.float64], err
+
+
+@pytest.mark.parametrize("case_id,ref_err,inner", [
+    ("heat_large_kappa_fast_diffusion", HEAT_LARGE_KAPPA, "fused-cg-cuda"),
+    ("convdiff_parabolic_basic_manufactured", CONVDIFF_PARABOLIC, "gmres+vcycle"),
+])
+def test_step_loop_oracles_run_on_the_card(dev, case_id, ref_err, inner):
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    cfg = _config(case_id)
+    stencil_kernel.LAUNCHES = gmg_fused.LAUNCHES = 0
+    res = OracleSolver(device=dev).solve(cfg)
+    info = res.solver_info
+    assert info["inner"] == inner and "iterative_failed" not in info
+    assert len(info["outer_rounds"]) == info["num_steps"]
+    assert stencil_kernel.LAUNCHES > 0  # the mass apply and the f64 outer residual
+    assert (gmg_fused.LAUNCHES > 0) == (inner == "fused-cg-cuda")
+    assert np.isfinite(res.reference).all()
+    assert abs(res.baseline_error - ref_err) <= 1e-6 * ref_err
+
+
+def test_unconverged_heat_step_on_cuda_raises(dev, monkeypatch):
+    """A step IR that does not converge raises on the card, naming the
+    step and its residual; no host LU behind it."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+    from pdebench_tpu_torch.solvers import dispatch
+
+    def stalled(op, b, *args, **kwargs):
+        return torch.zeros_like(b), 60 * 12, 0.5, False, "fused-cg-cuda"
+
+    monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    cfg = _config("heat_longer")
+    cfg["mesh"]["resolution"] = 32
+    with pytest.raises(RuntimeError, match=r"step 1 of 10 did not converge.*'residual': 0\.5"):
+        OracleSolver(device=dev).solve(cfg)

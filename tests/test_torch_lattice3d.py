@@ -255,6 +255,23 @@ def test_hierarchy_3d_build_matches_reference(surrogate):
     _close(mine.precond()(torch.as_tensor(r)).numpy(), z_ref, TOL_VCYCLE)
 
 
+@pytest.mark.parametrize("shape, reach", [((17, 17), 1), ((13, 21), 2), ((9, 9, 9), 1), ((11, 9, 13), 2)])
+def test_coarsen_stencil_equals_reference(shape, reach):
+    """The Galerkin coarse stencil R A P of a random stencil, 2-D and 3-D,
+    reach 1 and 2: bit for bit the reference's (the port picks each coarse
+    weight out of the comb responses in one indexed gather a tap)."""
+    import itertools
+
+    from pdebench_tpu.solvers.gmg import _coarsen_stencil as ref_coarsen
+
+    offs = list(itertools.product(range(-reach, reach + 1), repeat=len(shape)))
+    W = np.random.default_rng(3).standard_normal((len(offs),) + shape)
+    Wc, offs_c, shape_c = gmg._coarsen_stencil(W, offs, shape)
+    rWc, roffs_c, rshape_c = ref_coarsen(W, offs, shape)
+    assert offs_c == roffs_c and shape_c == rshape_c
+    np.testing.assert_array_equal(Wc, rWc)
+
+
 def _rows(lr):
     """The slab-packed rows of a reference _Level3 that hold lattice sites."""
     nz, ny, _ = lr.shape3
