@@ -119,6 +119,22 @@ def _lambdify_numpy_cached(e: sp.Expr, dim: int, with_time: bool) -> Callable:
     return call
 
 
+# the functions a field expression may call, on tensors
+_TORCH_FUNCS = {
+    "exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt, "sin": torch.sin,
+    "cos": torch.cos, "tanh": torch.tanh, "Abs": torch.abs,
+}
+
+
+def lambdify_field(expr: sp.Expr, sym: sp.Symbol) -> Callable:
+    """f(v) of a tensor of field values (a reaction term R(u) at nodes or
+    quadrature points): `expr` in the one symbol `sym` as Python
+    arithmetic on v, its functions torch's, evaluated on v's device in
+    v's dtype. A constant expression gives a float. (The reference
+    lambdifies to jax.numpy.)"""
+    return sp.lambdify(sym, expr, modules=[_TORCH_FUNCS, "numpy"])
+
+
 def depends_on_t(expr: ExprLike) -> bool:
     return T in parse(expr).free_symbols
 

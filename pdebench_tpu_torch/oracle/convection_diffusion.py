@@ -174,7 +174,7 @@ class ConvectionDiffusionSolver:
             def run():
                 loads = heat.step_loads(ctx, [cell_load(f_q) for f_q in f_steps(qpts, ts)])
                 u, info = heat.step_loop(
-                    op, lat32, mass_apply, u0_dev, loads, g_fn, ts, dt, ctx.mask, rtol, atol,
+                    op, lat32, mass_apply, u0_dev, dt * loads, g_fn, ts, ctx.mask, rtol, atol,
                     inner="gmres", inner_iters=n_inner,
                 )
                 # an unconverged step raises on a CUDA device; on the CPU

@@ -83,23 +83,30 @@ def step_loads(ctx, cell_loads: Sequence[np.ndarray]) -> torch.Tensor:
 
 
 def step_loop(
-    op: LocalOperator,
+    op: Optional[LocalOperator],
     lat32,
     mass_apply: Callable,
     u0: torch.Tensor,
     loads: torch.Tensor,
     g_fn: Callable,
     ts: np.ndarray,
-    dt: float,
     mask: torch.Tensor,
     rtol: float,
     atol: float,
     *,
     inner: str,
     inner_iters: int,
+    mass_scale: float = 1.0,
+    step_weights: Optional[Callable] = None,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, Any]]:
-    """Backward-Euler steps u_{n+1} = A^{-1} (M u_n + dt loads[n]) with
-    u_{n+1} = g_fn(ts[n]) on the Dirichlet dofs, one refinement per step.
+    """Backward-Euler steps u_{n+1} = A^{-1} (mass_scale M u_n + loads[n])
+    with u_{n+1} = g_fn(ts[n]) on the Dirichlet dofs, one refinement per
+    step: heat's A = M + dt K takes loads dt f (mass_scale 1), reaction-
+    diffusion's and Burgers' A = M / dt + ... take the loads as they are
+    and mass_scale 1 / dt, the reference's scaling (the absolute atol
+    decides when rounds stop). `step_weights(u_n)` gives a per-step
+    operator's (weight map, float32 weights) for solve_constrained_ir
+    (Burgers); without it every step solves lat32's operator.
 
     Returns (u, info): info has the inner's name, the iterations and the
     per-step outer rounds. A step that does not converge raises on a CUDA
@@ -109,10 +116,14 @@ def step_loop(
     u = u0
     names, rounds, iterations, residual, failed = [], [], 0, None, None
     for n, t in enumerate(ts):
-        b = mass_apply(u) + dt * loads[n]
+        b = mass_apply(u)
+        if mass_scale != 1.0:
+            b = mass_scale * b
+        b = b + loads[n]
         x, its, residual, conv, name = dispatch.solve_constrained_ir(
             op, b, mask, g_fn(t), lat32, rtol, atol,
             inner=inner, inner_iters=inner_iters, max_outer=dispatch.STEP_MAX_OUTER,
+            step_weights=None if step_weights is None else step_weights(u),
         )
         names.append(name)
         rounds.append(its // inner_iters)
@@ -199,7 +210,7 @@ class HeatSolver:
         def run():
             loads = step_loads(ctx, [local_load(cb, f_q) for f_q in f_steps(qpts, ts)])
             u, info = step_loop(
-                op, lat32, mass_apply, u0_dev, loads, g_fn, ts, dt, ctx.mask, rtol, atol,
+                op, lat32, mass_apply, u0_dev, dt * loads, g_fn, ts, ctx.mask, rtol, atol,
                 inner="cg", inner_iters=n_inner,
             )
             if "iterative_failed" in info:

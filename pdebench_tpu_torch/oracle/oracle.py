@@ -1,9 +1,9 @@
 """Oracle dispatcher: case pde type -> solver on an explicit device.
 
 Port of pdebench_tpu/oracle/oracle.py. Poisson, Helmholtz, linear
-elasticity, Navier-Stokes, heat, biharmonic and convection-diffusion are
-ported; the other 7 PDE types of the reference raise NotImplementedError
-until their slice lands.
+elasticity, Navier-Stokes, heat, biharmonic, convection-diffusion,
+reaction-diffusion and Burgers are ported; the other 5 PDE types of the
+reference raise NotImplementedError until their slice lands.
 """
 
 from __future__ import annotations
@@ -23,12 +23,11 @@ _SOLVERS = {
     "heat": ("heat", "HeatSolver"),
     "biharmonic": ("biharmonic", "BiharmonicSolver"),
     "convection_diffusion": ("convection_diffusion", "ConvectionDiffusionSolver"),
+    "reaction_diffusion": ("reaction_diffusion", "ReactionDiffusionSolver"),
+    "burgers": ("burgers", "BurgersSolver"),
 }
 
-_NOT_PORTED = (
-    "wave", "reaction_diffusion", "burgers",
-    "stokes", "darcy", "hyperelasticity", "cahn_hilliard",
-)
+_NOT_PORTED = ("wave", "stokes", "darcy", "hyperelasticity", "cahn_hilliard")
 
 
 class OracleSolver:

@@ -209,6 +209,50 @@ def stencil_appliers64(lat32, dofmap, *A_locals) -> Optional[list]:
     return [make(a) for a in A_locals]
 
 
+# the reference's size gate of the bilinear weight build: its host tensor
+# T has n_cells * nl^3 entries (reference reaction_diffusion.py:181,
+# burgers.py:135)
+BILINEAR_MAX_ENTRIES = 3e7
+
+
+def bilinear_step_lattice(ctx: ScalarContext, A_const, T_fn: Callable):
+    """The pieces of a per-step operator A_const + N(u), N linear in a
+    nodal field u with cell tensor T (c, nl, nl, nl): (lat32, wmap, bwm),
+    A_const's f32 lattice operator with the hierarchy that preconditions
+    every step, the weight map of the cells' node pairs on its lattice
+    (the step weights' offsets) and the bilinear map of T_fn() on it, or
+    None where T would hold more than BILINEAR_MAX_ENTRIES (the reference
+    then scatters each step's cell batch through the weight map).
+
+    Raises NotImplementedError where the reference leaves the lattice for
+    its cell-apply solve, which is not ported: the dofs form no lattice,
+    no hierarchy attaches (fewer than GMG_MIN_DOFS dofs, or its coarsest
+    level too large), or the node pairs reach beyond the weight map's
+    pad."""
+    from ..solvers.dispatch import GMG_MIN_DOFS
+    from ..solvers.stencil import BilinearLatticeWeightMap, lattice_weight_map
+
+    space = ctx.space
+    lat32 = maybe_lattice32(ctx, A_const)
+    if lat32 is None:
+        raise NotImplementedError("per-step operators on meshes whose dofs form no lattice are not ported yet")
+    failed = attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
+    if lat32.gmg is None:
+        raise NotImplementedError(
+            f"a per-step lattice solve needs a GMG hierarchy, and none attaches here "
+            f"({space.ndof} dofs, the gate is {GMG_MIN_DOFS}"
+            + (f"; {failed}" if failed else "") + "): the reference's cell-apply solve "
+            "is not ported yet"
+        )
+    wmap = lattice_weight_map(lat32.lattice, space.dofmap_scalar)
+    if wmap is None:
+        raise NotImplementedError("per-step weights of node pairs reaching beyond 4 lattice sites are not ported yet")
+    c, nl = space.dofmap_scalar.shape
+    if c * nl**3 > BILINEAR_MAX_ENTRIES:
+        return lat32, wmap, None
+    return lat32, wmap, BilinearLatticeWeightMap(wmap, lat32.lattice, space.dofmap_scalar, T_fn())
+
+
 def maybe_block_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
     """Block-stencil (f32) form of a VECTOR operator on a node lattice
     (structured meshes); None otherwise. 3-D block lattices have no

@@ -26,6 +26,10 @@ CUDA kernel, "-torch" its plain version (CPU tensors):
                 "gmres+fused-richardson-cuda" / "-torch" (other surrogate
                 hierarchies), "gmres+vcycle" (padded or own-operator
                 hierarchies), "gmres+jacobi" (no hierarchy)
+  per-step:     "gmres+vcycle" (`step_weights`: an operator that changes
+                every step or Newton iteration, its float32 weights given,
+                the constant part's hierarchy as preconditioner; Burgers,
+                the reaction Jacobian)
   host:         "host-lu"
 
 The routes and names are the same on 2-D and 3-D scalar lattices; block
@@ -37,7 +41,7 @@ Port of the stencil-IR route of pdebench_tpu/solvers/dispatch.py.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,7 +112,7 @@ def _fused(gmg, key, build):
 
 
 def solve_constrained_ir(
-    op: LocalOperator,
+    op: Optional[LocalOperator],
     b: torch.Tensor,
     mask: torch.Tensor,
     g: torch.Tensor,
@@ -119,23 +123,39 @@ def solve_constrained_ir(
     inner: str,
     inner_iters: int,
     max_outer: int,
+    step_weights=None,
 ):
-    """Mixed-precision constrained solve of a constant lattice operator:
-    the f64 outer applies lattice32.W_f64 as a stencil, the f32 inner
-    ("cg" or "gmres") runs in lattice ordering (the dof <-> lattice
-    permutation happens once per outer round only). `op` (the cell-local
-    form of the same operator) feeds the Jacobi diagonal when the lattice
-    has no GMG hierarchy.
+    """Mixed-precision constrained solve of a lattice operator: the f64
+    outer applies lattice32.W_f64 as a stencil, the f32 inner ("cg" or
+    "gmres") runs in lattice ordering (the dof <-> lattice permutation
+    happens once per outer round only). `op` (the cell-local form of the
+    same operator) feeds the Jacobi diagonal when the lattice has no GMG
+    hierarchy.
+
+    step_weights=(wmap, W32): a per-step operator on lattice32's lattice
+    (Burgers' lagged convection, a Newton Jacobian), its float32 weights
+    W32 on wmap's offsets. The f64 outer applies W32 CAST to f64 (the
+    reference's stencil-cast outer: it converges to the operator of the
+    float32 weights, not to the float64 assembly's), the f32 inner applies
+    W32, and lattice32's hierarchy of the constant part preconditions a
+    GMRES inner through the PyTorch V-cycle ("gmres+vcycle"); every apply
+    is one stencil kernel launch on CUDA tensors. `op` is not used.
 
     Returns (x, iterations, residual, converged, inner_name).
     """
     emb, inv = lattice32.embedding, lattice32.inv_j
     gshape = lattice32.grid_shape
-    W64 = lattice32.W_f64
+    if step_weights is None:
+        apply_w, W32, W64 = lattice32.apply_grid_w, lattice32.W, lattice32.W_f64
+    else:
+        if inner != "gmres" or lattice32.gmg is None:
+            raise ValueError("a per-step operator takes a GMRES inner on a lattice with a hierarchy")
+        wmap, W32 = step_weights
+        apply_w, W64 = wmap.apply_grid, W32.to(b.dtype)
 
     def raw64(v):
         v_lat = emb.embed(v, 0.0).reshape(gshape)
-        return lattice32.apply_grid_w(W64, v_lat).reshape(-1)[inv]
+        return apply_w(W64, v_lat).reshape(-1)[inv]
 
     A64 = constrained_operator(raw64, mask)
     rhs = constrained_rhs(raw64, b, mask, g)
@@ -143,11 +163,14 @@ def solve_constrained_ir(
 
     # absent sites of masked lattices are treated as constrained
     mask_lat = emb.embed(mask, True)
-    inner_custom, M32, inner_name = _inner_route(op, lattice32, mask_lat, inner, inner_iters)
+    if step_weights is None:
+        inner_custom, M32, inner_name = _inner_route(op, lattice32, mask_lat, inner, inner_iters)
+    else:
+        inner_custom, M32, inner_name = None, _vcycle(lattice32), "gmres+vcycle"
 
     def A32(v_lat):
         vz = torch.where(mask_lat, 0.0, v_lat)
-        y = lattice32.apply_grid(vz.reshape(gshape)).reshape(-1)
+        y = apply_w(W32, vz.reshape(gshape)).reshape(-1)
         return torch.where(mask_lat, v_lat, y)
 
     x, info = refined_solve(
@@ -231,10 +254,28 @@ def _inner_route(op: LocalOperator, lattice32, mask_lat: torch.Tensor, inner: st
         # padded hierarchies, and own-operator hierarchies under gmres
         # (the undamped Richardson chain is not contractive on strongly
         # nonsymmetric operators): the V-cycle in PyTorch ops
-        vcyc = gmg.precond()
-        M32 = lambda r_lat: vcyc(r_lat.reshape(gshape)).reshape(-1)
+        M32 = _vcycle(lattice32)
         inner_name = "stencil-cg" if inner == "cg" else "gmres+vcycle"
     return inner_custom, M32, inner_name
+
+
+def _vcycle(lattice32):
+    """The PyTorch V-cycle of lattice32's hierarchy on flat lattice
+    vectors (its levels' applies are stencil kernel launches)."""
+    gshape = lattice32.grid_shape
+    vcyc = lattice32.gmg.precond()
+    return lambda r_lat: vcyc(r_lat.reshape(gshape)).reshape(-1)
+
+
+def krylov_method(opts: Dict[str, Any]) -> str:
+    """A case's PETSc-style ksp_type as the Krylov method its solve
+    reports: cg (cg or minres), bicgstab, or gmres."""
+    ksp = str(opts.get("ksp_type", "cg")).lower()
+    if ksp in ("cg", "minres"):
+        return "cg"
+    if ksp == "bicgstab":
+        return "bicgstab"
+    return "gmres"
 
 
 def solve_linear(

@@ -3,6 +3,7 @@
     python3 scripts/torch_kernel_times.py [--root DIR] [--3d]
     python3 scripts/torch_kernel_times.py [--root DIR] --block-variants
     python3 scripts/torch_kernel_times.py [--root DIR] --stencil
+    python3 scripts/torch_kernel_times.py [--root DIR] --weights
 
 Builds the operators and hierarchies of chip_smoke.py's 2-D cases (with
 --3d also its 3-D ones) through the `chip_smoke.py` of the checkout at DIR
@@ -33,7 +34,12 @@ kernel #4 runs, on both elasticity
 hierarchies, as built by default and with CTA 0 on the coarsest level
 alone (`cta_levels=1`), where the checkout's builder takes that
 argument: the variants in turns, forward and then backward, each the
-median of 5 runs.
+median of 5 runs. With --weights only the per-step weight build runs
+(`BilinearLatticeWeightMap.weights_w`, PyTorch, no kernel of its own) on
+the first step of burgers_square_v1 and reaction_diffusion_allen_cahn_p2,
+as `chip_smoke.py` phase 3g sets them up: the median over 5 runs of 20
+back-to-back builds between two CUDA events, the device time a build
+(profiler) and the bytes of P on the card.
 Prints the card's name and power limit, then one JSON line
 {"root": DIR, "ms": {"<kernel> <case>": ms, ...}, "device_us": {...}}.
 
@@ -149,12 +155,30 @@ def stencil_times(cs, cases, dev, rng, ms, device_us) -> None:
                    f"{str(W.dtype)[6:]}", wm.apply_grid, W, u)
 
 
+WEIGHT_CASES = ("burgers_square_v1", "reaction_diffusion_allen_cahn_p2")
+
+
+def weight_times(cs, dev, ms, device_us) -> None:
+    """The per-step weight build at the main path's shapes (module
+    docstring)."""
+    cases = cs.load_cases(set(WEIGHT_CASES))
+    for cid in WEIGHT_CASES:
+        wm, bwm, P, _, u_lat = cs.step_weight_operator(cases[cid], dev)
+        key = f"weights_w {cid} {'x'.join(map(str, wm.shape))}"
+        ms[key] = cs.median_ms(lambda: bwm.weights_w(P, u_lat), calls=20, samples=5)
+        device_us[key] = profiled_us(lambda: bwm.weights_w(P, u_lat))
+        print(f"{key}: {ms[key]:.4f} ms a build (events), {device_us[key]:.2f} us device time, "
+              f"P {P.P.numel() * P.P.element_size() / 1e6:.1f} MB {str(P.P.dtype)[6:]}", flush=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="checkout whose package and chip_smoke.py run")
     ap.add_argument("--3d", dest="three_d", action="store_true", help="time the 3-D cases too")
     ap.add_argument("--stencil", action="store_true",
                     help="time only the lattice applies (events and device time)")
+    ap.add_argument("--weights", action="store_true",
+                    help="time only the per-step weight build (events and device time)")
     ap.add_argument("--block-variants", action="store_true",
                     help="time only kernel #4, in its variants, in turns")
     args = ap.parse_args(argv)
@@ -189,6 +213,10 @@ def main(argv) -> int:
     if args.block_variants:
         block_variants(cs, gmg_fused, cases, elasticity, dev, rng, ms)
         print(json.dumps({"root": args.root, "ms": ms}), flush=True)
+        return 0
+    if args.weights:
+        weight_times(cs, dev, ms, device_us)
+        print(json.dumps({"root": args.root, "ms": ms, "device_us": device_us}), flush=True)
         return 0
     if args.stencil:
         stencil_times(cs, cases, dev, rng, ms, device_us)

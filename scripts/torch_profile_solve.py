@@ -11,8 +11,10 @@ in 3-D, Navier-Stokes): one OracleSolver(device="cuda") solve to
 build the kernels and warm every cache, then a second solve whose warm
 linear solve (the oracle's second `solve_linear` call, the one
 `t_warm` times; for Navier-Stokes its second `NavierStokesProblem.run`,
-the whole warm Newton solve; for heat and transient convection-diffusion
-the second `heat.step_loop`, the warm run's whole step loop) runs under
+the whole warm Newton solve; for heat, transient convection-diffusion,
+linear reaction-diffusion and Burgers the second `heat.step_loop`, the
+warm run's whole step loop; for nonlinear reaction-diffusion the second
+`reaction_diffusion.newton_steps`) runs under
 torch.profiler. Prints per case the wall time of
 that call, the device busy time (the union of the device activity
 intervals the profiler recorded), the idle share 1 - busy / wall, and the
@@ -214,7 +216,13 @@ def main(argv) -> int:
             # wrapper gets the problem as its first argument)
             out = profile_case(configs[cid], module.NavierStokesProblem, "run")
             what = "Newton run"
-        elif pde == "heat" or (pde == "convection_diffusion" and configs[cid]["pde"].get("time")):
+        elif pde == "reaction_diffusion" and module.reaction_expr(
+                configs[cid]["pde"]["pde_params"].get("reaction", {}))[1]:
+            # the whole warm Newton step loop
+            out = profile_case(configs[cid], module, "newton_steps")
+            what = "Newton step loop"
+        elif pde in ("heat", "reaction_diffusion", "burgers") or (
+                pde == "convection_diffusion" and configs[cid]["pde"].get("time")):
             heat = importlib.import_module("pdebench_tpu_torch.oracle.heat")
             out = profile_case(configs[cid], heat, "step_loop")
             what = "step loop"
@@ -227,7 +235,9 @@ def main(argv) -> int:
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / out['wall']:.3f}; inner "
               f"{info.get('inner')}, iterations {info.get('iterations')}, Krylov iterations "
               f"{info.get('kry_its')}"
-              + (f", outer rounds per step {info['outer_rounds']}" if "outer_rounds" in info else ""),
+              + (f", outer rounds per step {info['outer_rounds']}" if "outer_rounds" in info else "")
+              + (f", Newton iterations per step {info['newton_iterations']}"
+                 if "newton_iterations" in info else ""),
               flush=True)
         print(out["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=12),
               flush=True)

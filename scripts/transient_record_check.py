@@ -1,17 +1,30 @@
-"""Why a transient no-exact case's recorded baseline_error differs from
-today's oracle: solve it with the JAX package on the CPU twice, with the
-reference re-solve as the package makes it now (dt / 2, or the `time` of
-reference_config: commit 1101cb6) and with the re-solve at the case's
-own dt (what the package did before that commit), beside the record in
+"""Why a case's recorded baseline_error differs from today's oracle:
+solve it with the JAX package on the CPU twice, as the package solves it
+now and as it did when the record was written, beside the record in
 results/oracle_sweep_progress.jsonl.
 
+The default second solve is a transient no-exact case's with its
+reference re-solve at the case's own dt (today's re-solve takes dt / 2, or
+the `time` of reference_config: the package's commit 1101cb6).
+--cell-outer makes it a solve whose per-step systems (Burgers) take the
+package's exact cell-based f64 outer (PDEBENCH_TPU_STEP_OUTER=cell),
+where today's outer applies the float32 step weights cast to f64.
+
     python3 scripts/transient_record_check.py heat_no_exact [case_id ...]
+    python3 scripts/transient_record_check.py --pde reaction_diffusion --domain unit_square
+    python3 scripts/transient_record_check.py --cell-outer --pde burgers --domain unit_square
+
+--pde and --domain take every case of that pde type and domain with no
+manufactured solution and a reference_config (the 7 unit_square
+reaction-diffusion ones, the 15 heat ones, ...), with --cell-outer every
+case of them, after the ids given.
 
 Runs the JAX package on the CPU only (it sets jax_platforms to cpu).
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import os
@@ -21,7 +34,16 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main(ids) -> int:
+def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("ids", nargs="*")
+    ap.add_argument("--pde")
+    ap.add_argument("--domain")
+    ap.add_argument("--cell-outer", action="store_true",
+                    help="the second solve with the exact cell-based f64 outer")
+    args = ap.parse_args(argv)
+    if bool(args.pde) != bool(args.domain) or not (args.ids or args.pde):
+        ap.error("give case ids, or --pde and --domain")
     sys.path.insert(0, ROOT)
     import jax
 
@@ -33,19 +55,36 @@ def main(ids) -> int:
         cases = {c["id"]: c["oracle_config"] for c in map(json.loads, fh)}
     with open(os.path.join(ROOT, "results", "oracle_sweep_progress.jsonl")) as fh:
         records = {r["case_id"]: r.get("baseline_error") for r in map(json.loads, fh) if r.get("ok")}
+    ids = list(args.ids)
+    if args.pde:
+        ids += [
+            cid for cid, oc in cases.items()
+            if oc["pde"]["type"] == args.pde and oc["domain"]["type"] == args.domain
+            and (args.cell_outer or (
+                not oc["pde"].get("manufactured_solution") and "reference_config" in oc))
+            and cid not in ids
+        ]
     merge = scalar.merge_reference_config
     for cid in ids:
         t0 = time.perf_counter()
         now = OracleSolver().solve(copy.deepcopy(cases[cid])).baseline_error
         cfg = copy.deepcopy(cases[cid])
-        cfg["reference_config"].pop("time", None)
-        scalar.merge_reference_config = lambda c, refine_dt=None: merge(c)
-        try:
-            same_dt = OracleSolver().solve(cfg).baseline_error
-        finally:
-            scalar.merge_reference_config = merge
-        print(f"{cid}: re-solve at dt / 2 (today) {now!r}; re-solve at the case's dt "
-              f"{same_dt!r}; recorded {records.get(cid)!r} "
+        if args.cell_outer:
+            os.environ["PDEBENCH_TPU_STEP_OUTER"] = "cell"
+            try:
+                then = OracleSolver().solve(cfg).baseline_error
+            finally:
+                del os.environ["PDEBENCH_TPU_STEP_OUTER"]
+            what = "today (the float32 step weights cast to f64 in the outer)", "cell-based f64 outer"
+        else:
+            cfg["reference_config"].pop("time", None)
+            scalar.merge_reference_config = lambda c, refine_dt=None: merge(c)
+            try:
+                then = OracleSolver().solve(cfg).baseline_error
+            finally:
+                scalar.merge_reference_config = merge
+            what = "re-solve at dt / 2 (today)", "re-solve at the case's dt"
+        print(f"{cid}: {what[0]} {now!r}; {what[1]} {then!r}; recorded {records.get(cid)!r} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return 0
 

@@ -7,6 +7,7 @@ neither jax nor the JAX package, so it also runs on a machine without jax
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import copy
 import json
 from pathlib import Path
 
@@ -941,6 +942,10 @@ def test_unconverged_ns_linear_solve_on_cuda_raises(dev, monkeypatch):
 # case id -> recorded baseline_error (results/oracle_sweep_progress.jsonl)
 HEAT_LARGE_KAPPA = 4.25500140632074e-4
 CONVDIFF_PARABOLIC = 7.050554387484011e-4
+RD_LINEAR_BASIC = 0.0011817187220116857
+# the JAX package's CPU run of the case today (chip_smoke.py's BURGERS: its
+# record predates the package's float32-weight outer for per-step systems)
+BURGERS_SQUARE_V1 = 0.0019299427200282846
 
 
 def _config(case_id):
@@ -1005,6 +1010,8 @@ def test_mass_apply_matches_plain(dev, case_id):
 @pytest.mark.parametrize("case_id,ref_err,inner", [
     ("heat_large_kappa_fast_diffusion", HEAT_LARGE_KAPPA, "fused-cg-cuda"),
     ("convdiff_parabolic_basic_manufactured", CONVDIFF_PARABOLIC, "gmres+vcycle"),
+    ("reaction_diffusion_linear_basic", RD_LINEAR_BASIC, "fused-cg-cuda"),
+    ("burgers_square_v1", BURGERS_SQUARE_V1, "gmres+vcycle"),
 ])
 def test_step_loop_oracles_run_on_the_card(dev, case_id, ref_err, inner):
     from pdebench_tpu_torch.oracle import OracleSolver
@@ -1035,3 +1042,75 @@ def test_unconverged_heat_step_on_cuda_raises(dev, monkeypatch):
     cfg["mesh"]["resolution"] = 32
     with pytest.raises(RuntimeError, match=r"step 1 of 10 did not converge.*'residual': 0\.5"):
         OracleSolver(device=dev).solve(cfg)
+
+
+def test_step_weights_on_the_card_match_the_cpu_build(dev):
+    """Burgers' per-step weights W_c + W(u) (P2, 73 x 73 nodes): the same
+    float32 bits on the card as on the CPU (exact float64 products, one
+    float32 rounding an add), on every call; then one stencil kernel
+    launch with them, within tolerance of the plain version."""
+    from pdebench_tpu_torch.oracle import base, burgers, scalar
+
+    cfg = _config("burgers_square_v1")
+    cfg["mesh"]["resolution"] = 36
+    u_exact = cfg["pde"]["manufactured_solution"]["u"]
+    ctx = scalar.setup_scalar(scalar.override_bc_with_mms(cfg, u_exact), dev)
+    A_c, _ = burgers.step_matrices(ctx.cb, 0.01, 0.01)
+    lat, wm, bwm = scalar.bilinear_step_lattice(ctx, A_c, lambda: burgers.advection_tensor(ctx.cb))
+    u = base.interpolate_nodal(ctx.space, u_exact, t=0.0).astype(np.float32)
+    u_lat = torch.as_tensor(lat.lattice.embed_np(u, 0.0).reshape(wm.shape))
+    W_c = torch.as_tensor(wm.weights_np(A_c)).to(torch.float32)
+    want = W_c + bwm.weights_w(bwm.device_stack("cpu"), u_lat)
+    P = bwm.device_stack(dev)
+    for _ in range(2):
+        got = W_c.to(dev) + bwm.weights_w(P, u_lat.to(dev))
+        assert torch.equal(got.cpu(), want)
+    v = torch.as_tensor(np.random.default_rng(7).standard_normal(wm.shape), dtype=torch.float32)
+    before = stencil_kernel.LAUNCHES
+    y = wm.apply_grid(got, v.to(dev))
+    assert stencil_kernel.LAUNCHES == before + 1
+    y_plain = stencil_kernel.stencil_plain(v, want, wm.offsets, wm.pad)
+    scale = float(y_plain.abs().max())
+    torch.testing.assert_close(y.cpu(), y_plain, rtol=TOL[torch.float32], atol=TOL[torch.float32] * scale)
+
+
+def test_unconverged_newton_step_on_cuda_raises(dev):
+    """A Newton step that stops above its tolerance (max_it 0) raises on
+    the card, naming the step."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    cfg = _config("reaction_diffusion_cubic_manufactured")
+    cfg["mesh"]["resolution"] = 72
+    cfg["oracle_solver"]["max_it"] = 0
+    with pytest.raises(RuntimeError, match=r"Newton step 1 of 40 did not converge"):
+        OracleSolver(device=dev).solve(cfg)
+
+
+def test_cell_batch_jacobian_on_the_card(dev, monkeypatch):
+    """Above the bilinear map's size gate (patched to 0 here) the Newton
+    Jacobian's weights come from the cell batch on the card, summed in a
+    fixed order (`LatticeWeightMap.weights`): reaction_diffusion_cubic_
+    manufactured at P1 resolution 72, 40 steps, every Newton step
+    converged, the same iteration counts on a second solve, and the grid
+    and error within 1e-7 / 1e-6 relative of the case solved through the
+    bilinear map."""
+    from pdebench_tpu_torch.oracle import OracleSolver, scalar
+
+    cfg = _config("reaction_diffusion_cubic_manufactured")
+    cfg["mesh"]["resolution"] = 72
+    bilinear = OracleSolver(device=dev).solve(copy.deepcopy(cfg))
+    assert bilinear.solver_info["jacobian_weights"] == "bilinear"
+    monkeypatch.setattr(scalar, "BILINEAR_MAX_ENTRIES", 0)
+    cells = []
+    for _ in range(2):
+        before = stencil_kernel.LAUNCHES
+        cells.append(OracleSolver(device=dev).solve(copy.deepcopy(cfg)))
+        assert stencil_kernel.LAUNCHES > before
+    for cell in cells:
+        info = cell.solver_info
+        assert info["jacobian_weights"] == "cell-batch" and info["inner"] == "gmres+vcycle"
+        assert "iterative_failed" not in info
+        assert info["linear_iterations"] == cells[0].solver_info["linear_iterations"]
+        gap = np.linalg.norm(cell.reference - bilinear.reference) / np.linalg.norm(bilinear.reference)
+        assert gap < 1e-7, gap
+        assert abs(cell.baseline_error - bilinear.baseline_error) <= 1e-6 * bilinear.baseline_error
