@@ -59,6 +59,15 @@ recorded values:
   Burgers     `burgers_square_v1` (P2 257^2, 10 steps): per-step
               advection weights, GMRES(20) with the PyTorch V-cycle, the
               stencil kernel in every apply
+  Stokes      `stokes_basic` (P2-P1 129^2 velocity nodes, 37,507 dofs) and
+              `stokes_p3p2_taylor_hood` (P3-P2 145^2, 51,459 dofs):
+              MINRES-IR with the block-diagonal saddle preconditioner, the
+              fused Richardson chain (2 V-cycles) per velocity component
+              in every application, the stencil kernel's d = 2 block form
+              in every lattice saddle apply (P2-P1); `stokes_3d_basic`
+              (P2-P1 17^3, 15,468 dofs): MINRES-IR with the diagonal
+              preconditioner, the stencil kernel's d = 3 block form in
+              every saddle apply
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -171,6 +180,20 @@ REACTION_DIFFUSION = {
 # outer (and the port's) applies the float32 step weights cast to f64, and
 # converges to that operator (PERF.md §6, the reaction-diffusion and Burgers findings)
 BURGERS = {"burgers_square_v1": (0.0019299427200282846, 1e-6, "gmres+vcycle")}
+# Stokes: case id -> (recorded baseline_error, relative tolerance, inner
+# on the card). MINRES-IR stops at rtol 1e-10 of the saddle residual; the
+# MINRES iterations must be the same on every solve of a case (every sum
+# of the solve runs in a fixed order). stokes_p3p2_taylor_hood's error,
+# 2.28e-8, is so small that where MINRES stops moves it by 1e-4: the exact
+# discrete solution (the host LU) gives 2.2814588133063066e-08, 8.9e-5 from
+# the record, and the JAX package's own CPU run of the case
+# 2.282309096721528e-08, 2.8e-4 from it (PERF.md §6, PR 12); 1e-4 holds
+# the card to the record as closely as the record holds to the exact answer
+STOKES_2D = {
+    "stokes_basic": (1.2921167378456228e-06, 1e-5, "minres+fused-richardson-cuda"),
+    "stokes_p3p2_taylor_hood": (2.281664383347875e-08, 1e-4, "minres+fused-richardson-cuda"),
+}
+STOKES_3D = {"stokes_3d_basic": (0.0012933509802431167, 1e-5, "minres+diag")}
 SOLVES = 3  # whole-case solves per case on each main path
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
 TOL_F32 = 1e-5
@@ -677,9 +700,10 @@ def check_fused_cg(ops, rng, dev, report, report_as, iters=25, phase="3"):
             report[report_as[cid]] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
 
 
-def check_richardson(ops, rng, dev, report, report_as):
-    """Kernel #3 on each Helmholtz case's surrogate hierarchy: 1 and 2
-    cycles per element, linearity, times at the main path's 2 cycles."""
+def check_richardson(ops, rng, dev, report, report_as, phase="3b"):
+    """Kernel #3 on each case's hierarchy (the Helmholtz surrogates, the
+    Stokes velocity block's scalar stiffness): 1 and 2 cycles per element,
+    linearity, times at the main path's 2 cycles."""
     from pdebench_tpu_torch.solvers import gmg_fused
 
     for cid, (lat, mask, _) in ops.items():
@@ -691,7 +715,7 @@ def check_richardson(ops, rng, dev, report, report_as):
             torch.cuda.synchronize()
             diff, scale, ok = allclose_scale(z1, zp, TOL_VCYCLE)
             lin, _, lin_ok = allclose_scale(rich(r1 + 2.0 * r2), z1 + 2.0 * rich(r2), TOL_LINEAR)
-            say("3b", f"fused_richardson {cid} {cycles} cycle(s) {len(rich.W)} levels "
+            say(phase, f"fused_richardson {cid} {cycles} cycle(s) {len(rich.W)} levels "
                       f"{[tuple(W.shape) for W in rich.W]}: max abs diff {diff:.3e} (scale "
                       f"{scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g}); linearity max abs diff "
                       f"{lin:.3e} (tol {TOL_LINEAR:g} of scale)")
@@ -701,7 +725,7 @@ def check_richardson(ops, rng, dev, report, report_as):
         ms = median_ms(lambda: rich(r1), calls=20, samples=5)
         plain_ms = median_ms(lambda: rich.plain(r1), calls=2, samples=3)
         b = richardson_bound(rich)
-        say("3b", f"fused_richardson {cid} 2 cycles, {cluster_line(rich)}: kernel {ms:.4f} ms, "
+        say(phase, f"fused_richardson {cid} 2 cycles, {cluster_line(rich)}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.3f} ms, "
                   f"bound {b['bound_ms']:.2e} ms ({b['bound_by']})")
         if cid in report_as:
@@ -981,6 +1005,89 @@ def check_step_weights(ops, rng, dev, report):
                          tol, report, (K + 2) * n, _taps_flops(K, n))
 
 
+def stokes_kernel_ops(prob_2d, prob_3d, rng, dev, report):
+    """(3h) Kernel #3 on stokes_basic's velocity hierarchy (the scalar
+    stiffness times nu, constrained where any component is), 1 and 2
+    cycles; #1's d = 3 block form on stokes_3d_basic's A-block weights (the
+    vector Laplacian, f64 and f32) and on random 3 x 3 weights (not
+    symmetric per site: a transposed read shows only there). Bound of the
+    d = 3 apply: the 9 K n weights and 3 n of u and y; 2 operations a tap
+    and coupling, 2 adds a row."""
+    from types import SimpleNamespace
+
+    from pdebench_tpu_torch.oracle import mixed
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    V = prob_2d.ctx.V
+    node_mask = prob_2d.mask_np[: V.ndof].reshape(-1, V.ncomp).any(axis=1)
+    lat = SimpleNamespace(gmg=prob_2d.parts.gmg, embedding=mixed.velocity_lattice(V))
+    check_richardson({"stokes_basic": (lat, node_mask, None)}, rng, dev, report,
+                     {"stokes_basic": "gmg_fused_richardson_stokes"}, phase="3h")
+    wm = prob_3d.sst.wmapA
+    lat3 = SimpleNamespace(shape=wm.shape, offsets=wm.offsets, pad=wm.pad, plan=wm.plan,
+                           apply_grid_w=wm.apply_grid)
+    n, K = int(np.prod(wm.shape)), len(wm.offsets)
+    W_rand = torch.as_tensor(rng.standard_normal(tuple(prob_3d.WA64.shape)), device=dev)
+    for W, tol in ((prob_3d.WA64, TOL_F64), (prob_3d.WA64.float(), TOL_F32), (W_rand, TOL_F64),
+                   (W_rand.float(), TOL_F32)):
+        u = torch.as_tensor(rng.standard_normal(wm.shape + (3,)), device=dev).to(W.dtype)
+        stencil_line("3h", "stencil_apply_block_3d", "stokes_3d_basic", lat3, W, u,
+                     stencil_kernel.block_stencil_plain, tol, report, K * 9 * n + 2 * 3 * n,
+                     9 * _taps_flops(K, n) + 6 * n)
+
+
+def drive_stokes(solver, cases, want, phase):
+    """SOLVES whole-case Stokes solves per case through OracleSolver, setup
+    caches cleared before each: the error within its tolerance of the
+    record, a finite grid of the case's shape, the inner asserted, no
+    unconverged solve, kernel #1 launched in every solve (the lattice and
+    3-D saddle applies) and #3 in every solve of a fused-richardson case,
+    and the same MINRES iterations on every solve."""
+    from pdebench_tpu_torch.oracle import base
+    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+
+    for cid, (ref_err, tol, inner_want) in want.items():
+        warm, total, its_seen = [], [], set()
+        for _ in range(SOLVES):
+            base.clear_setup_caches()
+            before = stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES_RICHARDSON
+            res = solver.solve(cases[cid])
+            n1 = stencil_kernel.LAUNCHES - before[0]
+            n3 = gmg_fused.LAUNCHES_RICHARDSON - before[1]
+            info = res.solver_info
+            grid = np.asarray(res.reference)
+            rel = abs(res.baseline_error - ref_err) / ref_err
+            say(phase, f"{cid}: baseline_error {res.baseline_error!r} (recorded "
+                       f"{ref_err!r}, rel {rel:.2e}, tol {tol:g}); baseline_time "
+                       f"{res.baseline_time:.4f} s, t_setup {info['t_setup']:.4f} s, "
+                       f"warm solve {info['t_warm']:.4f} s, cold {info['t_cold']:.4f} s; "
+                       f"inner {info.get('inner')}, layout {info.get('saddle_layout')}, MINRES "
+                       f"iterations {info.get('iterations')}, restarts {info.get('restarts')}, "
+                       f"residual {info.get('residual')!r}; launches in this solve (cold and "
+                       f"warm runs): #1 {n1}, #3 {n3}")
+            g = cases[cid]["output"]["grid"]
+            shape = tuple(g[k] for k in ("nz", "ny", "nx") if k in g)
+            if grid.shape != shape or not np.isfinite(grid).all():
+                raise AssertionError(f"{cid}: bad grid {grid.shape}, expected {shape}")
+            if not rel <= tol:
+                raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
+            if info.get("inner") != inner_want or "iterative_failed" in info:
+                raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
+            # P3-P2's flat saddle apply is the cell-based one: no #1 there
+            needs_1 = info.get("saddle_layout") == "lattice" or inner_want == "minres+diag"
+            if (needs_1 and n1 < 1) or ("fused-richardson" in inner_want and n3 < 1):
+                raise AssertionError(f"{cid}: kernel launches #1 {n1}, #3 {n3}")
+            its_seen.add((info["iterations"], info["restarts"]))
+            warm.append(info["t_warm"])
+            total.append(res.baseline_time)
+        if len(its_seen) != 1:
+            raise AssertionError(f"{cid}: the MINRES iterations moved between solves: {its_seen}")
+        say(phase, f"{cid} over {SOLVES} solves: warm solve median "
+                   f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
+                   f"baseline_time median {statistics.median(total):.4f} s "
+                   f"({min(total):.4f}-{max(total):.4f})")
+
+
 def drive_ns(solver, cases, want, phase):
     """SOLVES whole-case Navier-Stokes solves per case through
     OracleSolver, setup caches cleared before each: the error within its
@@ -1155,7 +1262,8 @@ def main() -> int:
 
     cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D)
                        | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
-                       | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS))
+                       | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS) | set(STOKES_2D)
+                       | set(STOKES_3D))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
@@ -1226,6 +1334,13 @@ def main() -> int:
         cases["reaction_diffusion_linear_basic"], dev)}, rng, dev, report,
         {"reaction_diffusion_linear_basic": "gmg_fused_cg_rd"}, iters=12, phase="3g")
 
+    # (3h) kernel #3 on stokes_basic's velocity hierarchy, #1's d = 3 block
+    # form on stokes_3d_basic's velocity block
+    from pdebench_tpu_torch.oracle.stokes import StokesProblem
+
+    stokes_kernel_ops(StokesProblem(cases["stokes_basic"], dev),
+                      StokesProblem(cases["stokes_3d_basic"], dev), rng, dev, report)
+
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
     # elasticity main path, (7) the 3-D main path, (8) the Navier-Stokes
     # main path: OracleSolver on the
@@ -1259,9 +1374,14 @@ def main() -> int:
         ("12", REACTION_DIFFUSION, {"stencil_apply_2d_step": "stencil_apply",
                                     "gmg_fused_cg_rd": "gmg_fused_cg"}),
         ("13", BURGERS, {"stencil_apply_2d_step": "stencil_apply"}),
+        # (14) Stokes on 2-D lattices, (14b) on 3-D ones
+        ("14", STOKES_2D, {"stencil_apply_block_2d": "stencil_apply",
+                           "gmg_fused_richardson_stokes": "gmg_fused_richardson"}),
+        ("14b", STOKES_3D, {"stencil_apply_block_3d": "stencil_apply"}),
     )
     drive_path = {"8": drive_ns, "9": drive_cases, "9b": drive_cases, "10": drive_cases,
-                  "11": drive_cases, "12": drive_cases, "13": drive_cases}
+                  "11": drive_cases, "12": drive_cases, "13": drive_cases, "14": drive_stokes,
+                  "14b": drive_stokes}
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
@@ -1312,6 +1432,12 @@ def main() -> int:
         # inner CG on a linear reaction's step hierarchy
         "stencil_apply_2d_step": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
         "gmg_fused_cg_rd": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        # mode "richardson" on the Stokes velocity block's scalar hierarchy
+        # (2 V-cycles a component, the reference's saddle preconditioner)
+        "gmg_fused_richardson_stokes": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        # the stencil kernel's d = 3 block form; the reference applies the
+        # 3-D Stokes velocity block in XLA (BlockLatticeWeightMap.apply_grid)
+        "stencil_apply_block_3d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil.py:658"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or

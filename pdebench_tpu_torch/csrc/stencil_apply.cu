@@ -1,5 +1,5 @@
-// Multi-tap lattice stencil apply for Hopper (sm_90a): scalar and d = 2
-// block stencils on 2-D and 3-D lattices, one launch per apply.
+// Multi-tap lattice stencil apply for Hopper (sm_90a): scalar, d = 2 and
+// d = 3 block stencils on 2-D and 3-D lattices, one launch per apply.
 //
 // Replaces the Pallas kernel pdebench_tpu/solvers/stencil_pallas.py
 // (`stencil_apply_2d`, kernel body `_kernel`) and the reference's XLA
@@ -11,8 +11,8 @@
 //     block:  y[s, a] = sum_b sum_k W[k, s, a, b] * u[s + o_k, b]
 //
 // zero outside the lattice. u and y have the lattice's own shape (nz, ny,
-// nx), interleaved (nz, ny, nx, 2) for a block stencil; W is (K, nz, ny,
-// nx) or (K, nz, ny, nx, 2, 2); all row-major and contiguous, float or
+// nx), interleaved (nz, ny, nx, d) for a block stencil; W is (K, nz, ny,
+// nx) or (K, nz, ny, nx, d, d); all row-major and contiguous, float or
 // double. A 2-D lattice is nz = 1 with dz = 0.
 //
 // What bounds it: bytes and launch latency. A call reads W once (K planes,
@@ -41,15 +41,22 @@
 //    edge; the flat kernel took 13.3 us a 33^3 f64 apply on the H100
 //    against this one's 8.4 (every warp of a 33-wide row holds edge sites
 //    and took the tested loop; PERF.md §6);
-//  - a block stencil in one launch: one thread computes both components
-//    of a site, reading W[k, s, :, :] as one 16-byte load (f32) or two
-//    (f64) and u[s + o_k, :] as one 8- or 16-byte load, and writes y[s, :]
-//    interleaved.
+//  - a d = 2 block stencil in one launch: one thread computes both
+//    components of a site, reading W[k, s, :, :] as one 16-byte load (f32)
+//    or two (f64) and u[s + o_k, :] as one 8- or 16-byte load, and writes
+//    y[s, :] interleaved;
+//  - a d = 3 block stencil (3-D Taylor-Hood velocity blocks) in one
+//    launch: a site's 3 values are 12 or 24 bytes, which no vector load
+//    takes aligned, so one thread computes one row (s, a) of a site with
+//    scalar loads: W[k, s, a, :] (a warp reads ~96 consecutive words of a
+//    tap's weights) and u[s + o_k, :] (the 3 threads of a site read the
+//    same words); 128-thread blocks, so a 17^3 lattice spreads over 116
+//    blocks.
 // Rounding is fixed with explicit fused multiply-adds: the scalar form
-// sums k = 0..K-1 into one accumulator; the block form sums each of the
-// four (a, b) couplings over k, then adds b = 0 and b = 1. The plain
-// versions (stencil_kernel.stencil_plain / block_stencil_plain) sum in the
-// same orders with the products rounded apart.
+// sums k = 0..K-1 into one accumulator; the block forms sum each (a, b)
+// coupling over k, then add b = 0, 1 (, 2) in order. The plain versions
+// (stencil_kernel.stencil_plain / block_stencil_plain) sum in the same
+// orders with the products rounded apart.
 // Tensor cores do not apply (no arithmetic intensity), nor do copy rings
 // of W (read once, no reuse to stage).
 
@@ -171,6 +178,38 @@ stencil_block2(const T* __restrict__ u, const T* __restrict__ W, T* __restrict__
   store_pair(y + 2 * (size_t)s, acc[0] + acc[1], acc[2] + acc[3]);
 }
 
+// d = 3 block stencils: thread t takes row a = t % 3 of site s = t / 3,
+// acc[b] += W[k, s, a, b] u[s + o_k, b] over k, then y[s, a] = (acc[0] +
+// acc[1]) + acc[2]
+constexpr int kThreads3 = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads3)
+stencil_block3(const T* __restrict__ u, const T* __restrict__ W, T* __restrict__ y,
+               const __grid_constant__ Plan p) {
+  const int t = blockIdx.x * kThreads3 + threadIdx.x;
+  if (t >= 3 * p.n) return;
+  const Site q = site_of(p, t / 3);
+  const T* w = W + 3 * (size_t)t;
+  const size_t step = 9 * (size_t)p.n;
+  T acc[3] = {T(0), T(0), T(0)};
+  if (__all_sync(__activemask(), q.interior)) {
+    for (int k = 0; k < p.K; ++k, w += step) {
+      const T* v = u + 3 * (q.s + p.off[k]);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) acc[b] = fma_rn(__ldg(w + b), __ldg(v + b), acc[b]);
+    }
+  } else {
+    for (int k = 0; k < p.K; ++k, w += step) {
+      if (!tap_inside(p, q, k)) continue;
+      const T* v = u + 3 * (q.s + p.off[k]);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) acc[b] = fma_rn(__ldg(w + b), __ldg(v + b), acc[b]);
+    }
+  }
+  y[t] = (acc[0] + acc[1]) + acc[2];
+}
+
 // 3-D scalar lattices, taps reaching at most kReach: a block takes a
 // kTZ x kTY x kTX tile of sites, copies the tile of u with its halo into
 // shared memory by cp.async (zero outside the lattice), then sums every
@@ -211,7 +250,7 @@ stencil_tiled(const T* __restrict__ u, const T* __restrict__ W, T* __restrict__ 
   y[s] = acc;
 }
 
-enum Kind { kFlat, kBlock2, kTiled };
+enum Kind { kFlat, kBlock2, kBlock3, kTiled };
 
 template <typename T, Kind kKind>
 int launch(const T* u, const T* W, T* y, const void* plan, void* stream) {
@@ -222,6 +261,9 @@ int launch(const T* u, const T* W, T* y, const void* plan, void* stream) {
     if (p.pz > kReach || p.py > kReach || p.px > kReach) return (int)cudaErrorInvalidValue;
     const dim3 grid((p.nx + kTX - 1) / kTX, (p.ny + kTY - 1) / kTY, (p.nz + kTZ - 1) / kTZ);
     stencil_tiled<T><<<grid, kThreads, 0, st>>>(u, W, y, p);
+  } else if (kKind == kBlock3) {
+    const int blocks = (3 * p.n + kThreads3 - 1) / kThreads3;
+    stencil_block3<T><<<blocks, kThreads3, 0, st>>>(u, W, y, p);
   } else {
     const int blocks = (p.n + kThreads - 1) / kThreads;
     if (kKind == kBlock2)
@@ -265,6 +307,16 @@ int stencil_apply_block2_f32(const float* u, const float* W, float* y, const voi
 int stencil_apply_block2_f64(const double* u, const double* W, double* y, const void* plan,
                              void* stream) {
   return launch<double, kBlock2>(u, W, y, plan, stream);
+}
+
+int stencil_apply_block3_f32(const float* u, const float* W, float* y, const void* plan,
+                             void* stream) {
+  return launch<float, kBlock3>(u, W, y, plan, stream);
+}
+
+int stencil_apply_block3_f64(const double* u, const double* W, double* y, const void* plan,
+                             void* stream) {
+  return launch<double, kBlock3>(u, W, y, plan, stream);
 }
 
 int stencil_plan_bytes() { return (int)sizeof(Plan); }

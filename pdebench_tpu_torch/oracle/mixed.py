@@ -11,27 +11,41 @@ Dirichlet velocity rows and one pinned pressure dof are eliminated
 symmetrically (constrained_operator). The direct path assembles a global
 CSR on the host and factorizes with SuperLU.
 
-Port of the parts of pdebench_tpu/oracle/mixed.py that the Navier-Stokes
-oracle runs: the context and its setup, the cell-batched saddle apply,
-the host CSR and the lumped pressure-mass Schur diagonal of
-`saddle_gmg_precond_parts` (its scalar-GMG velocity preconditioner
-belongs to the Stokes slice).
+The Stokes MINRES takes a block-diagonal SPD preconditioner: on 2-D
+lattices `saddle_gmg_precond_parts` (per velocity component a chain of
+SADDLE_VCYCLES V-cycles of the constrained scalar stiffness's hierarchy,
+kernel #3 where the hierarchy halves at every level; the lumped
+pressure-mass Schur diagonal), elsewhere `saddle_diag_precond`
+(diag(A) and the lumped pressure mass over nu).
+
+Port of pdebench_tpu/oracle/mixed.py without the reference's SA-AMG
+saddle preconditioner (unstructured meshes are not ported) and its
+Chebyshev pressure-mass solve (`Mp_solve`, read only by the Navier-Stokes
+opt-in PDEBENCH_TPU_NS_SCHUR=mass).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..fem import refelem, sampling
-from ..fem.assemble import CellBatch, cell_batch
+from ..fem.assemble import CellBatch, LocalOperator, cell_batch, local_stiffness
 from ..fem.mesh import Mesh
 from ..fem.spaces import FunctionSpace
+from ..solvers import dispatch
+from ..solvers.amg import constrained_csr
+from ..solvers.gmg import LatticeGMG, setup_gmg
+from ..solvers.stencil import Lattice, LatticeOperator, detect_lattice
 from . import base
+
+# V-cycles per velocity-component application of the saddle preconditioner
+# (the reference's PDEBENCH_TPU_SADDLE_VCYCLES, at its default)
+SADDLE_VCYCLES = 2
 
 
 @dataclass
@@ -164,6 +178,139 @@ def schur_diag(
     dMp = dMp / max(nu_visc, 1e-300)
     dMp = np.where(np.asarray(mask)[nu_dofs:], 1.0, dMp)
     return 1.0 / np.where(np.abs(dMp) > 1e-300, dMp, 1.0)
+
+
+def saddle_diag_precond(
+    A_loc: np.ndarray,
+    cb: CellBatch,
+    psi: np.ndarray,
+    dofmap_u: np.ndarray,
+    dofmap_p: np.ndarray,
+    nu_dofs: int,
+    np_dofs: int,
+    nu_visc: float,
+    mask: np.ndarray,
+) -> np.ndarray:
+    """The block-diagonal SPD preconditioner diag(A)^-1 (+) nu *
+    Mp_lumped^-1 as its diagonal (host), 1 on constrained dofs; M(r) is
+    this vector times r."""
+    dA = np.bincount(
+        np.asarray(dofmap_u).reshape(-1),
+        weights=np.einsum("cii->ci", np.asarray(A_loc)).reshape(-1),
+        minlength=nu_dofs,
+    )
+    Mp = np.einsum("qi,qj,cq->cij", psi, psi, cb.wdetJ, optimize=True)
+    dMp = np.bincount(
+        np.asarray(dofmap_p).reshape(-1),
+        weights=np.einsum("cii->ci", Mp).reshape(-1),
+        minlength=np_dofs,
+    )
+    diag = np.concatenate([dA, dMp / max(nu_visc, 1e-300)])
+    diag = np.where(np.asarray(mask), 1.0, diag)
+    return 1.0 / np.where(np.abs(diag) > 1e-300, diag, 1.0)
+
+
+def velocity_lattice(V: FunctionSpace) -> Optional[Lattice]:
+    """The lattice of V's scalar nodes where the stencil-GMG saddle
+    preconditioner takes it (2-D, every site a node: the meshes the port
+    builds), else None."""
+    lat = detect_lattice(V.dof_coords, allow_masked=False)
+    return lat if lat is not None and len(lat.shape) == 2 else None
+
+
+@dataclass
+class SaddlePrecondParts:
+    """The stencil-GMG saddle preconditioner's pieces, on a device.
+
+    `Mv` applies the per-component velocity solve to the blocked flat
+    velocity vector, `Mv_grid` to the (fine..., d) velocity lattice (the
+    component planes are the scalar hierarchy's grids: no dof <-> lattice
+    gather); `inv_p` is the lumped pressure-mass Schur diagonal (nu /
+    diag(M_p), float64); `mask_full` marks constrained mixed entries.
+    `route` names the velocity solve: "fused-richardson-cuda" (kernel #3,
+    SADDLE_VCYCLES V-cycles a launch), "fused-richardson-torch" (its plain
+    version, CPU tensors) or "vcycle" (an identity-padded hierarchy, or one
+    with no level above its dense coarse solve: one V-cycle in PyTorch
+    ops, as the reference takes one where its kernel builder refuses the
+    hierarchy)."""
+
+    Mv: Callable
+    Mv_grid: Callable
+    inv_p: torch.Tensor
+    mask_full: torch.Tensor
+    gmg: LatticeGMG
+    route: str
+
+
+def saddle_gmg_precond_parts(
+    V: FunctionSpace,
+    nu_visc: float,
+    cb: CellBatch,
+    psi: np.ndarray,
+    dofmap_p: np.ndarray,
+    np_dofs: int,
+    mask: np.ndarray,
+    device,
+) -> Optional[SaddlePrecondParts]:
+    """Stencil-GMG block preconditioner for Stokes on 2-D lattices, or None
+    where V's nodes do not form one (3-D, unstructured).
+
+    The velocity block is nu x blockdiag(scalar stiffness), so one scalar
+    hierarchy, coarsened from the constrained scalar stiffness stencil
+    (float32, a node constrained if any of its components is),
+    preconditions every component. Its solve is a linear chain of
+    SADDLE_VCYCLES V-cycles per component (z += V(r - A z)): kernel #3 on
+    hierarchies that halve at every level (dispatch.fused_gate), built
+    once per hierarchy; one PyTorch V-cycle on the others."""
+    lat = velocity_lattice(V)
+    if lat is None:
+        return None
+    device = torch.device(device)
+    d = V.ncomp
+    nu_dofs = V.ndof
+    mask_np = np.asarray(mask, dtype=bool)
+    mask_u = mask_np[:nu_dofs].reshape(-1, d).any(axis=1)
+    Ks = torch.as_tensor(local_stiffness(cb) * nu_visc)
+    A_bc = constrained_csr(LocalOperator(Ks, V.dofmap_scalar, V.n_scalar_dofs).to_scipy(), mask_u)
+    lat_bc = LatticeOperator(A_bc, lat, "cpu", dtype=torch.float32)
+    W_bc = lat_bc.W.numpy().astype(np.float64)
+    gmg = lat_bc.gmg = setup_gmg(W_bc, lat_bc.offsets, lat_bc.shape, device)
+    shape = lat_bc.shape
+    inv = torch.as_tensor(lat.inv, device=device)
+    fused = None
+    if dispatch.fused_gate(lat_bc):
+        from ..solvers.gmg_fused import build_fused_richardson
+
+        # None where the hierarchy has no level above the dense coarse one
+        fused = dispatch._fused(
+            gmg, ("richardson", SADDLE_VCYCLES),
+            lambda: build_fused_richardson(gmg, SADDLE_VCYCLES, device),
+        )
+    if fused is not None:
+        route = f"fused-richardson-{'cuda' if device.type == 'cuda' else 'torch'}"
+        solve_plane = lambda r: fused(r.reshape(-1)).reshape(shape)
+    else:
+        solve_plane, route = gmg.precond(), "vcycle"
+
+    def Mv(ru_flat):
+        ru = ru_flat.reshape(-1, d)
+        comps = [
+            solve_plane(lat.embed(ru[:, c].to(torch.float32), 0.0).reshape(shape)).reshape(-1)[inv]
+            for c in range(d)
+        ]
+        return torch.stack(comps, dim=1).reshape(-1).to(ru_flat.dtype)
+
+    def Mv_grid(r_grid):
+        comps = [solve_plane(r_grid[..., c].to(torch.float32).contiguous()) for c in range(d)]
+        return torch.stack(comps, dim=-1).to(r_grid.dtype)
+
+    inv_p = schur_diag(cb, psi, dofmap_p, np_dofs, nu_visc, mask_np, nu_dofs)
+    return SaddlePrecondParts(
+        Mv=Mv, Mv_grid=Mv_grid,
+        inv_p=torch.as_tensor(inv_p, dtype=torch.float64, device=device),
+        mask_full=torch.as_tensor(mask_np, device=device),
+        gmg=gmg, route=route,
+    )
 
 
 def saddle_to_scipy(

@@ -1,9 +1,10 @@
 """Oracle dispatcher: case pde type -> solver on an explicit device.
 
 Port of pdebench_tpu/oracle/oracle.py. Poisson, Helmholtz, linear
-elasticity, Navier-Stokes, heat, biharmonic, convection-diffusion,
-reaction-diffusion and Burgers are ported; the other 5 PDE types of the
-reference raise NotImplementedError until their slice lands.
+elasticity, Navier-Stokes, Stokes, heat, biharmonic,
+convection-diffusion, reaction-diffusion and Burgers are ported; the other
+4 PDE types of the reference raise NotImplementedError until their slice
+lands.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ _SOLVERS = {
     "helmholtz": ("helmholtz", "HelmholtzSolver"),
     "linear_elasticity": ("linear_elasticity", "LinearElasticitySolver"),
     "navier_stokes": ("navier_stokes", "NavierStokesSolver"),
+    "stokes": ("stokes", "StokesSolver"),
     "heat": ("heat", "HeatSolver"),
     "biharmonic": ("biharmonic", "BiharmonicSolver"),
     "convection_diffusion": ("convection_diffusion", "ConvectionDiffusionSolver"),
@@ -27,7 +29,7 @@ _SOLVERS = {
     "burgers": ("burgers", "BurgersSolver"),
 }
 
-_NOT_PORTED = ("wave", "stokes", "darcy", "hyperelasticity", "cahn_hilliard")
+_NOT_PORTED = ("wave", "darcy", "hyperelasticity", "cahn_hilliard")
 
 
 class OracleSolver:

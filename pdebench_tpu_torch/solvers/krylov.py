@@ -5,8 +5,8 @@ vector is a torch tensor on the solve's device. Convergence:
 ||r||_2 <= max(rtol * ||b||_2, atol), the PETSc KSP default the dataset's
 per-case rtol/atol assume.
 
-Port of pdebench_tpu/solvers/krylov.py (cg, refined_solve with its CG and
-GMRES inners, jacobi_preconditioner).
+Port of pdebench_tpu/solvers/krylov.py (cg, minres, refined_solve with
+its CG and GMRES inners, jacobi_preconditioner).
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ class KrylovInfo(NamedTuple):
     iterations: int
     residual: float
     converged: bool
+    # outer restarts run (minres; 0 for the other solvers)
+    restarts: int = 0
 
 
 def _tolerance(b: torch.Tensor, rtol: float, atol: float) -> float:
@@ -64,6 +66,122 @@ def cg(
         k += 1
         rn = float(torch.linalg.norm(r))
     return x, KrylovInfo(k, rn, rn <= tol)
+
+
+def minres(
+    A: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    M: Optional[Callable] = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-14,
+    maxiter: int = 10000,
+    A32: Optional[Callable] = None,
+):
+    """Preconditioned MINRES for symmetric (possibly indefinite) systems.
+
+    The preconditioner M must be SPD (applied as M ~ P^{-1}). Lanczos with
+    Givens rotations, the reference's recurrence term for term.
+
+    The recurrence's residual estimate (phibar) is on the preconditioned
+    residual and drifts from the true residual when M is applied in lower
+    precision (f32 V-cycles), so a run can exit early believing it
+    converged. Up to 4 outer restarts re-seed the Lanczos
+    recurrence from the true f64 residual until it meets
+    tol = rtol ||b|| + atol. A restart that does not lower the true
+    residual keeps the best iterate and ends the solve (`stalled`: the
+    next restart would repeat it). Each restart's recurrence runs while
+    its own count is below `maxiter`; the restarts stop once the count
+    over all of them reaches `maxiter`.
+
+    With `A32` (an f32 twin of A), each restart's recurrence solves the
+    correction equation in f32, M's output cast to f32 (MINRES-IR), 8
+    restarts are allowed, and a restart asks phibar for at most a
+    3e-7 relative reduction (what an f32 recurrence can close).
+
+    The recurrence's scalars stay on the device; each iteration reads
+    phibar once on the host, for the stop test.
+    """
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if M is None:
+        M = lambda r: r
+    restarts = 8 if A32 is not None else 4
+
+    def run0(r, factor):
+        """Lanczos from zero on the correction system A d = r, in r.dtype;
+        stops when phibar has dropped by `factor`. Returns (d, k)."""
+        dt = r.dtype
+        A_in = A32 if A32 is not None else A
+        eps = 1e-300 if dt == torch.float64 else 1e-30
+        zero = torch.zeros((), dtype=dt, device=r.device)
+        y = M(r).to(dt)
+        beta1 = torch.sqrt(torch.clamp(torch.dot(r, y), min=0.0))
+        tol = float(beta1 * torch.tensor(factor, dtype=torch.float64).to(dt))
+        x = torch.zeros_like(r)
+        r1 = r2 = r
+        w = w2 = torch.zeros_like(r)
+        oldb, beta, dbar, epsln, phibar = zero, beta1, zero, zero, beta1
+        cs, sn = zero - 1.0, zero
+        k = 0
+        while k < maxiter and float(phibar) > tol:
+            beta_s = torch.clamp(beta, min=eps)
+            v = y / beta_s
+            yv = A_in(v).to(dt)
+            if k >= 1:
+                yv = yv - (beta / torch.clamp(oldb, min=eps)) * r1
+            alfa = torch.dot(v, yv)
+            yv = yv - (alfa / beta_s) * r2
+            r1, r2 = r2, yv
+            y = M(yv).to(dt)
+            oldb = beta
+            beta = torch.sqrt(torch.clamp(torch.dot(yv, y), min=0.0))
+
+            oldeps = epsln
+            delta = cs * dbar + sn * alfa
+            gbar = sn * dbar - cs * alfa
+            epsln = sn * beta
+            dbar = -cs * beta
+
+            gamma = torch.clamp(torch.sqrt(gbar * gbar + beta * beta), min=eps)
+            cs = gbar / gamma
+            sn = beta / gamma
+            phi = cs * phibar
+            phibar = sn * phibar
+
+            w, w2 = (v - oldeps * w2 - delta * w) / gamma, w
+            x = x + phi * w
+            k += 1
+        return x, k
+
+    tol_true = float(torch.linalg.norm(b)) * rtol + atol
+    # the f32 recurrence can't close more than ~6 digits per restart
+    floor = 3e-7 if A32 is not None else 0.0
+
+    x = x0
+    r = b - A(x0)
+    res = float(torch.linalg.norm(r))
+    total = rs = 0
+    stalled = False
+    while res > tol_true and not stalled and rs < restarts and total < maxiter:
+        # relative reduction still needed, mapped into phibar's norm
+        factor = max(min(1.0, tol_true / max(res, 1e-300)), floor)
+        if A32 is not None:
+            d, k = run0(r.to(torch.float32), factor)
+            d = d.to(b.dtype)
+        else:
+            d, k = run0(r, factor)
+        x_new = x + d
+        r_new = b - A(x_new)
+        res_new = float(torch.linalg.norm(r_new))
+        total += k
+        rs += 1
+        # keep the best iterate: a restart that does not improve would
+        # repeat the same inner solve, so it ends the loop
+        stalled = not res_new < res
+        if not stalled:
+            x, r, res = x_new, r_new, res_new
+    return x, KrylovInfo(total, res, res <= tol_true, rs)
 
 
 def refined_solve(

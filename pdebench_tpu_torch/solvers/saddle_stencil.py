@@ -25,9 +25,14 @@ coarse site directly where a fine site is one, and a zero elsewhere.)
 Everything is dtype-polymorphic: the f32 twin runs the inner Krylov, the
 f64 twin gives the refinement outer an exact operator.
 
+`LatticeSaddleVectors` keeps a saddle solve's Krylov vectors in lattice
+layout, [u_lat (nf*d); p_lat (nc)]: one embed of the rhs and one extract
+of the solution per solve, no dof <-> lattice gather per iteration (the
+Stokes MINRES on its 2-D lattices).
+
 Port of pdebench_tpu/solvers/saddle_stencil.py (SaddleStencil,
-build_saddle_stencil). `LatticeSaddleVectors`, the MINRES init's lattice
-layout, belongs to the Stokes slice.
+LatticeSaddleVectors without the block-triangular `tri_M` of the
+reference's opt-in FGMRES routes, build_saddle_stencil).
 """
 
 from __future__ import annotations
@@ -190,6 +195,82 @@ class SaddleStencil:
             return torch.cat([self.extract_u(ru), self.extract_p(rp)]).to(x.dtype)
 
         return apply
+
+
+class LatticeSaddleVectors:
+    """Lattice-layout saddle Krylov vectors: [u_lat (nf*d); p_lat (nc)].
+
+    The flat-dof saddle iteration pays the dof <-> lattice gathers in
+    every operator and preconditioner apply; keeping every Krylov vector
+    in lattice layout moves them to one embed of the rhs and one extract
+    of the solution per solve. Absent masked-lattice sites and the
+    constrained dofs (Dirichlet velocity, the pinned pressure) are
+    constrained identity rows of `mask_lat`, so they stay exactly zero
+    through the constrained-operator wrappers and contribute nothing to
+    inner products.
+    """
+
+    def __init__(self, sst: SaddleStencil, mask_np: np.ndarray, device):
+        self.sst = sst
+        self.device = device
+        nf = int(np.prod(sst.fine))
+        nc = int(np.prod(sst.coarse))
+        self.n_u = nf * sst.d
+        self.n = nf * sst.d + nc
+        m = np.asarray(mask_np, dtype=bool)
+        mu = sst.blat.embed_np(m[: sst.n_u], True)
+        mp = sst.lat_p.embed_np(m[sst.n_u :], True)
+        self.mask_lat = torch.as_tensor(np.concatenate([mu, mp]), device=device)
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """[u; p] flat dof vector -> lattice-layout vector, 0 off the dofs."""
+        sst = self.sst
+        u = sst.blat.embed(x[: sst.n_u], 0.0)
+        p = sst.lat_p.embed(x[sst.n_u :], 0.0)
+        return torch.cat([u, p])
+
+    def extract(self, x_lat: torch.Tensor) -> torch.Tensor:
+        """Lattice-layout vector -> [u; p] flat dof vector."""
+        return torch.cat([self.sst.extract_u(x_lat[: self.n_u]), self.sst.extract_p(x_lat[self.n_u :])])
+
+    def apply_w(self, WA: torch.Tensor) -> Callable:
+        """Saddle apply on lattice-layout vectors, with A-block weights WA
+        (one block stencil launch on CUDA tensors); the G / G^T weights
+        follow WA's dtype."""
+        sst = self.sst
+        dv = sst.on(WA.device)
+        f32 = WA.dtype == torch.float32
+        WG = dv["WG32"] if f32 else dv["WG64"]
+        WGT = dv["WGT32"] if f32 else dv["WGT64"]
+
+        def apply(x):
+            u_lat = x[: self.n_u].to(WA.dtype).reshape(sst.fine + (sst.d,))
+            p_lat = x[self.n_u :].to(WA.dtype).reshape(sst.coarse)
+            ru = sst.wmapA.apply_grid(WA, u_lat) + sst.applyG(WG, p_lat)
+            rp = sst.applyGT(WGT, u_lat)
+            return torch.cat([ru.reshape(-1), rp.reshape(-1)]).to(x.dtype)
+
+        return apply
+
+    def block_diag_M(self, Mv_grid: Callable, schur: torch.Tensor) -> Callable:
+        """Block-diagonal SPD M (MINRES) on lattice-layout vectors:
+        Mv_grid on the (fine..., d) velocity block, the lattice-shaped
+        Schur diagonal `schur` (cast to r's dtype) on the pressure."""
+        sst = self.sst
+        mask_lat = self.mask_lat
+
+        def M(r):
+            zu = Mv_grid(r[: self.n_u].reshape(sst.fine + (sst.d,)))
+            zp = schur.to(r.dtype) * r[self.n_u :].reshape(sst.coarse)
+            return torch.where(mask_lat, r, torch.cat([zu.reshape(-1), zp.reshape(-1)]))
+
+        return M
+
+    def embed_plane_p(self, v_dof: np.ndarray) -> torch.Tensor:
+        """Host pressure dof vector -> coarse-lattice plane on the device,
+        1 off the dofs."""
+        plane = self.sst.lat_p.embed_np(np.asarray(v_dof), 1.0).reshape(self.sst.coarse)
+        return torch.as_tensor(plane, device=self.device)
 
 
 def build_saddle_stencil(V, Q, G_loc_np: np.ndarray) -> Optional[SaddleStencil]:

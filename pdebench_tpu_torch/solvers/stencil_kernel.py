@@ -10,8 +10,8 @@ shape (+ (d, d)). A `StencilPlan` is built once per operator or level: it
 checks the offsets and packs the taps for csrc/stencil_apply.cu. Calling
 it checks shapes, device and dtype; on a CPU tensor it runs the plain
 PyTorch version, on a CUDA tensor it launches the kernel (float32 or
-float64; block stencils with d = 2) and counts the launch in `LAUNCHES`:
-one launch per apply, scalar or block.
+float64; block stencils with d = 2 or 3) and counts the launch in
+`LAUNCHES`: one launch per apply, scalar or block.
 
 `stencil_apply_2d` keeps the signature of the Pallas kernel it replaces
 (pdebench_tpu/solvers/stencil_pallas.py::stencil_apply_2d), a zero-padded
@@ -42,7 +42,7 @@ _PLAN_HEAD = 8
 _PLAN_INTS = _PLAN_HEAD + MAX_TAPS + 3 * MAX_TAPS // 4
 # the kernel of each kind of plan, by dtype: the flat scalar kernel (2-D,
 # and 3-D taps reaching more than TILE_REACH), the tiled one (3-D taps
-# reaching at most TILE_REACH), the d = 2 block one
+# reaching at most TILE_REACH), the d = 2 and the d = 3 block ones
 TILE_REACH = 2  # kReach of csrc/stencil_apply.cu
 _ENTRY = {
     ("flat", torch.float32): "stencil_apply_f32",
@@ -51,6 +51,8 @@ _ENTRY = {
     ("tiled", torch.float64): "stencil_apply_3d_f64",
     ("block", torch.float32): "stencil_apply_block2_f32",
     ("block", torch.float64): "stencil_apply_block2_f64",
+    ("block3", torch.float32): "stencil_apply_block3_f32",
+    ("block3", torch.float64): "stencil_apply_block3_f64",
 }
 
 
@@ -146,12 +148,15 @@ class StencilPlan:
         self._buf = buf  # owned: the launch reads it through _plan_ptr
         self._plan_ptr = buf.ctypes.data
         self._kind = (
-            "block" if ncomp is not None
-            else "tiled" if dim == 3 and max(reach) <= TILE_REACH
+            "block" if ncomp == 2
+            else "block3" if ncomp == 3
+            else "tiled" if ncomp is None and dim == 3 and max(reach) <= TILE_REACH
             else "flat"
         )
         # what the kernels do not take; raised at the first CUDA call
-        self._refused = f"the block kernel takes d = 2, not {ncomp}" if ncomp not in (None, 2) else None
+        self._refused = (
+            f"the block kernels take d = 2 or 3, not {ncomp}" if ncomp not in (None, 2, 3) else None
+        )
 
     def __call__(self, W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         if W.shape != self.w_shape or u.shape != self.u_shape:
@@ -176,8 +181,8 @@ class StencilPlan:
         W, u = W.contiguous(), u.contiguous()
         y = torch.empty(self.u_shape, dtype=W.dtype, device=W.device)
         ptrs = (u.data_ptr(), W.data_ptr(), y.data_ptr())
-        if self.ncomp and (ptrs[0] | ptrs[1]) % 16:
-            raise ValueError("the block kernel needs W and u aligned to 16 bytes")
+        if self.ncomp == 2 and (ptrs[0] | ptrs[1]) % 16:
+            raise ValueError("the d = 2 block kernel needs W and u aligned to 16 bytes")
         lib = _lib()
         code = getattr(lib, _ENTRY[self._kind, W.dtype])(
             *ptrs, self._plan_ptr, torch._C._cuda_getCurrentRawStream(W.device.index)

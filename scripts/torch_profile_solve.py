@@ -14,7 +14,8 @@ linear solve (the oracle's second `solve_linear` call, the one
 the whole warm Newton solve; for heat, transient convection-diffusion,
 linear reaction-diffusion and Burgers the second `heat.step_loop`, the
 warm run's whole step loop; for nonlinear reaction-diffusion the second
-`reaction_diffusion.newton_steps`) runs under
+`reaction_diffusion.newton_steps`; for Stokes the second
+`StokesProblem.run`, the warm MINRES-IR) runs under
 torch.profiler. Prints per case the wall time of
 that call, the device busy time (the union of the device activity
 intervals the profiler recorded), the idle share 1 - busy / wall, and the
@@ -216,6 +217,11 @@ def main(argv) -> int:
             # wrapper gets the problem as its first argument)
             out = profile_case(configs[cid], module.NavierStokesProblem, "run")
             what = "Newton run"
+        elif pde == "stokes":
+            # the whole warm solve: the MINRES-IR (or the host LU) and the
+            # grid sampling
+            out = profile_case(configs[cid], module.StokesProblem, "run")
+            what = "Stokes run"
         elif pde == "reaction_diffusion" and module.reaction_expr(
                 configs[cid]["pde"]["pde_params"].get("reaction", {}))[1]:
             # the whole warm Newton step loop
@@ -235,6 +241,7 @@ def main(argv) -> int:
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / out['wall']:.3f}; inner "
               f"{info.get('inner')}, iterations {info.get('iterations')}, Krylov iterations "
               f"{info.get('kry_its')}"
+              + (f", restarts {info['restarts']}" if "restarts" in info else "")
               + (f", outer rounds per step {info['outer_rounds']}" if "outer_rounds" in info else "")
               + (f", Newton iterations per step {info['newton_iterations']}"
                  if "newton_iterations" in info else ""),

@@ -135,7 +135,8 @@ def main(argv) -> int:
                 routes.append(r)
         print(f"{cid}: dofs {res.num_dofs} baseline_error {res.baseline_error!r} recorded "
               f"{ref!r} rel {rel:.2e}; inner {inner} iterations {info.get('iterations')}"
-              + (f" Krylov {info['kry_its']}" if "kry_its" in info else "") + "; "
+              + (f" Krylov {info['kry_its']}" if "kry_its" in info else "")
+              + (f" restarts {info['restarts']}" if "restarts" in info else "") + "; "
               f"routes {routes}; warm "
               f"{info['t_warm']:.4f} s, baseline_time {res.baseline_time:.4f} s, whole call "
               f"{time.perf_counter() - t0:.2f} s", flush=True)

@@ -544,15 +544,56 @@ def test_block_stencil_kernel_matches_plain(dev, n, dtype):
 
 
 def test_stencil_kernel_refuses_what_it_does_not_take(dev):
-    """A d = 3 block stencil raises on CUDA tensors before any launch (its
+    """A d = 4 block stencil raises on CUDA tensors before any launch (its
     plain version takes it)."""
-    plan = stencil_kernel.StencilPlan((5, 6), [(0, 0)], 0, ncomp=3)
-    W, u = torch.zeros((1, 5, 6, 3, 3), device=dev), torch.zeros((5, 6, 3), device=dev)
+    plan = stencil_kernel.StencilPlan((5, 6), [(0, 0)], 0, ncomp=4)
+    W, u = torch.zeros((1, 5, 6, 4, 4), device=dev), torch.zeros((5, 6, 4), device=dev)
     before = stencil_kernel.LAUNCHES
     with pytest.raises(ValueError):
         plan(W, u)
     assert stencil_kernel.LAUNCHES == before
     plan(W.cpu(), u.cpu())
+
+
+def _p2_tet_block_map(n):
+    """The d = 3 block weight map of a unit_cube P2 vector lattice of
+    resolution n ((2 n + 1)^3 sites, 65 taps: the 3-D Stokes velocity
+    block)."""
+    from pdebench_tpu_torch.fem.mesh import unit_cube_mesh
+    from pdebench_tpu_torch.fem.spaces import FunctionSpace
+    from pdebench_tpu_torch.solvers.stencil import BlockLatticeWeightMap, detect_lattice
+
+    V = FunctionSpace(unit_cube_mesh(n), 2, ncomp=3)
+    wm = BlockLatticeWeightMap(detect_lattice(V.dof_coords), V.dofmap_scalar, 3)
+    assert len(wm.offsets) == 65 and wm.pad == 2
+    return wm
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [8, 3])
+def test_block3_stencil_kernel_matches_plain(dev, n, dtype):
+    """The d = 3 block kernel on stokes_3d_basic's 17^3 velocity lattice and
+    a 7^3 one (every site within reach of an edge), random 3 x 3 weights
+    not symmetric per site: one launch per apply, within TOL of the block
+    plain version (which sums in the kernel's order); a CPU tensor
+    launches nothing."""
+    wm = _p2_tet_block_map(n)
+    rng = np.random.default_rng(8)
+    W = torch.as_tensor(rng.standard_normal((65,) + wm.shape + (3, 3)), device=dev).to(dtype)
+    u = torch.as_tensor(rng.standard_normal(wm.shape + (3,)), device=dev).to(dtype)
+    before = stencil_kernel.LAUNCHES
+    y = wm.apply_grid(W, u)
+    assert stencil_kernel.LAUNCHES == before + 1
+    y_plain = stencil_kernel.block_stencil_plain(u, W, wm.offsets, wm.pad)
+    assert y.dtype == dtype and y.shape == u.shape
+    err = float((y - y_plain).abs().max() / y_plain.abs().max())
+    assert err <= TOL[dtype], err
+    # u one element off a 16-byte boundary: the d = 3 kernel takes it
+    u_off = torch.cat([u.new_zeros(1), u.reshape(-1)])[1:].reshape(u.shape)
+    assert torch.equal(wm.apply_grid(W, u_off), y)
+    y_cpu = wm.apply_grid(W.cpu(), u.cpu())
+    assert stencil_kernel.LAUNCHES == before + 2
+    assert float((y_cpu - y.cpu()).abs().max() / y_cpu.abs().max()) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -934,6 +975,45 @@ def test_unconverged_ns_linear_solve_on_cuda_raises(dev, monkeypatch):
     monkeypatch.setattr(ns, "NS_MAX_OUTER", 1)
     with pytest.raises(RuntimeError, match="Newton step 0"):
         OracleSolver(device=dev).solve(_ns_mms(12))
+
+
+# -- Stokes: kernel #3 in the saddle preconditioner, #1's block forms -----
+
+# case id -> recorded baseline_error (results/oracle_sweep_progress.jsonl)
+STOKES_3D_BASIC = 0.0012933509802431167
+
+
+def test_stokes_oracle_runs_the_kernels(dev):
+    """stokes_basic at resolution 32 (65^2 velocity nodes) on the lattice
+    MINRES: kernel #3 in every preconditioner application, #1's d = 2 block
+    form in every saddle apply; stokes_3d_basic on the diagonal MINRES,
+    #1's d = 3 block form, at its recorded error."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    cfg = _config("stokes_basic")
+    cfg["mesh"]["resolution"] = 32
+    stencil_kernel.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = 0
+    res = OracleSolver(device=dev).solve(cfg)
+    info = res.solver_info
+    assert info["inner"] == "minres+fused-richardson-cuda" and info["saddle_layout"] == "lattice"
+    assert stencil_kernel.LAUNCHES > info["iterations"] and gmg_fused.LAUNCHES_RICHARDSON > info["iterations"]
+    assert np.isfinite(res.reference).all()
+    stencil_kernel.LAUNCHES = 0
+    res = OracleSolver(device=dev).solve(_config("stokes_3d_basic"))
+    assert res.solver_info["inner"] == "minres+diag" and stencil_kernel.LAUNCHES > 0
+    assert abs(res.baseline_error - STOKES_3D_BASIC) <= 1e-5 * STOKES_3D_BASIC
+
+
+def test_unconverged_stokes_minres_on_cuda_raises(dev, monkeypatch):
+    """MINRES capped at 5 iterations raises on the card, with its counts;
+    no host LU behind it."""
+    from pdebench_tpu_torch.oracle import OracleSolver, stokes
+
+    monkeypatch.setattr(stokes, "MAXITER", 5)
+    cfg = _config("stokes_basic")
+    cfg["mesh"]["resolution"] = 16
+    with pytest.raises(RuntimeError, match="MINRES did not converge"):
+        OracleSolver(device=dev).solve(cfg)
 
 
 # -- heat, biharmonic, convection-diffusion: kernel #2 at 12 PCG steps on

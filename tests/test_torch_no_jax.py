@@ -52,6 +52,12 @@ def test_navier_stokes_slice_sources():
         assert (PKG / "csrc" / src).is_file()
 
 
+def test_stokes_slice_sources():
+    assert PKG / "oracle" / "stokes.py" in SOURCES
+    src = (PKG / "csrc" / "stencil_apply.cu").read_text()
+    assert "stencil_apply_block3_f32" in src and "stencil_apply_block3_f64" in src
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_import(path):
     hits = _FORBIDDEN.findall(path.read_text())

@@ -176,6 +176,34 @@ def test_block_plain_matches_reference_weight_map(dtype, tol):
     assert np.abs(y.numpy() - y_ref).max() <= tol * np.abs(y_ref).max()
 
 
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-13), (np.float32, 1e-5)])
+def test_block3_plain_matches_reference_weight_map(dtype, tol):
+    """The d = 3 block form (the 3-D Stokes velocity block) on a unit_cube
+    P2 lattice (5^3 sites, 65 taps, every site within reach of an edge):
+    the host weights of the vector Laplacian array-equal to the
+    reference's, and the plain version against the reference's XLA
+    BlockLatticeWeightMap.apply_grid with those weights and with random
+    ones (not symmetric per site)."""
+    mesh = unit_cube_mesh(2)
+    V = FunctionSpace(mesh, 2, ncomp=3)
+    lat = stencil.detect_lattice(V.dof_coords)
+    wm_r = ref_stencil.BlockLatticeWeightMap(ref_stencil.detect_lattice(V.dof_coords), V.dofmap_scalar, 3)
+    wm = stencil.BlockLatticeWeightMap(lat, V.dofmap_scalar, 3)
+    assert wm.offsets == wm_r.offsets and wm.pad == wm_r.pad == 2 and len(wm.offsets) == 65
+    A = np.asarray(ref_assemble.local_vector_laplacian(ref_assemble.cell_batch(mesh, 2), 0.7))
+    W_lap = wm.weights_np(A)
+    np.testing.assert_array_equal(W_lap, wm_r.weights_np(A))
+    rng = np.random.default_rng(7)
+    for W in (W_lap.astype(dtype), rng.standard_normal(W_lap.shape).astype(dtype)):
+        u = rng.standard_normal(lat.shape + (3,)).astype(dtype)
+        before = stencil_kernel.LAUNCHES
+        y = wm.apply_grid(torch.as_tensor(W), torch.as_tensor(u))
+        assert stencil_kernel.LAUNCHES == before  # CPU tensors: the plain version
+        y_ref = np.asarray(wm_r.apply_grid(jnp.asarray(W), jnp.asarray(u)))
+        assert y.dtype == torch.from_numpy(W).dtype and y.shape == u.shape
+        assert np.abs(y.numpy() - y_ref).max() <= tol * np.abs(y_ref).max()
+
+
 def test_constrain_stencil_weights_matches_reference():
     A, V = _local(9, 2)
     op = stencil.lattice_operator_from_local(
