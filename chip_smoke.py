@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the shapes of the
 main paths (the stencil kernel's device time from a CUDA graph replay,
-beside its callers' apply_grid_w time), then drives the four main paths through
+beside its callers' apply_grid_w time), then drives the main paths through
 `OracleSolver(device="cuda")` and checks their errors against the
 recorded values:
 
@@ -68,6 +68,13 @@ recorded values:
               (P2-P1 17^3, 15,468 dofs): MINRES-IR with the diagonal
               preconditioner, the stencil kernel's d = 3 block form in
               every saddle apply
+  Wave        `wave_lshape_trig_cos` (P2, masked 177^2 lattice, 40 steps)
+              and `wave_tjunc_cos2` (P2, masked non-square 105 x 161, 40
+              steps): Newmark steps, the fused inner CG at 12 PCG steps a
+              round on the masked hierarchy of A = M / dt^2 + c^2 K / 4,
+              the stencil kernel (the f64 mass and stiffness applies each
+              step, the f64 outer residual); `wave_lshape_exp_decay` (P2,
+              masked 171^2, 60 steps: padded, the PyTorch V-cycle)
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -194,6 +201,16 @@ STOKES_2D = {
     "stokes_p3p2_taylor_hood": (2.281664383347875e-08, 1e-4, "minres+fused-richardson-cuda"),
 }
 STOKES_3D = {"stokes_3d_basic": (0.0012933509802431167, 1e-5, "minres+diag")}
+# Wave on masked lattices: case id -> (recorded baseline_error, relative
+# tolerance, inner on the card). The l_shape cases' P2 lattices are 177^2
+# (trig_cos: unpadded, kernel #2) and 171^2 (exp_decay: padded, the
+# PyTorch V-cycle); wave_tjunc_cos2's is the non-square 105 x 161, unpadded.
+# Per step, the outer rounds must be the same on every solve of a case
+WAVE_LSHAPE = {
+    "wave_lshape_trig_cos": (0.0014678201154129035, 1e-6, "fused-cg-cuda"),
+    "wave_lshape_exp_decay": (0.0005927714535132296, 1e-6, "stencil-cg"),
+}
+WAVE_TJUNC = {"wave_tjunc_cos2": (0.0017096777485136867, 1e-6, "fused-cg-cuda")}
 SOLVES = 3  # whole-case solves per case on each main path
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
 TOL_F32 = 1e-5
@@ -462,7 +479,7 @@ def heat_operator(config, device):
     config = scalar.override_bc_with_mms(config, pde["manufactured_solution"]["u"])
     ctx = scalar.setup_scalar(config, device)
     A, M = heat.step_matrices(ctx, pde, base.time_params(pde)[2])
-    lat, _, _, _, _ = heat.step_operators(ctx, A, M, "cg", heat.INNER_ITERS)
+    lat, _, _, _, _ = heat.step_operators(ctx, A, (M,), "cg", heat.INNER_ITERS)
     wm = lattice_weight_map(lat.lattice, ctx.space.dofmap_scalar)
     mass = SimpleNamespace(shape=wm.shape, offsets=wm.offsets, pad=wm.pad, plan=wm.plan,
                            apply_grid_w=wm.apply_grid)
@@ -484,8 +501,35 @@ def rd_operator(config, device):
     R_sym, _ = rd.reaction_expr(params["reaction"])
     dt = transient_time(pde["time"])[2]
     A, _, M, _ = rd.step_matrices(ctx.cb, dt, float(params.get("epsilon", 1.0)), R_sym)
-    lat, _, _, _, _ = heat.step_operators(ctx, A, M, "cg", heat.INNER_ITERS)
+    lat, _, _, _, _ = heat.step_operators(ctx, A, (M,), "cg", heat.INNER_ITERS)
     return lat, ctx.mask.cpu().numpy()
+
+
+def wave_operator(config, device):
+    """A wave case's step operators as its oracle builds them: the f32
+    lattice of A = M / dt^2 + c^2 K / 4 with its GMG hierarchy (on a
+    masked lattice), the lattice mask, and the weight map of its f64 mass
+    and stiffness applies as a lattice operator for stencil_line, with
+    both weight sets."""
+    from types import SimpleNamespace
+
+    from pdebench_tpu_torch.fem.assemble import local_mass, local_stiffness
+    from pdebench_tpu_torch.oracle import base, heat, scalar, wave
+    from pdebench_tpu_torch.solvers.stencil import lattice_weight_map
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, pde["manufactured_solution"]["u"])
+    ctx = scalar.setup_scalar(config, device)
+    dt = base.time_params(pde)[2]
+    c2 = float(pde.get("pde_params", {}).get("c", 1.0)) ** 2
+    M, K = local_mass(ctx.cb), local_stiffness(ctx.cb)
+    A = M / (dt * dt) + wave.THETA * c2 * K
+    lat, _, _, _, _ = heat.step_operators(ctx, A, (M, K), "cg", heat.INNER_ITERS)
+    wm = lattice_weight_map(lat.lattice, ctx.space.dofmap_scalar)
+    wlat = SimpleNamespace(shape=wm.shape, offsets=wm.offsets, pad=wm.pad, plan=wm.plan,
+                           apply_grid_w=wm.apply_grid)
+    Ws = [torch.as_tensor(wm.weights_np(a), device=device) for a in (M, K)]
+    return lat, ctx.mask.cpu().numpy(), (wlat, Ws)
 
 
 def step_weight_operator(config, device):
@@ -643,6 +687,28 @@ def check_block_stencil(ops, rng, dev, report):
             stencil_line("2", "stencil_apply_block_2d", cid, lat, W, u,
                          stencil_kernel.block_stencil_plain, tol, report,
                          K * 4 * n + 2 * 2 * n, 4 * _taps_flops(K, n) + 2 * n)
+
+
+def check_wave_kernels(ops, rng, dev, report):
+    """Kernel #1's f64 mass and stiffness applies of each wave case on its
+    masked lattice, the field embedded as the oracle embeds it (absent
+    sites zero), reported under stencil_apply_2d_masked (the first case)
+    and _nonsquare (the second); kernel #2 at one PCG step and at 12 on
+    each case's masked hierarchy."""
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    names = ("stencil_apply_2d_masked", "stencil_apply_2d_masked_nonsquare")
+    for name, (cid, (lat, _, (wlat, Ws))) in zip(names, ops.items()):
+        n, K = int(np.prod(wlat.shape)), len(wlat.offsets)
+        for what, W64 in zip(("mass", "stiffness"), Ws):
+            v = torch.as_tensor(rng.standard_normal(lat.lattice.n_dof), device=dev)
+            u = lat.lattice.embed(v, 0.0).reshape(wlat.shape)
+            stencil_line("3i", name, f"{cid} ({what}, f64)", wlat, W64, u,
+                         stencil_kernel.stencil_plain, TOL_F64, report, (K + 2) * n,
+                         _taps_flops(K, n))
+    check_fused_cg({cid: (lat, mask) for cid, (lat, mask, _) in ops.items()}, rng, dev, report,
+                   dict(zip(ops, ("gmg_fused_cg_masked", "gmg_fused_cg_masked_nonsquare"))),
+                   iters=12, phase="3i")
 
 
 def ns_velocity_block(prob, rng):
@@ -1167,6 +1233,20 @@ def drive(solver, cases, want, phase):
                    f"({min(total):.4f}-{max(total):.4f})")
 
 
+def check_grid(cid, config, grid):
+    """The case's output grid shape, finite values inside the domain, and
+    NaN exactly outside it: nowhere on unit_square and unit_cube, on part
+    of the grid's box for the masked domains (l_shape, t_junction)."""
+    g = config["output"]["grid"]
+    shape = tuple(g[k] for k in ("nz", "ny", "nx") if k in g)
+    outside = np.isnan(grid)
+    masked = config["domain"]["type"] not in ("unit_square", "unit_cube")
+    if (grid.shape != shape or not np.isfinite(grid[~outside]).all() or outside.all()
+            or outside.any() != masked):
+        raise AssertionError(f"{cid}: bad grid {grid.shape} (expected {shape}), "
+                             f"{int(outside.sum())} NaN, {int(np.isinf(grid).sum())} inf")
+
+
 def drive_cases(solver, cases, want, phase):
     """SOLVES whole-case solves per case of the heat, biharmonic,
     convection-diffusion, reaction-diffusion and Burgers paths, setup
@@ -1206,10 +1286,7 @@ def drive_cases(solver, cases, want, phase):
                        f"inner {info.get('inner')}, " + counts
                        + f", residual {info.get('residual')}; launches in this solve (cold "
                        f"and warm runs): #1 {n1}, #2 {n2}")
-            g = cases[cid]["output"]["grid"]
-            shape = tuple(g[k] for k in ("nz", "ny", "nx") if k in g)
-            if grid.shape != shape or not np.isfinite(grid).all():
-                raise AssertionError(f"{cid}: bad grid {grid.shape}, expected {shape}")
+            check_grid(cid, cases[cid], grid)
             if not rel <= tol:
                 raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
             if info.get("inner") != inner_want or "iterative_failed" in info:
@@ -1263,7 +1340,7 @@ def main() -> int:
     cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D)
                        | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
                        | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS) | set(STOKES_2D)
-                       | set(STOKES_3D))
+                       | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
@@ -1341,6 +1418,13 @@ def main() -> int:
     stokes_kernel_ops(StokesProblem(cases["stokes_basic"], dev),
                       StokesProblem(cases["stokes_3d_basic"], dev), rng, dev, report)
 
+    # (3i) wave on masked lattices: kernel #1's f64 mass and stiffness
+    # applies on wave_lshape_trig_cos's 177^2 and wave_tjunc_cos2's 105 x 161
+    # masked lattices (absent sites zero, as the oracle embeds them), and
+    # kernel #2 at one PCG step and at wave's 12 on both masked hierarchies
+    check_wave_kernels({cid: wave_operator(cases[cid], dev)
+                        for cid in ("wave_lshape_trig_cos", "wave_tjunc_cos2")}, rng, dev, report)
+
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
     # elasticity main path, (7) the 3-D main path, (8) the Navier-Stokes
     # main path: OracleSolver on the
@@ -1378,10 +1462,16 @@ def main() -> int:
         ("14", STOKES_2D, {"stencil_apply_block_2d": "stencil_apply",
                            "gmg_fused_richardson_stokes": "gmg_fused_richardson"}),
         ("14b", STOKES_3D, {"stencil_apply_block_3d": "stencil_apply"}),
+        # (15) wave on the masked l_shape lattices (square), (15b) on the
+        # masked t_junction one (non-square)
+        ("15", WAVE_LSHAPE, {"stencil_apply_2d_masked": "stencil_apply",
+                             "gmg_fused_cg_masked": "gmg_fused_cg"}),
+        ("15b", WAVE_TJUNC, {"stencil_apply_2d_masked_nonsquare": "stencil_apply",
+                             "gmg_fused_cg_masked_nonsquare": "gmg_fused_cg"}),
     )
     drive_path = {"8": drive_ns, "9": drive_cases, "9b": drive_cases, "10": drive_cases,
                   "11": drive_cases, "12": drive_cases, "13": drive_cases, "14": drive_stokes,
-                  "14b": drive_stokes}
+                  "14b": drive_stokes, "15": drive_cases, "15b": drive_cases}
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
@@ -1438,6 +1528,14 @@ def main() -> int:
         # the stencil kernel's d = 3 block form; the reference applies the
         # 3-D Stokes velocity block in XLA (BlockLatticeWeightMap.apply_grid)
         "stencil_apply_block_3d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil.py:658"),
+        # wave's f64 mass and stiffness applies and its inner CG (12 PCG
+        # steps a round) on masked lattices: l_shape's 177^2, t_junction's
+        # non-square 105 x 161
+        "stencil_apply_2d_masked": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
+        "stencil_apply_2d_masked_nonsquare": ("stencil_apply.cu",
+                                              "pdebench_tpu/solvers/stencil_pallas.py:131"),
+        "gmg_fused_cg_masked": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        "gmg_fused_cg_masked_nonsquare": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or

@@ -176,3 +176,9 @@ def heat_source(u: ExprLike, kappa: ExprLike, dim: int) -> sp.Expr:
     """f = u_t - div(kappa grad u)  (reference: oracle/heat.py:63-77)."""
     uu = parse(u)
     return sp.diff(uu, T) - div_kappa_grad(uu, parse(kappa), dim)
+
+
+def wave_source(u: ExprLike, c2: float, dim: int) -> sp.Expr:
+    """f = u_tt - c^2 Lap(u), simplified (reference: oracle/wave.py:54-66)."""
+    uu = parse(u)
+    return sp.simplify(sp.diff(uu, T, 2) - c2 * laplacian(uu, dim))

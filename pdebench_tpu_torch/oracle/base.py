@@ -80,6 +80,9 @@ def clear_setup_caches() -> None:
     symbolic._parse_str.cache_clear()
     symbolic._lambdify_numpy_cached.cache_clear()
     symbolic._lambdify_raw.cache_clear()
+    from ..fem import geometry
+
+    geometry._mesh_domain_cached.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +91,12 @@ def clear_setup_caches() -> None:
 
 
 def build_mesh(domain_spec: Dict[str, Any], mesh_spec: Dict[str, Any]) -> Mesh:
-    """Mesh a case domain: unit_square and unit_cube so far."""
+    """Mesh a case domain: unit_square, unit_cube, and the axis-aligned
+    rectilinear domains (l_shape, t_junction) as exact structured masked
+    triangulations (reference: base.py build_mesh). Domains that take the
+    signed-distance mesher, and periodic_square, raise NotImplementedError
+    before any meshing: their operators form no lattice, and the port has
+    no iterative route off the lattice yet (ROADMAP.md, Queue 1 item 9)."""
     resolution = int(mesh_spec.get("resolution", 16))
     domain_type = domain_spec["type"]
     cell_type = mesh_spec.get("cell_type", "triangle")
@@ -98,8 +106,22 @@ def build_mesh(domain_spec: Dict[str, Any], mesh_spec: Dict[str, Any]) -> Mesh:
         return meshmod.unit_square_mesh(resolution, ct)
     if domain_type == "unit_cube":
         return meshmod.unit_cube_mesh(resolution)
+    if domain_type != "periodic_square":
+        from ..fem import geometry
+
+        outline = geometry.rectilinear_outline(domain_type, domain_spec)
+        if outline is not None:
+            bx, by, sdf, bbox = outline
+            # the reference's round trip through the edge length 1 / resolution
+            # (geometry.mesh_domain), which the lattice pitch depends on
+            m = meshmod.rectilinear_masked_mesh(
+                sdf, bbox, bx, by, resolution=1.0 / (1.0 / float(resolution))
+            )
+            if m is not None:
+                return m
     raise NotImplementedError(
-        f"domain {domain_type!r} is not ported yet (unit_square, unit_cube)"
+        f"domain {domain_type!r} forms no lattice: its meshes and solves off the lattice "
+        "are not ported yet (ROADMAP.md, Queue 1 item 9)"
     )
 
 

@@ -118,8 +118,8 @@ class BurgersSolver:
         def run():
             loads = heat.step_loads(ctx, [local_load(cb, f_q) for f_q in f_steps(qpts, ts)])
             u, info = heat.step_loop(
-                None, lat32, mass_apply, u0_dev, loads, g_fn, ts, ctx.mask, RTOL, ATOL,
-                inner="gmres", inner_iters=INNER_ITERS, mass_scale=1.0 / dt,
+                None, lat32, heat.mass_rhs(mass_apply, loads, 1.0 / dt), u0_dev, g_fn, ts,
+                ctx.mask, RTOL, ATOL, inner="gmres", inner_iters=INNER_ITERS,
                 step_weights=step_weights,
             )
             return ctx.sample(u.cpu().numpy()), info

@@ -165,17 +165,17 @@ class ConvectionDiffusionSolver:
             A_sys = M + dt * assemble_A()
 
             def build():
-                return heat.step_operators(ctx, A_sys, M, "gmres", INNER_ITERS) + (
+                return heat.step_operators(ctx, A_sys, (M,), "gmres", INNER_ITERS) + (
                     torch.as_tensor(u0, device=self.device),
                 )
 
-            lat32, gmg_failed, mass_apply, op, n_inner, u0_dev = base.charge_setup(ctx, build)
+            lat32, gmg_failed, (mass_apply,), op, n_inner, u0_dev = base.charge_setup(ctx, build)
 
             def run():
                 loads = heat.step_loads(ctx, [cell_load(f_q) for f_q in f_steps(qpts, ts)])
                 u, info = heat.step_loop(
-                    op, lat32, mass_apply, u0_dev, dt * loads, g_fn, ts, ctx.mask, rtol, atol,
-                    inner="gmres", inner_iters=n_inner,
+                    op, lat32, heat.mass_rhs(mass_apply, dt * loads), u0_dev, g_fn, ts,
+                    ctx.mask, rtol, atol, inner="gmres", inner_iters=n_inner,
                 )
                 # an unconverged step raises on a CUDA device; on the CPU
                 # the loop keeps its iterate, as the reference does

@@ -54,25 +54,28 @@ def step_matrices(ctx, pde: Dict[str, Any], dt: float) -> Tuple[np.ndarray, np.n
     return M + dt * local_stiffness(ctx.cb, kappa_q), M
 
 
-def step_operators(ctx, A: np.ndarray, M: np.ndarray, inner: str, inner_iters: Tuple[int, int]):
-    """The constant pieces of a step loop on A = M + dt L (host cell-local
-    batches): (lattice operator with its hierarchy, the hierarchy's
-    failure or None, the f64 mass apply, A as a LocalOperator, the inner
-    steps a round). Builds the inner's kernel object too. Raises
-    NotImplementedError where the dofs form no lattice or the mass
-    stencil is wider than the weight map takes."""
+def step_operators(
+    ctx, A: np.ndarray, applied: Sequence[np.ndarray], inner: str, inner_iters: Tuple[int, int]
+):
+    """The constant pieces of a step loop on its step matrix A (heat's M +
+    dt L; host cell-local batches): (lattice operator with its hierarchy,
+    the hierarchy's failure or None, the f64 applies of the `applied`
+    cell-local matrices (the mass matrix; wave's stiffness too), A as a
+    LocalOperator, the inner steps a round). Builds the inner's kernel object too. Raises
+    NotImplementedError where the dofs form no lattice or the applied
+    stencils are wider than the weight map takes."""
     space, device = ctx.space, ctx.device
     lat32 = scalar.maybe_lattice32(ctx, A)
     if lat32 is None:
         raise NotImplementedError("time loops on meshes whose dofs form no lattice are not ported yet")
     gmg_failed = scalar.attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
-    appliers = scalar.stencil_appliers64(lat32, space.dofmap_scalar, M)
+    appliers = scalar.stencil_appliers64(lat32, space.dofmap_scalar, *applied)
     if appliers is None:
         raise NotImplementedError("mass stencils reaching beyond 4 lattice sites are not ported yet")
     op = LocalOperator(torch.as_tensor(A, device=device), space.dofmap_scalar, space.ndof)
     n_inner = inner_iters[0] if lat32.gmg is not None else inner_iters[1]
     dispatch.prepare_inner(op, ctx.mask, lat32, inner, n_inner)
-    return lat32, gmg_failed, appliers[0], op, n_inner
+    return lat32, gmg_failed, appliers, op, n_inner
 
 
 def step_loads(ctx, cell_loads: Sequence[np.ndarray]) -> torch.Tensor:
@@ -82,12 +85,27 @@ def step_loads(ctx, cell_loads: Sequence[np.ndarray]) -> torch.Tensor:
     return ctx.gather_sum().many(vals)
 
 
+def mass_rhs(mass_apply: Callable, loads: torch.Tensor, mass_scale: float = 1.0) -> Callable:
+    """A backward-Euler step's right-hand side for step_loop: b_n =
+    mass_scale M u_n + loads[n]. Heat's A = M + dt K takes loads dt f
+    (mass_scale 1); reaction-diffusion's and Burgers' A = M / dt + ...
+    take the loads as they are and mass_scale 1 / dt, the reference's
+    scaling (the absolute atol decides when rounds stop)."""
+
+    def rhs(n: int, u: torch.Tensor, _u_prev) -> torch.Tensor:
+        b = mass_apply(u)
+        if mass_scale != 1.0:
+            b = mass_scale * b
+        return b + loads[n]
+
+    return rhs
+
+
 def step_loop(
     op: Optional[LocalOperator],
     lat32,
-    mass_apply: Callable,
+    rhs: Callable,
     u0: torch.Tensor,
-    loads: torch.Tensor,
     g_fn: Callable,
     ts: np.ndarray,
     mask: torch.Tensor,
@@ -96,17 +114,16 @@ def step_loop(
     *,
     inner: str,
     inner_iters: int,
-    mass_scale: float = 1.0,
+    u_prev: Optional[torch.Tensor] = None,
     step_weights: Optional[Callable] = None,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, Any]]:
-    """Backward-Euler steps u_{n+1} = A^{-1} (mass_scale M u_n + loads[n])
-    with u_{n+1} = g_fn(ts[n]) on the Dirichlet dofs, one refinement per
-    step: heat's A = M + dt K takes loads dt f (mass_scale 1), reaction-
-    diffusion's and Burgers' A = M / dt + ... take the loads as they are
-    and mass_scale 1 / dt, the reference's scaling (the absolute atol
-    decides when rounds stop). `step_weights(u_n)` gives a per-step
-    operator's (weight map, float32 weights) for solve_constrained_ir
-    (Burgers); without it every step solves lat32's operator.
+    """Steps u_{n+1} = A^{-1} rhs(n, u_n, u_{n-1}) with u_{n+1} =
+    g_fn(ts[n]) on the Dirichlet dofs, one refinement per step, from u0
+    (and u_prev, the iterate before it, for a two-level recurrence such as
+    wave's Newmark scheme; backward Euler reads only u_n: `mass_rhs`).
+    `step_weights(u_n)` gives a per-step operator's (weight map, float32
+    weights) for solve_constrained_ir (Burgers); without it every step
+    solves lat32's operator.
 
     Returns (u, info): info has the inner's name, the iterations and the
     per-step outer rounds. A step that does not converge raises on a CUDA
@@ -116,10 +133,7 @@ def step_loop(
     u = u0
     names, rounds, iterations, residual, failed = [], [], 0, None, None
     for n, t in enumerate(ts):
-        b = mass_apply(u)
-        if mass_scale != 1.0:
-            b = mass_scale * b
-        b = b + loads[n]
+        b = rhs(n, u, u_prev)
         x, its, residual, conv, name = dispatch.solve_constrained_ir(
             op, b, mask, g_fn(t), lat32, rtol, atol,
             inner=inner, inner_iters=inner_iters, max_outer=dispatch.STEP_MAX_OUTER,
@@ -137,7 +151,7 @@ def step_loop(
                     f"step {n + 1} of {len(ts)} did not converge on {b.device}: {failed} "
                     f"(rtol {rtol}, atol {atol})"
                 )
-        u = x
+        u_prev, u = u, x
     if len(set(names)) != 1:
         raise RuntimeError(f"the steps took different inner solves: {sorted(set(names))}")
     info = dict(inner=names[0], iterations=iterations, residual=residual, outer_rounds=rounds)
@@ -146,18 +160,26 @@ def step_loop(
     return u, info
 
 
+def host_apply(op: LocalOperator, A_local: np.ndarray) -> Callable[[np.ndarray], np.ndarray]:
+    """The cell-based apply of a cell-local matrix on op's dofs, numpy in
+    and out (host_lu_steps' right-hand sides)."""
+    A_op = LocalOperator(torch.as_tensor(A_local), op.dofmap.cpu().numpy(), op.ndof)
+    return lambda v: A_op(torch.as_tensor(v)).numpy()
+
+
 def host_lu_steps(
-    op: LocalOperator, M: np.ndarray, u0: np.ndarray, loads: torch.Tensor,
-    g_fn: Callable, ts: np.ndarray, dt: float, mask: torch.Tensor,
+    op: LocalOperator, rhs: Callable, u0: np.ndarray, g_fn: Callable, ts: np.ndarray,
+    mask: torch.Tensor, u_prev: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """The same steps with the host SuperLU: A factored once, one
-    back-substitution a step (CPU tensors only)."""
+    """The steps of step_loop with the host SuperLU: A factored once, one
+    back-substitution a step (CPU tensors only); rhs(n, u_n, u_{n-1})
+    takes and gives numpy vectors (the cell-based applies of
+    `host_apply`)."""
     flu = ConstrainedLU(op.to_scipy(), mask.cpu().numpy())
-    M_op = LocalOperator(torch.as_tensor(M), op.dofmap.cpu().numpy(), op.ndof)
     uh = np.asarray(u0, dtype=np.float64)
     for n, t in enumerate(ts):
-        b = M_op(torch.as_tensor(uh)).numpy() + dt * loads[n].cpu().numpy()
-        uh = flu.solve(b, g_fn(t).cpu().numpy())
+        x = flu.solve(rhs(n, uh, u_prev), g_fn(t).cpu().numpy())
+        u_prev, uh = uh, x
     return uh
 
 
@@ -201,21 +223,24 @@ class HeatSolver:
         A, M = step_matrices(ctx, pde, dt)
 
         def build():
-            return step_operators(ctx, A, M, "cg", INNER_ITERS) + (
+            return step_operators(ctx, A, (M,), "cg", INNER_ITERS) + (
                 torch.as_tensor(u0, device=self.device),
             )
 
-        lat32, gmg_failed, mass_apply, op, n_inner, u0_dev = base.charge_setup(ctx, build)
+        lat32, gmg_failed, (mass_apply,), op, n_inner, u0_dev = base.charge_setup(ctx, build)
 
         def run():
             loads = step_loads(ctx, [local_load(cb, f_q) for f_q in f_steps(qpts, ts)])
             u, info = step_loop(
-                op, lat32, mass_apply, u0_dev, dt * loads, g_fn, ts, ctx.mask, rtol, atol,
-                inner="cg", inner_iters=n_inner,
+                op, lat32, mass_rhs(mass_apply, dt * loads), u0_dev, g_fn, ts, ctx.mask,
+                rtol, atol, inner="cg", inner_iters=n_inner,
             )
             if "iterative_failed" in info:
                 # CPU only: step_loop raises on a CUDA device
-                u = host_lu_steps(op, M, u0, loads, g_fn, ts, dt, ctx.mask)
+                M_h, loads_h = host_apply(op, M), loads.cpu().numpy()
+                u = host_lu_steps(
+                    op, lambda n, uh, _: M_h(uh) + dt * loads_h[n], u0, g_fn, ts, ctx.mask
+                )
                 info.update(inner="host-lu", fallback="direct")
             else:
                 u = u.cpu().numpy()

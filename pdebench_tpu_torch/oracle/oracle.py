@@ -2,9 +2,9 @@
 
 Port of pdebench_tpu/oracle/oracle.py. Poisson, Helmholtz, linear
 elasticity, Navier-Stokes, Stokes, heat, biharmonic,
-convection-diffusion, reaction-diffusion and Burgers are ported; the other
-4 PDE types of the reference raise NotImplementedError until their slice
-lands.
+convection-diffusion, reaction-diffusion, Burgers and wave are ported;
+the other 3 PDE types of the reference raise NotImplementedError until
+their slice lands.
 """
 
 from __future__ import annotations
@@ -27,9 +27,10 @@ _SOLVERS = {
     "convection_diffusion": ("convection_diffusion", "ConvectionDiffusionSolver"),
     "reaction_diffusion": ("reaction_diffusion", "ReactionDiffusionSolver"),
     "burgers": ("burgers", "BurgersSolver"),
+    "wave": ("wave", "WaveSolver"),
 }
 
-_NOT_PORTED = ("wave", "darcy", "hyperelasticity", "cahn_hilliard")
+_NOT_PORTED = ("darcy", "hyperelasticity", "cahn_hilliard")
 
 
 class OracleSolver:

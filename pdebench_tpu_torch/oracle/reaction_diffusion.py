@@ -281,16 +281,16 @@ class ReactionDiffusionSolver:
         if not nonlinear:
 
             def build():
-                return heat.step_operators(ctx, A_pre, M, "cg", heat.INNER_ITERS) + (
+                return heat.step_operators(ctx, A_pre, (M,), "cg", heat.INNER_ITERS) + (
                     torch.as_tensor(u0, device=self.device),
                 )
 
-            lat32, gmg_failed, mass_apply, op, n_inner, u0_dev = base.charge_setup(ctx, build)
+            lat32, gmg_failed, (mass_apply,), op, n_inner, u0_dev = base.charge_setup(ctx, build)
 
             def run():
                 u, info = heat.step_loop(
-                    op, lat32, mass_apply, u0_dev, step_loads(), g_fn, ts, ctx.mask,
-                    ksp_rtol, atol, inner="cg", inner_iters=n_inner, mass_scale=1.0 / dt,
+                    op, lat32, heat.mass_rhs(mass_apply, step_loads(), 1.0 / dt), u0_dev, g_fn,
+                    ts, ctx.mask, ksp_rtol, atol, inner="cg", inner_iters=n_inner,
                 )
                 if gmg_failed:
                     info["gmg_failed"] = gmg_failed

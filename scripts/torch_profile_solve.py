@@ -12,7 +12,7 @@ build the kernels and warm every cache, then a second solve whose warm
 linear solve (the oracle's second `solve_linear` call, the one
 `t_warm` times; for Navier-Stokes its second `NavierStokesProblem.run`,
 the whole warm Newton solve; for heat, transient convection-diffusion,
-linear reaction-diffusion and Burgers the second `heat.step_loop`, the
+linear reaction-diffusion, Burgers and wave the second `heat.step_loop`, the
 warm run's whole step loop; for nonlinear reaction-diffusion the second
 `reaction_diffusion.newton_steps`; for Stokes the second
 `StokesProblem.run`, the warm MINRES-IR) runs under
@@ -227,7 +227,7 @@ def main(argv) -> int:
             # the whole warm Newton step loop
             out = profile_case(configs[cid], module, "newton_steps")
             what = "Newton step loop"
-        elif pde in ("heat", "reaction_diffusion", "burgers") or (
+        elif pde in ("heat", "reaction_diffusion", "burgers", "wave") or (
                 pde == "convection_diffusion" and configs[cid]["pde"].get("time")):
             heat = importlib.import_module("pdebench_tpu_torch.oracle.heat")
             out = profile_case(configs[cid], heat, "step_loop")

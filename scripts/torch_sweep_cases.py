@@ -2,10 +2,12 @@
 `baseline_error` against the recorded one.
 
     python3 scripts/torch_sweep_cases.py --pde helmholtz --domain unit_square
+    python3 scripts/torch_sweep_cases.py --domain l_shape --domain t_junction
     python3 scripts/torch_sweep_cases.py --case poisson_basic --case ...
 
-For every case of `data/benchmark_v2.jsonl` whose pde type and domain match
-(or every case named with --case): one `OracleSolver(device="cuda")` solve
+For every case of `data/benchmark_v2.jsonl` whose pde type (any without
+--pde) and domain (one of the --domain given) match (or every case named
+with --case): one `OracleSolver(device="cuda")` solve
 with the setup caches cleared, its `baseline_error` against the last
 successful record of the case in `results/oracle_sweep_progress.jsonl`,
 the inner route, the inner iterations (outer rounds times the route's
@@ -18,8 +20,15 @@ Navier-Stokes oracle has no `solve_linear`: its route is its solve's
 worst relative difference, the cases per inner route and their median warm
 solve. A case that raises, whose error is off by more than --tol, or any
 of whose solves records an unconverged IR (`iterative_failed`) is counted
-as failed, and the script then exits non-zero. First line:
-the card's name and power limit.
+as failed, and the script then exits non-zero. A case that raises
+NotImplementedError (a route that is not ported) is listed as raised, with
+its reason and the kernel launches before the raise, and is not counted as
+failed. First line: the card's name and power limit.
+
+--rtol R solves every case at oracle_solver rtol R and atol 1e-16 instead
+of its own (the record then is not the case's answer: a tight rtol shows
+where a case's own stop leaves its error). --device cpu runs the plain
+versions on the CPU instead of the card (no timing is meaningful there).
 
 Imports neither jax nor pdebench_tpu.
 """
@@ -76,22 +85,28 @@ def route(info) -> str:
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pde")
-    ap.add_argument("--domain")
+    ap.add_argument("--domain", action="append", default=[], help="a domain type (repeatable)")
     ap.add_argument("--case", action="append", default=[], help="a case id (repeatable)")
     ap.add_argument("--tol", type=float, default=1e-5, help="relative error tolerance")
+    ap.add_argument("--rtol", type=float, help="solve at this rtol (atol 1e-16)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if not args.case and not (args.pde and args.domain):
-        ap.error("give --pde and --domain, or --case")
-    if not torch.cuda.is_available():
+    if not args.case and not args.domain:
+        ap.error("give --domain (and --pde), or --case")
+    if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_sweep_cases: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from pdebench_tpu_torch.oracle import OracleSolver, base
+    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0], flush=True)
+    if args.device == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0], flush=True)
+    else:
+        print("device cpu (the kernels' plain versions)", flush=True)
     recorded = recorded_errors()
     cases = []
     with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
@@ -99,11 +114,13 @@ def main(argv) -> int:
             c = json.loads(line)
             oc = c["oracle_config"]
             if c["id"] in args.case or (
-                oc["pde"]["type"] == args.pde and oc["domain"]["type"] == args.domain
+                args.pde in (None, oc["pde"]["type"]) and oc["domain"]["type"] in args.domain
             ):
+                if args.rtol is not None:
+                    oc["oracle_solver"] = dict(oc.get("oracle_solver", {}), rtol=args.rtol, atol=1e-16)
                 cases.append((c["id"], oc))
-    solver = OracleSolver(device="cuda")
-    worst, failed = 0.0, []
+    solver = OracleSolver(device=args.device)
+    worst, failed, raised = 0.0, [], []
     warm = defaultdict(list)
     seen, recording = [], set()
     for cid, oc in cases:
@@ -113,8 +130,15 @@ def main(argv) -> int:
         seen.clear()
         base.clear_setup_caches()
         t0 = time.perf_counter()
+        before = stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES
         try:
             res = solver.solve(oc)
+        except NotImplementedError as e:
+            raised.append(cid)
+            print(f"{cid}: RAISES NotImplementedError: {e}; kernel launches before it: #1 "
+                  f"{stencil_kernel.LAUNCHES - before[0]}, #2 {gmg_fused.LAUNCHES - before[1]}; "
+                  f"routes before it {[route(i) for i in seen]}", flush=True)
+            continue
         except Exception as e:  # report every case, count the failure
             failed.append(cid)
             print(f"{cid}: FAILED {type(e).__name__}: {e}; routes before it "
@@ -141,7 +165,8 @@ def main(argv) -> int:
               f"{info['t_warm']:.4f} s, baseline_time {res.baseline_time:.4f} s, whole call "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     print(f"{len(cases)} cases, worst relative error difference {worst:.3e} (tol "
-          f"{args.tol:g}), {len(failed)} failed {failed}", flush=True)
+          f"{args.tol:g}), {len(failed)} failed {failed}, {len(raised)} raised "
+          f"NotImplementedError {raised}", flush=True)
     for inner, ts in sorted(warm.items(), key=lambda kv: str(kv[0])):
         print(f"  {inner}: {len(ts)} cases, warm solve median {statistics.median(ts):.4f} s "
               f"({min(ts):.4f}-{max(ts):.4f})", flush=True)

@@ -5,14 +5,22 @@ results/oracle_sweep_progress.jsonl.
 
 The default second solve is a transient no-exact case's with its
 reference re-solve at the case's own dt (today's re-solve takes dt / 2, or
-the `time` of reference_config: the package's commit 1101cb6).
+the `time` of reference_config: the package's commit 1101cb6; before it,
+a reference_config's `time` was dropped). It serves every transient type
+whose oracle re-solves through `scalar.merge_reference_config`: heat,
+reaction-diffusion, convection-diffusion and wave.
 --cell-outer makes it a solve whose per-step systems (Burgers) take the
 package's exact cell-based f64 outer (PDEBENCH_TPU_STEP_OUTER=cell),
 where today's outer applies the float32 step weights cast to f64.
+--today skips the second solve: the package's answer today beside the
+record, for any case (a steady one too). --rtol R solves at oracle_solver
+rtol R and atol 1e-16 instead of the case's own.
 
     python3 scripts/transient_record_check.py heat_no_exact [case_id ...]
     python3 scripts/transient_record_check.py --pde reaction_diffusion --domain unit_square
     python3 scripts/transient_record_check.py --cell-outer --pde burgers --domain unit_square
+    python3 scripts/transient_record_check.py --pde wave --domain l_shape
+    python3 scripts/transient_record_check.py --today biharmonic_lshape_v2
 
 --pde and --domain take every case of that pde type and domain with no
 manufactured solution and a reference_config (the 7 unit_square
@@ -41,6 +49,8 @@ def main(argv) -> int:
     ap.add_argument("--domain")
     ap.add_argument("--cell-outer", action="store_true",
                     help="the second solve with the exact cell-based f64 outer")
+    ap.add_argument("--today", action="store_true", help="no second solve")
+    ap.add_argument("--rtol", type=float, help="solve at this rtol (atol 1e-16)")
     args = ap.parse_args(argv)
     if bool(args.pde) != bool(args.domain) or not (args.ids or args.pde):
         ap.error("give case ids, or --pde and --domain")
@@ -53,6 +63,9 @@ def main(argv) -> int:
 
     with open(os.path.join(ROOT, "data", "benchmark_v2.jsonl")) as fh:
         cases = {c["id"]: c["oracle_config"] for c in map(json.loads, fh)}
+    if args.rtol is not None:
+        for oc in cases.values():
+            oc["oracle_solver"] = dict(oc.get("oracle_solver", {}), rtol=args.rtol, atol=1e-16)
     with open(os.path.join(ROOT, "results", "oracle_sweep_progress.jsonl")) as fh:
         records = {r["case_id"]: r.get("baseline_error") for r in map(json.loads, fh) if r.get("ok")}
     ids = list(args.ids)
@@ -60,7 +73,7 @@ def main(argv) -> int:
         ids += [
             cid for cid, oc in cases.items()
             if oc["pde"]["type"] == args.pde and oc["domain"]["type"] == args.domain
-            and (args.cell_outer or (
+            and (args.cell_outer or args.today or (
                 not oc["pde"].get("manufactured_solution") and "reference_config" in oc))
             and cid not in ids
         ]
@@ -69,6 +82,10 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         now = OracleSolver().solve(copy.deepcopy(cases[cid])).baseline_error
         cfg = copy.deepcopy(cases[cid])
+        if args.today:
+            print(f"{cid}: today {now!r}; recorded {records.get(cid)!r} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
         if args.cell_outer:
             os.environ["PDEBENCH_TPU_STEP_OUTER"] = "cell"
             try:

@@ -10,8 +10,13 @@ runs its XLA V-cycle with a dense coarse solve, so the grids are held to
 GRID_TOL and the errors to ERR_TOL, not the iteration counts."""
 
 import pytest
+import torch
 
 from test_torch_heat import case, compare
+
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
 
 # (case, mesh resolution cut from the dataset's, the port's CPU inner)
 CASES = [

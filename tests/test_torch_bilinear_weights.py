@@ -27,6 +27,10 @@ from pdebench_tpu_torch.fem.mesh import Mesh, unit_square_mesh
 from pdebench_tpu_torch.fem.spaces import FunctionSpace
 from pdebench_tpu_torch.solvers import dispatch, gmg, gmg_fused, stencil, stencil_kernel
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 
 def launches():
     return (stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES, gmg_fused.LAUNCHES_RICHARDSON,

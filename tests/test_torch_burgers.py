@@ -13,9 +13,14 @@ errors and the iteration counts agree."""
 import copy
 
 import pytest
+import torch
 
 from pdebench_tpu_torch.oracle import OracleSolver
 from test_torch_heat import case, compare
+
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
 
 
 def burgers_case(resolution, steps):

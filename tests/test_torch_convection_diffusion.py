@@ -15,6 +15,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 import pdebench_tpu.fem.assemble as ref_asm
 import pdebench_tpu.fem.mesh as ref_mesh
@@ -25,6 +26,10 @@ from pdebench_tpu_torch.oracle import OracleSolver, base
 from pdebench_tpu_torch.oracle.convection_diffusion import transient_time
 from pdebench_tpu_torch.solvers import dispatch
 from test_torch_heat import GRID_TOL, case, compare
+
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
 
 FORMS = [("triangle", 2, 4), ("quadrilateral", 1, 4), ("tetrahedron", 2, 2)]
 

@@ -16,6 +16,10 @@ from pdebench_tpu.fem import spaces as ref_spaces
 from pdebench_tpu.fem import symbolic as ref_symbolic
 from pdebench_tpu_torch.fem import assemble, mesh, spaces, symbolic
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 TOL = 1e-12
 CASES = [(8, 1), (16, 1), (8, 2), (12, 2), (8, 3), (16, 3)]
 KAPPA = "1 + 0.3*sin(2*pi*x)*cos(2*pi*y)"

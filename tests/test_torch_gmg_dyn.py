@@ -24,6 +24,10 @@ from pdebench_tpu_torch.solvers import gmg_dyn, gmg_fused
 from test_gmg_dyn import _random_block_stencil
 from test_torch_navier_stokes import mms_config
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 TOL = 1e-12
 TOL_KERNEL = 2e-5
 

@@ -24,6 +24,10 @@ from pdebench_tpu.solvers.gmg import attach_lattice_gmg as ref_attach
 from pdebench_tpu.solvers.stencil import block_lattice_operator_from_local as ref_block_lattice
 from pdebench_tpu_torch.solvers import gmg, gmg_fused
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 # f32 sums in another order through one V-cycle
 TOL_VCYCLE = 1e-5
 # f32 sums in another order through the PCG recurrence (the tolerance

@@ -26,6 +26,10 @@ from pdebench_tpu_torch.fem import assemble
 from pdebench_tpu_torch.solvers import amg, gmg, gmg_fused, krylov, stencil
 from pdebench_tpu_torch.solvers.stencil_kernel import stencil_plain
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 K2 = 25.0  # k = 5: indefinite K - k^2 M, surrogate K + k^2 M
 # f32 sums in another order through a chain of V-cycles or one Arnoldi
 # step: the V-cycle tolerance of tests/test_torch_gmg_fused.py

@@ -33,6 +33,10 @@ from pdebench_tpu_torch.oracle import OracleSolver, base, scalar
 from pdebench_tpu_torch.solvers import dispatch, gmg_fused, stencil_kernel
 from pdebench_tpu_torch.solvers.stencil import lattice_operator_from_local
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 DATA = Path(__file__).resolve().parent.parent / "data" / "benchmark_v2.jsonl"
 GRID_TOL = 1e-7  # relative L2 between the two packages' grids
 ERR_TOL = 1e-6  # relative difference of baseline_error

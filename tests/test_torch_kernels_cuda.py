@@ -1044,7 +1044,7 @@ def _heat_operator(dev, case_id):
     cfg = scalar.override_bc_with_mms(cfg, pde["manufactured_solution"]["u"])
     ctx = scalar.setup_scalar(cfg, dev)
     A, M = heat.step_matrices(ctx, pde, base.time_params(pde)[2])
-    lat, _, mass_apply, _, n_inner = heat.step_operators(ctx, A, M, "cg", heat.INNER_ITERS)
+    lat, _, (mass_apply,), _, n_inner = heat.step_operators(ctx, A, (M,), "cg", heat.INNER_ITERS)
     assert n_inner == 12
     return lat, ctx.mask.cpu().numpy(), mass_apply, M, ctx
 
@@ -1194,3 +1194,84 @@ def test_cell_batch_jacobian_on_the_card(dev, monkeypatch):
         gap = np.linalg.norm(cell.reference - bilinear.reference) / np.linalg.norm(bilinear.reference)
         assert gap < 1e-7, gap
         assert abs(cell.baseline_error - bilinear.baseline_error) <= 1e-6 * bilinear.baseline_error
+
+
+# wave_tjunc_cos2's recorded error (P2, masked non-square 105 x 161 lattice)
+WAVE_TJUNC_COS2 = 0.0017096777485136867
+
+
+def _wave_operator(dev, case_id):
+    """A wave case's step operators as its oracle builds them: the f32
+    lattice of A = M / dt^2 + c^2 K / 4 on its masked lattice with the GMG
+    hierarchy, the mask, the f64 mass and stiffness applies, M, K and the
+    context."""
+    from pdebench_tpu_torch.fem.assemble import local_mass, local_stiffness
+    from pdebench_tpu_torch.oracle import base, heat, scalar, wave
+
+    cfg = _config(case_id)
+    pde = cfg["pde"]
+    cfg = scalar.override_bc_with_mms(cfg, pde["manufactured_solution"]["u"])
+    ctx = scalar.setup_scalar(cfg, dev)
+    dt = base.time_params(pde)[2]
+    M, K = local_mass(ctx.cb), local_stiffness(ctx.cb)
+    A = M / dt**2 + wave.THETA * float(pde["pde_params"].get("c", 1.0)) ** 2 * K
+    lat, _, appliers, _, n_inner = heat.step_operators(ctx, A, (M, K), "cg", heat.INNER_ITERS)
+    assert n_inner == 12 and lat.lattice.masked
+    return lat, ctx.mask.cpu().numpy(), appliers, (M, K), ctx
+
+
+def test_wave_applies_on_masked_nonsquare_lattice_match_plain(dev):
+    """wave_tjunc_cos2's f64 mass and stiffness applies on its masked
+    105 x 161 lattice: one stencil kernel launch each, within 1e-12 of the
+    plain version of the same weights on the CPU."""
+    from pdebench_tpu_torch.solvers.stencil import lattice_weight_map
+
+    lat, _, appliers, locals_, ctx = _wave_operator(dev, "wave_tjunc_cos2")
+    assert lat.shape == (105, 161)
+    wm = lattice_weight_map(lat.lattice, ctx.space.dofmap_scalar)
+    v = np.random.default_rng(8).standard_normal(ctx.space.ndof)
+    v_lat = torch.as_tensor(lat.lattice.embed_np(v, 0.0)).reshape(wm.shape)
+    for apply64, A_local in zip(appliers, locals_):
+        before = stencil_kernel.LAUNCHES
+        got = apply64(torch.as_tensor(v, device=dev))
+        assert stencil_kernel.LAUNCHES == before + 1
+        want = stencil_kernel.stencil_plain(
+            v_lat, torch.as_tensor(wm.weights_np(A_local)), wm.offsets, wm.pad
+        ).reshape(-1)[lat.lattice.inv]
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= TOL[torch.float64], err
+
+
+@pytest.mark.parametrize("iters,tol", [(1, TOL_VCYCLE), (12, TOL_CG)])
+def test_fused_cg_kernel_masked_nonsquare_hierarchy_matches_plain(dev, iters, tol):
+    """Kernel #2 on wave_tjunc_cos2's masked 105 x 161 / 53 x 81 / 27 x 41
+    hierarchy: one PCG step, then wave's 12."""
+    lat, mask, *_ = _wave_operator(dev, "wave_tjunc_cos2")
+    inner = gmg_fused.build_fused_inner_cg(lat.gmg, iters, dev)
+    assert inner.dims[0] == (1, 105, 161)
+    r = np.random.default_rng(9).standard_normal(lat.lattice.n_dof)
+    r[mask] = 0.0
+    r_lat = torch.as_tensor(lat.lattice.embed_np(r.astype(np.float32), 0.0), device=dev)
+    before = gmg_fused.LAUNCHES
+    z = inner(r_lat)
+    assert gmg_fused.LAUNCHES == before + 1
+    z_plain = inner.plain(r_lat)
+    scale = float(z_plain.abs().max())
+    torch.testing.assert_close(z, z_plain, rtol=tol, atol=tol * scale)
+
+
+def test_wave_oracle_runs_on_the_card(dev):
+    """wave_tjunc_cos2 through OracleSolver on the card: kernel #2 in every
+    round, kernel #1 in every step, the recorded error, NaN exactly outside
+    the t_junction."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    stencil_kernel.LAUNCHES = gmg_fused.LAUNCHES = 0
+    res = OracleSolver(device=dev).solve(_config("wave_tjunc_cos2"))
+    info = res.solver_info
+    assert info["inner"] == "fused-cg-cuda" and "iterative_failed" not in info
+    assert len(info["outer_rounds"]) == info["num_steps"] == 40
+    assert stencil_kernel.LAUNCHES >= 3 * 40 and gmg_fused.LAUNCHES >= 40
+    inside = ~np.isnan(res.reference)
+    assert inside.any() and not inside.all() and np.isfinite(res.reference[inside]).all()
+    assert abs(res.baseline_error - WAVE_TJUNC_COS2) <= 1e-6 * WAVE_TJUNC_COS2

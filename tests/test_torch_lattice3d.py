@@ -39,6 +39,10 @@ from pdebench_tpu.solvers.gmg import attach_lattice_gmg as ref_attach
 from pdebench_tpu_torch.oracle import OracleSolver, scalar
 from pdebench_tpu_torch.solvers import dispatch, gmg, gmg_fused, stencil, stencil_kernel
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 DATA = ROOT / "data" / "benchmark_v2.jsonl"
 # f32 sums in another order through one V-cycle or one Arnoldi step

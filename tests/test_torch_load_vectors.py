@@ -22,6 +22,10 @@ from pdebench_tpu.oracle import scalar as ref_scalar
 from pdebench_tpu_torch.fem import symbolic
 from pdebench_tpu_torch.oracle import base, scalar
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 TOL = 1e-12
 DATA = Path(__file__).resolve().parent.parent / "data" / "benchmark_v2.jsonl"
 CASES = {

@@ -32,6 +32,10 @@ from pdebench_tpu_torch.solvers.saddle_stencil import LatticeSaddleVectors, buil
 from pdebench_tpu_torch.solvers.stencil import detect_lattice
 from test_torch_navier_stokes import spaces
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 TOL = 1e-12
 # f32 sums in another order through two V-cycles (tests/test_torch_gmg_fused.py)
 TOL_VCYCLE = 1e-5

@@ -43,6 +43,10 @@ from pdebench_tpu_torch.oracle import navier_stokes as ns
 from pdebench_tpu_torch.solvers.saddle_stencil import build_saddle_stencil
 from pdebench_tpu_torch.solvers.stencil import BlockLatticeWeightMap, detect_lattice
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 TOL = 1e-12
 GRID_TOL = 1e-7
 ERR_TOL = 1e-8

@@ -70,3 +70,8 @@ def test_pattern_catches_imports():
         assert _FORBIDDEN.search(bad), bad
     for ok in ("from pdebench_tpu_torch.fem import mesh", "# uses jax", "x = 'jax'"):
         assert not _FORBIDDEN.search(ok), ok
+
+
+def test_wave_slice_sources():
+    for name in ("oracle/wave.py", "fem/geometry.py"):
+        assert PKG / name in SOURCES

@@ -21,6 +21,10 @@ from pdebench_tpu_torch.fem.spaces import FunctionSpace
 from pdebench_tpu_torch.oracle import OracleSolver, base
 from pdebench_tpu_torch.solvers import dispatch, gmg_fused, krylov, stencil_kernel
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 DATA = Path(__file__).resolve().parent.parent / "data" / "benchmark_v2.jsonl"
 GRID_TOL = 1e-8  # relative L2 between the two packages' grids
 ERR_TOL = 1e-6  # relative difference of baseline_error
@@ -167,7 +171,7 @@ def test_oracle_requires_device_and_rejects_unported():
     assert OracleSolver().device.type == "cuda"
     assert OracleSolver(device="cpu").device.type == "cpu"
     cfg = copy.deepcopy(_case("poisson_basic"))
-    cfg["pde"]["type"] = "wave"
+    cfg["pde"]["type"] = "darcy"
     with pytest.raises(NotImplementedError):
         OracleSolver(device="cpu").solve(cfg)
     cfg["pde"]["type"] = "no_such_pde"

@@ -16,11 +16,16 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 import sympy as sp
 
 import pdebench_tpu.oracle.reaction_diffusion as ref_rd
 from pdebench_tpu_torch.oracle import OracleSolver, reaction_diffusion, scalar
 from test_torch_heat import case, compare
+
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("reaction", [

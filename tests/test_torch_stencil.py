@@ -16,6 +16,10 @@ from pdebench_tpu.solvers import stencil as ref_stencil
 from pdebench_tpu.solvers.stencil_pallas import stencil_apply_2d as pallas_apply
 from pdebench_tpu_torch.solvers import stencil, stencil_kernel
 
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
+
 
 def _local(res, degree, mass=0.0):
     mesh = unit_square_mesh(res)

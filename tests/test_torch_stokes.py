@@ -16,12 +16,17 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import pdebench_tpu.oracle.base as ref_base
 from pdebench_tpu.oracle import OracleSolver as RefOracle
 from pdebench_tpu_torch.oracle import OracleSolver, stokes
 from pdebench_tpu_torch.oracle import base as port_base
 from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+
+# one intra-op thread: the suite runs several test processes on a few cores,
+# where PyTorch's default (a thread per core in each) waits on preempted peers
+torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent.parent / "data" / "benchmark_v2.jsonl"
 GRID_TOL = 1e-7  # relative L2 between the two packages' grids
