@@ -75,6 +75,17 @@ recorded values:
               the stencil kernel (the f64 mass and stiffness applies each
               step, the f64 outer residual); `wave_lshape_exp_decay` (P2,
               masked 171^2, 60 steps: padded, the PyTorch V-cycle)
+  Off the     `poisson_circle_sinsin` (distmesh circle, P2, 23,009 dofs:
+  lattice     SA-AMG CG-IR), `poisson_star_5pt_sinsin` (17,911 dofs) and
+              `poisson_periodic_trig` (periodic_square, 16,384 dofs):
+              float64 Jacobi CG below the AMG gate;
+              `biharmonic_circle_test_v1` (116,900 dofs: AMG, GMRES-IR, two
+              solves), `helmholtz_square_square_hole` (P1, 44,501 dofs:
+              AMG on the shifted Laplacian, FGMRES-IR) and
+              `le_exp_multiconn_circle_hole` (34,864 dofs: rigid-body AMG,
+              CG-IR); no kernel of the table runs there (the reference's
+              route is XLA): the V-cycle (16a) is checked against its CPU
+              twin and itself, bit for bit
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -211,7 +222,26 @@ WAVE_LSHAPE = {
     "wave_lshape_exp_decay": (0.0005927714535132296, 1e-6, "stencil-cg"),
 }
 WAVE_TJUNC = {"wave_tjunc_cos2": (0.0017096777485136867, 1e-6, "fused-cg-cuda")}
-SOLVES = 3  # whole-case solves per case on each main path
+# The route off the lattice (signed-distance and periodic meshes): case id
+# -> (recorded baseline_error, relative tolerance, inner on the card). No
+# kernel runs there: SA-AMG's V-cycle and the cell-local operator are
+# PyTorch ops, every sum in a fixed order, so the iterations must be the
+# same on every solve of a case. helmholtz_square_square_hole's record is
+# the JAX package's host LU (its CPU branch below 80,000 dofs); the card
+# answers it with AMG-FGMRES-IR on the shifted Laplacian
+OFF_LATTICE = {
+    "poisson_circle_sinsin": (6.804050372901661e-07, 1e-5, "amg-cg-ir"),
+    "poisson_star_5pt_sinsin": (9.398797001236839e-07, 1e-5, "jacobi-cg"),
+    "poisson_periodic_trig": (1.7207050610398467e-05, 1e-5, "jacobi-cg"),
+    "biharmonic_circle_test_v1": (4.98519719553631e-08, 1e-5, "amg-gmres-ir"),
+    "helmholtz_square_square_hole": (4.303553589698658e-05, 1e-5, "amg-gmres-ir"),
+    "le_exp_multiconn_circle_hole": (3.5360035049831796e-06, 1e-5, "amg-cg-ir"),
+}
+# the inner routes off the lattice (they launch no kernel of the table)
+OFF_LATTICE_ROUTES = ("amg-", "jacobi-")
+# whole-case solves per case on each main path: two hold a case's counts
+# equal from solve to solve and keep the script's wall time near ~400 s
+SOLVES = 2
 TOL_F64 = 1e-12  # stencil kernel vs plain, max |diff| / max |plain|
 TOL_F32 = 1e-5
 # fused inner CG vs plain: f32 sums in another order through 25 PCG
@@ -1240,7 +1270,7 @@ def check_grid(cid, config, grid):
     g = config["output"]["grid"]
     shape = tuple(g[k] for k in ("nz", "ny", "nx") if k in g)
     outside = np.isnan(grid)
-    masked = config["domain"]["type"] not in ("unit_square", "unit_cube")
+    masked = config["domain"]["type"] not in ("unit_square", "unit_cube", "periodic_square")
     if (grid.shape != shape or not np.isfinite(grid[~outside]).all() or outside.all()
             or outside.any() != masked):
         raise AssertionError(f"{cid}: bad grid {grid.shape} (expected {shape}), "
@@ -1249,13 +1279,15 @@ def check_grid(cid, config, grid):
 
 def drive_cases(solver, cases, want, phase):
     """SOLVES whole-case solves per case of the heat, biharmonic,
-    convection-diffusion, reaction-diffusion and Burgers paths, setup
-    caches cleared before each: the error within its tolerance of the
-    record, a finite grid of the case's shape, the inner asserted, no
-    unconverged solve, kernel #1 launched in every solve and #2 in every
-    solve of a fused-cg-cuda case, and the same outer rounds (per step in
-    a step loop; the Newton and linear iterations per step in a Newton
-    loop) on every solve."""
+    convection-diffusion, reaction-diffusion, Burgers and wave paths and
+    of the route off the lattice, setup caches cleared before each: the
+    error within its tolerance of the record, a finite grid of the case's
+    shape, the inner asserted, no unconverged solve, kernel #1 launched in
+    every solve on a lattice (the route off the lattice runs no kernel)
+    and #2 in every solve of a fused-cg-cuda case, and the same outer
+    rounds (per step in a step loop; the Newton
+    and linear iterations per step in a Newton loop; the iterations of a
+    solve off the lattice) on every solve."""
     from pdebench_tpu_torch.oracle import base
     from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
 
@@ -1291,7 +1323,8 @@ def drive_cases(solver, cases, want, phase):
                 raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
             if info.get("inner") != inner_want or "iterative_failed" in info:
                 raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
-            if n1 < 1 or (inner_want == "fused-cg-cuda" and n2 < 1):
+            on_lattice = not inner_want.startswith(OFF_LATTICE_ROUTES)
+            if (on_lattice and n1 < 1) or (inner_want == "fused-cg-cuda" and n2 < 1):
                 raise AssertionError(f"{cid}: kernel launches #1 {n1}, #2 {n2}")
             rounds_seen.add(repr(rounds))
             warm.append(info["t_warm"])
@@ -1302,6 +1335,56 @@ def drive_cases(solver, cases, want, phase):
                    f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
                    f"baseline_time median {statistics.median(total):.4f} s "
                    f"({min(total):.4f}-{max(total):.4f})")
+
+
+def check_amg_vcycle(config, dev):
+    """(16a) SA-AMG's V-cycle on the card: the hierarchy of the case's
+    constrained stiffness built on the host, once with its levels on the
+    card and once on the CPU; one V-cycle of each on the same seeded
+    residual within TOL_F64 / TOL_F32 relative, twice on the card bit for
+    bit, its CUDA-event time beside a bound: every level's A, P and P^T
+    (values and 4-byte column indices, padding not counted) and the
+    coarsest level's dense inverse read once, over the HBM rate."""
+    from pdebench_tpu_torch.fem.assemble import LocalOperator, local_stiffness
+    from pdebench_tpu_torch.oracle import base, scalar
+    from pdebench_tpu_torch.solvers import amg
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, pde["manufactured_solution"]["u"])
+    ctx = scalar.setup_scalar(config, "cpu")
+    kappa = base.coefficient_fn(pde.get("coefficients", {}).get("kappa"), ctx.dim, "cpu")
+    K = torch.as_tensor(local_stiffness(ctx.cb, kappa(ctx.qpts())))
+    A = LocalOperator(K, ctx.space.dofmap_scalar, ctx.space.ndof).to_scipy()
+    mask = ctx.mask.numpy()
+    t0 = time.perf_counter()
+    M64, M32, hier = amg.setup_amg_masked_pair(A, mask, device=dev)
+    t_setup = time.perf_counter() - t0
+    C64, C32, _ = amg.setup_amg_masked_pair(A, mask)
+    for i, lv in enumerate(hier.levels):
+        say("16a", f"level {i}: {lv.A.shape[0]} rows, nnz A {lv.A.nnz} P {lv.P.nnz} "
+                   f"(P^T {lv.R.nnz}), padded row widths A {lv.A.cols.shape[1]} P "
+                   f"{lv.P.cols.shape[1]} P^T {lv.R.cols.shape[1]}, omega {lv.omega:.6f}")
+    say("16a", f"coarsest level {hier.coarse_inv.shape[0]} rows (dense pseudo-inverse); host "
+               f"setup with the levels on the card {t_setup:.3f} s")
+    r = np.random.default_rng(16).standard_normal(A.shape[0])
+    for dtype, M, C, tol in ((torch.float64, M64, C64, TOL_F64), (torch.float32, M32, C32, TOL_F32)):
+        rd = torch.as_tensor(r, device=dev).to(dtype)
+        z1, z2 = M(rd), M(rd)
+        zc = C(torch.as_tensor(r).to(dtype))
+        err = float((z1.cpu() - zc).abs().max() / zc.abs().max())
+        if not torch.equal(z1, z2):
+            raise AssertionError(f"AMG V-cycle ({dtype}): two calls on the card differ")
+        if not err <= tol:
+            raise AssertionError(f"AMG V-cycle ({dtype}): {err:.3e} from its CPU twin")
+        item = torch.finfo(dtype).bits // 8
+        nnz = sum(lv.A.nnz + lv.P.nnz + lv.R.nnz for lv in hier.levels)
+        padded = sum(lv.A.cols.numel() + lv.P.cols.numel() + lv.R.cols.numel() for lv in hier.levels)
+        nbytes = nnz * (item + 4) + hier.coarse_inv.numel() * item
+        ms = median_ms(lambda: M(rd))
+        say("16a", f"V-cycle {str(dtype)[6:]}: max rel diff to the CPU twin {err:.3e} (tol {tol:g}), "
+                   f"bit-identical on a second call; {ms:.4f} ms a call (CUDA events), bound "
+                   f"{1e3 * nbytes / HBM_BYTES_S:.4f} ms ({nbytes} bytes: nnz {nnz}, stored "
+                   f"with padding {padded})")
 
 
 def main() -> int:
@@ -1340,7 +1423,7 @@ def main() -> int:
     cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D)
                        | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
                        | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS) | set(STOKES_2D)
-                       | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC))
+                       | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC) | set(OFF_LATTICE))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
@@ -1425,6 +1508,10 @@ def main() -> int:
     check_wave_kernels({cid: wave_operator(cases[cid], dev)
                         for cid in ("wave_lshape_trig_cos", "wave_tjunc_cos2")}, rng, dev, report)
 
+    # (16a) SA-AMG's V-cycle on poisson_circle_sinsin's constrained
+    # stiffness (23,009 dofs): the card against its CPU twin, and itself
+    check_amg_vcycle(cases["poisson_circle_sinsin"], dev)
+
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
     # elasticity main path, (7) the 3-D main path, (8) the Navier-Stokes
     # main path: OracleSolver on the
@@ -1468,16 +1555,21 @@ def main() -> int:
                              "gmg_fused_cg_masked": "gmg_fused_cg"}),
         ("15b", WAVE_TJUNC, {"stencil_apply_2d_masked_nonsquare": "stencil_apply",
                              "gmg_fused_cg_masked_nonsquare": "gmg_fused_cg"}),
+        # (16) Poisson, biharmonic, Helmholtz and elasticity off the
+        # lattice: SA-AMG or Jacobi Krylov, no kernel of the table
+        ("16", OFF_LATTICE, {}),
     )
     drive_path = {"8": drive_ns, "9": drive_cases, "9b": drive_cases, "10": drive_cases,
                   "11": drive_cases, "12": drive_cases, "13": drive_cases, "14": drive_stokes,
-                  "14b": drive_stokes, "15": drive_cases, "15b": drive_cases}
+                  "14b": drive_stokes, "15": drive_cases, "15b": drive_cases, "16": drive_cases}
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
         gmg_fused.LAUNCHES_BLOCK = gmg_fused.LAUNCHES_BLOCK_RICHARDSON = 0
         gmg_fused.LAUNCHES_DYN_BLOCK = 0
+        t_phase = time.perf_counter()
         drive_path.get(phase, drive)(solver, cases, want, phase)
+        t_phase = time.perf_counter() - t_phase
         counts = {
             "stencil_apply": stencil_kernel.LAUNCHES,
             "gmg_fused_cg": gmg_fused.LAUNCHES,
@@ -1487,7 +1579,7 @@ def main() -> int:
             "gmg_fused_block_richardson": gmg_fused.LAUNCHES_BLOCK_RICHARDSON,
             "gmg_fused_dyn_block": gmg_fused.LAUNCHES_DYN_BLOCK,
         }
-        say(phase, f"kernel launches on this main path: {counts}")
+        say(phase, f"kernel launches on this main path: {counts}; the phase took {t_phase:.1f} s")
         for entry, counter in entries.items():
             if counts[counter] < 1:
                 raise AssertionError(f"{counter} never launched on main path {phase}: {counts}")

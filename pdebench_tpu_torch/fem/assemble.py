@@ -17,6 +17,7 @@ and Taylor-Hood forms of pdebench_tpu/fem/assemble.py.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
@@ -393,7 +394,8 @@ def local_vector_load(cb: CellBatch, f_q):
 def scatter_add(
     cell_vals: torch.Tensor, dofmap: torch.Tensor, ndof: int
 ) -> torch.Tensor:
-    """(n_cells, nl) local contributions -> (ndof,) global vector.
+    """(n_cells, nl) local contributions -> (ndof,) global vector: the
+    plain version GatherSum is held to (the port sums through GatherSum).
 
     index_add_ sums duplicates in an unspecified order on CUDA (atomics),
     so the last bits may change from run to run there."""
@@ -445,7 +447,10 @@ class GatherSum:
 class LocalOperator:
     """Global linear operator stored as cell-local dense matrices.
 
-    apply:  y = scatter( A_c @ u[dofmap_c] ).
+    apply:  y = sum over cells of A_c @ u[dofmap_c], each dof's
+    contributions summed through `gather_sum` in a fixed order: the same
+    bits on every call on every device (index_add_'s atomics on CUDA vary
+    the last ones).
     """
 
     def __init__(self, A_local: torch.Tensor, dofmap: np.ndarray, ndof: int):
@@ -454,15 +459,33 @@ class LocalOperator:
             np.asarray(dofmap), dtype=torch.int64, device=A_local.device
         )
         self.ndof = int(ndof)
+        self._gather: Optional[GatherSum] = None
+        self._cast = {}  # dtype -> this operator in that dtype: astype
 
     def __call__(self, u: torch.Tensor) -> torch.Tensor:
-        ue = u[self.dofmap]  # (c, nl)
-        ve = torch.einsum("cij,cj->ci", self.A, ue)
-        return scatter_add(ve, self.dofmap, self.ndof)
+        ve = torch.einsum("cij,cj->ci", self.A, u[self.dofmap])
+        return self.gather_sum()(ve)
 
     def diagonal(self) -> torch.Tensor:
-        d = torch.einsum("cii->ci", self.A)
-        return scatter_add(d, self.dofmap, self.ndof)
+        return self.gather_sum()(torch.einsum("cii->ci", self.A))
+
+    def gather_sum(self) -> GatherSum:
+        """The fixed-order sum into this operator's dofs, built once."""
+        if self._gather is None:
+            self._gather = GatherSum(self.dofmap.cpu().numpy(), self.ndof, self.A.device)
+        return self._gather
+
+    def astype(self, dtype) -> "LocalOperator":
+        """This operator with its cell matrices in `dtype` (made once),
+        sharing the dofmap and the fixed-order sum."""
+        if self.A.dtype == dtype:
+            return self
+        if dtype not in self._cast:
+            self.gather_sum()
+            twin = copy.copy(self)
+            twin.A, twin._cast = self.A.to(dtype), {}
+            self._cast[dtype] = twin
+        return self._cast[dtype]
 
     def to_scipy(self):
         """COO -> CSR on host, for the sparse-direct fallback."""

@@ -91,12 +91,13 @@ def clear_setup_caches() -> None:
 
 
 def build_mesh(domain_spec: Dict[str, Any], mesh_spec: Dict[str, Any]) -> Mesh:
-    """Mesh a case domain: unit_square, unit_cube, and the axis-aligned
-    rectilinear domains (l_shape, t_junction) as exact structured masked
-    triangulations (reference: base.py build_mesh). Domains that take the
-    signed-distance mesher, and periodic_square, raise NotImplementedError
-    before any meshing: their operators form no lattice, and the port has
-    no iterative route off the lattice yet (ROADMAP.md, Queue 1 item 9)."""
+    """Mesh a case domain (reference: base.py build_mesh): unit_square,
+    unit_cube, periodic_square (a rectangle mesh whose opposite sides the
+    function spaces identify), and every other 2-D domain through
+    `geometry.mesh_domain` at edge length 1 / resolution: the axis-aligned
+    rectilinear ones (l_shape, t_junction) as exact structured masked
+    triangulations, the rest by the signed-distance mesher. An unknown
+    domain type raises ValueError."""
     resolution = int(mesh_spec.get("resolution", 16))
     domain_type = domain_spec["type"]
     cell_type = mesh_spec.get("cell_type", "triangle")
@@ -106,22 +107,44 @@ def build_mesh(domain_spec: Dict[str, Any], mesh_spec: Dict[str, Any]) -> Mesh:
         return meshmod.unit_square_mesh(resolution, ct)
     if domain_type == "unit_cube":
         return meshmod.unit_cube_mesh(resolution)
-    if domain_type != "periodic_square":
-        from ..fem import geometry
+    if domain_type == "periodic_square":
+        params = domain_spec.get("geometry_params", {})
+        b = params.get("bounds", params.get("extents", [0.0, 1.0, 0.0, 1.0]))
+        x0, x1, y0, y1 = [float(v) for v in b]
+        # keep cells near-isotropic on non-square extents
+        nx = resolution
+        ny = max(int(round(resolution * (y1 - y0) / max(x1 - x0, 1e-300))), 1)
+        m = meshmod.rectangle_mesh(nx, ny, (x0, x1, y0, y1), "triangle")
+        m.periodic = (x0, x1, y0, y1)
+        return m
 
-        outline = geometry.rectilinear_outline(domain_type, domain_spec)
-        if outline is not None:
-            bx, by, sdf, bbox = outline
-            # the reference's round trip through the edge length 1 / resolution
-            # (geometry.mesh_domain), which the lattice pitch depends on
-            m = meshmod.rectilinear_masked_mesh(
-                sdf, bbox, bx, by, resolution=1.0 / (1.0 / float(resolution))
-            )
-            if m is not None:
-                return m
-    raise NotImplementedError(
-        f"domain {domain_type!r} forms no lattice: its meshes and solves off the lattice "
-        "are not ported yet (ROADMAP.md, Queue 1 item 9)"
+    from ..fem import geometry
+
+    return geometry.mesh_domain(domain_type, domain_spec, 1.0 / float(resolution))
+
+
+def lattice_free_domain(domain_spec: Dict[str, Any]) -> bool:
+    """Whether a domain's meshes never form a lattice, decided from its
+    spec before any meshing: periodic_square (the lattice detection
+    refuses wrap-around offsets) and the domains of the signed-distance
+    mesher. The rectilinear l_shape and t_junction domains may form one
+    (a t_junction filling under 40% of its box does not: that shows only
+    after meshing)."""
+    from ..fem import geometry
+
+    dtype = domain_spec["type"]
+    if dtype in ("unit_square", "unit_cube"):
+        return False
+    return dtype == "periodic_square" or geometry.rectilinear_outline(dtype, domain_spec) is None
+
+
+def unported_off_lattice(pde: str, what: str) -> NotImplementedError:
+    """The error an oracle raises before any solve where its iterative
+    solve would leave the lattice, which is ported for the steady
+    Poisson, biharmonic, Helmholtz and elasticity solves only."""
+    return NotImplementedError(
+        f"{pde}: {what} on a mesh whose dofs form no lattice is not ported yet "
+        "(ROADMAP.md, Queue 1 item 9)"
     )
 
 

@@ -69,6 +69,8 @@ class BurgersSolver:
         self, config: Dict[str, Any], _compute_baseline: bool = True
     ) -> OracleResult:
         pde = config["pde"]
+        if base.lattice_free_domain(config["domain"]):
+            raise base.unported_off_lattice("burgers", "the time loop")
         mms_u = pde.get("manufactured_solution", {}).get("u")
         periodic = "periodic" in config.get("bc", {})
         if mms_u is not None and not periodic:

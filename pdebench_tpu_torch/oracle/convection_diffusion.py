@@ -51,7 +51,7 @@ from ..fem.assemble import (
     local_supg,
     local_supg_load,
 )
-from ..solvers.dispatch import solve_linear
+from ..solvers.dispatch import direct_request, solve_linear
 from . import base, heat, scalar
 from .types import OracleResult, compute_rel_L2_grid
 
@@ -83,6 +83,12 @@ class ConvectionDiffusionSolver:
             config = scalar.override_bc_with_mms(config, mms_u)
             pde = config["pde"]
         transient = bool(pde.get("time"))
+        direct = direct_request(base.solver_opts(config))
+        if base.lattice_free_domain(config["domain"]) and (transient or not direct):
+            raise base.unported_off_lattice(
+                "convection_diffusion",
+                "the time loop" if transient else "an iterative solve (its SPD-surrogate AMG)",
+            )
 
         ctx = scalar.setup_scalar(
             config, self.device,
@@ -136,6 +142,10 @@ class ConvectionDiffusionSolver:
         if not transient:
             f_np = symbolic.lambdify_numpy(src, dim)
             opts["_lattice32"] = scalar.maybe_lattice32(ctx, assemble_A())
+            if opts["_lattice32"] is None and not direct:
+                raise base.unported_off_lattice(
+                    "convection_diffusion", "an iterative solve (its SPD-surrogate AMG)"
+                )
 
             def build():
                 op = LocalOperator(

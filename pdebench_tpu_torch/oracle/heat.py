@@ -67,7 +67,7 @@ def step_operators(
     space, device = ctx.space, ctx.device
     lat32 = scalar.maybe_lattice32(ctx, A)
     if lat32 is None:
-        raise NotImplementedError("time loops on meshes whose dofs form no lattice are not ported yet")
+        raise base.unported_off_lattice("time loops", "a step solve")
     gmg_failed = scalar.attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
     appliers = scalar.stencil_appliers64(lat32, space.dofmap_scalar, *applied)
     if appliers is None:

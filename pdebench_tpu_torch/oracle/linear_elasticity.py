@@ -1,11 +1,13 @@
 """Linear elasticity oracle: -div(sigma(u)) = f, sigma = 2 mu eps(u)
 + lam tr(eps) I, vector Lagrange elements.
 
-Pipeline: structured mesh -> blocked cell-local stiffness (affine GEMM
-path) -> block lattice stencil operator (a 2 x 2 block of weight planes
-per offset) + block stencil GMG -> mixed-precision refinement (f32 fused
-block GMG-PCG inner, f64 outer block stencil residual) -> grid sampling of
-the displacement magnitude.
+Pipeline: mesh -> blocked cell-local stiffness (affine GEMM path) ->
+on structured meshes a block lattice stencil operator (a 2 x 2 block of
+weight planes per offset) + block stencil GMG -> mixed-precision
+refinement (f32 fused block GMG-PCG inner, f64 outer block stencil
+residual); off the lattice SA-AMG on the rigid-body near-nullspace with
+node-block aggregation (solvers/amg.py) preconditioning CG-IR -> grid
+sampling of the displacement magnitude.
 
   - Lame from (lambda, mu) directly or plane-strain (E, nu):
     mu = E/(2(1+nu)), lam = E nu/((1+nu)(1-2 nu))
@@ -13,9 +15,6 @@ the displacement magnitude.
     derived symbolically; BCs interpolate u_exact on all boundary facets
   - non-MMS cases: baseline_error against a finer reference_config
     re-solve
-
-Unstructured meshes need the rigid-body-mode AMG, which is not ported
-yet: their iterative solves raise NotImplementedError in dispatch.
 
 Port of pdebench_tpu/oracle/linear_elasticity.py.
 """
@@ -30,6 +29,7 @@ import torch
 
 from ..fem import symbolic
 from ..fem.assemble import LocalOperator, local_elasticity
+from ..solvers.amg import rigid_body_modes
 from ..solvers.dispatch import solve_linear
 from . import base, scalar
 from .types import OracleResult, compute_rel_L2_grid
@@ -98,6 +98,12 @@ class LinearElasticitySolver:
         run_opts["_lattice32"] = scalar.maybe_block_lattice32(
             ctx, local_elasticity(cb, mu, lam)
         )
+        # the AMG of the route off the lattice (and of a lattice IR that
+        # did not converge) needs the rigid-body near-nullspace and
+        # node-block aggregation to handle nu -> 1/2; set at every size, so
+        # that no elasticity solve takes the Jacobi branch
+        run_opts["_amg_B"] = rigid_body_modes(space.dof_coords, space.ncomp)
+        run_opts["_amg_block"] = space.ncomp
 
         def build():
             K = local_elasticity(cb, mu, lam)

@@ -235,6 +235,8 @@ class ReactionDiffusionSolver:
         self, config: Dict[str, Any], _compute_baseline: bool = True
     ) -> OracleResult:
         pde = config["pde"]
+        if base.lattice_free_domain(config["domain"]):
+            raise base.unported_off_lattice("reaction_diffusion", "the time loop")
         mms_u = pde.get("manufactured_solution", {}).get("u")
         if mms_u is not None:
             config = scalar.override_bc_with_mms(config, mms_u)

@@ -124,6 +124,10 @@ class StokesProblem:
             config = scalar.override_bc_with_mms(config, list(mms_u))
             pde = config["pde"]
         self.config = config
+        if base.lattice_free_domain(config["domain"]) and not dispatch.direct_request(
+            base.solver_opts(config)
+        ):
+            raise base.unported_off_lattice("stokes", "an iterative solve (the SA-AMG saddle preconditioner)")
         self.nu = nu = float(pde.get("pde_params", {}).get("nu", 1.0))
         ctx = self.ctx = mixed.setup_taylor_hood(config, dev)
         V, Q, cb = ctx.V, ctx.Q, ctx.cb

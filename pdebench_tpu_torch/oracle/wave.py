@@ -62,6 +62,8 @@ class WaveSolver:
         t0, _, dt, num_steps = base.time_params(pde)
         t_final = t0 + num_steps * dt
         opts = base.solver_opts(config)
+        if base.lattice_free_domain(config["domain"]):
+            raise base.unported_off_lattice("wave", "the time loop")
         if str(opts.get("ksp_type", "cg")).lower() not in ("cg", "minres"):
             raise NotImplementedError(
                 f"wave with ksp_type {opts['ksp_type']!r} takes the reference's "

@@ -1,4 +1,5 @@
-"""Linear-solve dispatch: per-case ksp/pc options -> lattice IR or host LU.
+"""Linear-solve dispatch: per-case ksp/pc options -> lattice IR, SA-AMG or
+host LU.
 
 Maps the dataset's PETSc solver configs (oracle_solver.ksp_type / pc_type
 / rtol / atol per case) onto the port's stack:
@@ -8,14 +9,29 @@ Maps the dataset's PETSc solver configs (oracle_solver.ksp_type / pc_type
                               inner for SPD systems, one GMRES(m) cycle
                               per outer round for nonsymmetric or
                               indefinite ones (Helmholtz)
-  preonly / lu / cholesky  -> the same IR on lattices, host SuperLU
+  no lattice, or a lattice -> the route off the lattice (the cell-local
+  IR that did not converge    operator, every sum in a fixed order):
+                              below AMG_MIN_DOFS (NONSYM_AMG_MIN_DOFS for
+                              nonsymmetric systems) a float64 Jacobi
+                              Krylov solve; above, SA-AMG (solvers/amg.py)
+                              preconditioning a mixed-precision
+                              refinement, CG-IR with 30 inner steps or
+                              FGMRES-IR with 60, then a float64 retry of
+                              at most F64_RETRY_MAXITER iterations where
+                              the refinement made progress but stopped
+                              short. On CPU tensors a nonsymmetric system
+                              off the lattice of at most HOST_LU_MAX_DOFS
+                              dofs takes the host LU (the reference's CPU
+                              branch, kept so that parity tests compare
+                              like with like)
+  preonly / lu / cholesky  -> the lattice IR on lattices, host SuperLU
                               otherwise
-  unconverged IR           -> host SuperLU on CPU tensors; on CUDA
+  unconverged              -> host SuperLU on CPU tensors; on CUDA
                               tensors a RuntimeError (no solve moves to
                               the host behind a device request)
 
-`solver_info["inner"]` records which inner solve ran; "-cuda" names a
-CUDA kernel, "-torch" its plain version (CPU tensors):
+`solver_info["inner"]` records which inner solve answered; "-cuda" names
+a CUDA kernel, "-torch" its plain version (CPU tensors):
 
   SPD:          "fused-cg-cuda" / "fused-cg-torch" (scalar hierarchies),
                 "fused-block-cg-cuda" / "fused-block-cg-torch" (d = 2 block
@@ -30,13 +46,22 @@ CUDA kernel, "-torch" its plain version (CPU tensors):
                 every step or Newton iteration, its float32 weights given,
                 the constant part's hierarchy as preconditioner; Burgers,
                 the reaction Jacobian)
+  off lattice:  "amg-cg-ir", "amg-gmres-ir" (the refinement), "amg-cg",
+                "amg-gmres", "amg-bicgstab" (float64 Krylov with the AMG
+                V-cycle: the retry, or bicgstab), "jacobi-cg",
+                "jacobi-gmres", "jacobi-bicgstab" (float64 Jacobi Krylov),
+                "jacobi-cg-ir", "jacobi-gmres-ir" (a pc that is not
+                AMG-type above the gate)
   host:         "host-lu"
 
-The routes and names are the same on 2-D and 3-D scalar lattices; block
-lattices are 2-D only. Unstructured iterative routes (AMG, Jacobi Krylov
-on cell operators) are not ported yet.
+After a lattice IR that did not converge, `solver_info["iterative_failed"]`
+keeps that attempt and `inner` names the route that answered. The routes
+and names are the same on 2-D and 3-D scalar lattices; block lattices are
+2-D only.
 
-Port of the stencil-IR route of pdebench_tpu/solvers/dispatch.py.
+Port of pdebench_tpu/solvers/dispatch.py. Not ported, by decision: the
+reference's small-direct gate for its remote TPU (systems off the lattice
+below 40,000 dofs sent to the host LU there).
 """
 
 from __future__ import annotations
@@ -49,7 +74,7 @@ import torch
 from ..fem.assemble import LocalOperator, constrained_operator, constrained_rhs
 from . import direct as directmod
 from .gmg import BlockLatticeGMG, LatticeGMG, attach_lattice_gmg
-from .krylov import jacobi_preconditioner, refined_solve
+from .krylov import bicgstab, cg, gmres, jacobi_preconditioner, refined_solve
 from .stencil import constrain_step_weights
 
 _DIRECT_KSP = ("preonly",)
@@ -68,6 +93,22 @@ MAX_OUTER = 40
 # outer rounds of one step of a time loop (the reference's per-step
 # solve_constrained_ir default)
 STEP_MAX_OUTER = 60
+
+# the route off the lattice, at the reference's CPU gates (its dispatch.py
+# :444, :726): SA-AMG from this many dofs on for symmetric systems ...
+AMG_MIN_DOFS = 20000
+# ... and from this many for nonsymmetric ones; below, Jacobi Krylov
+NONSYM_AMG_MIN_DOFS = 8000
+# nonsymmetric systems off the lattice of at most this many dofs take the
+# host LU on CPU tensors (the reference's CPU branch, :686-700)
+HOST_LU_MAX_DOFS = 80000
+# the float64 retry after a refinement that stopped short
+F64_RETRY_MAXITER = 3000
+# a refinement that stopped above this share of ||b|| stagnated (a bad
+# preconditioner): no retry
+RETRY_MAX_RESIDUAL = 1e-3
+# pc types that take SA-AMG (the hypre and ilu roles of the dataset)
+AMG_PC = ("hypre", "boomeramg", "gamg", "amg", "ml", "ilu", "sor")
 
 
 def direct_request(opts: Dict[str, Any]) -> bool:
@@ -267,15 +308,115 @@ def _vcycle(lattice32):
     return lambda r_lat: vcyc(r_lat.reshape(gshape)).reshape(-1)
 
 
-def krylov_method(opts: Dict[str, Any]) -> str:
+def krylov_method(opts: Dict[str, Any], symmetric: bool = True) -> str:
     """A case's PETSc-style ksp_type as the Krylov method its solve
-    reports: cg (cg or minres), bicgstab, or gmres."""
+    reports: cg (cg or minres, on a symmetric system), bicgstab, or
+    gmres."""
     ksp = str(opts.get("ksp_type", "cg")).lower()
-    if ksp in ("cg", "minres"):
+    if ksp in ("cg", "minres") and symmetric:
         return "cg"
     if ksp == "bicgstab":
         return "bicgstab"
     return "gmres"
+
+
+def _krylov(A, rhs, x0, M, method: str, rtol: float, atol: float, maxiter: int):
+    """Float64 Krylov solve of the constrained system with preconditioner
+    M: method "cg", "bicgstab" or "gmres" (GMRES(60)). Returns (x, info)."""
+    kry = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}[method]
+    return kry(A, rhs, x0=x0, M=M, rtol=rtol, atol=atol, maxiter=maxiter)
+
+
+def _constrained_system(op: LocalOperator, b, mask, g):
+    """(A, rhs, x0) of the constrained float64 system on the cell-local
+    operator."""
+    A64 = op.astype(torch.float64)
+    return constrained_operator(A64, mask), constrained_rhs(A64, b, mask, g), torch.where(mask, g, 0.0)
+
+
+def _jacobi_diagonal(op: LocalOperator, mask):
+    """The float64 diagonal of the constrained system (1 on constrained
+    dofs)."""
+    return torch.where(mask, 1.0, op.astype(torch.float64).diagonal())
+
+
+def _build_preconditioner(op: LocalOperator, mask: torch.Tensor, pc: str, opts: Dict[str, Any]):
+    """(M64, M32, name) of the route off the lattice:
+    SA-AMG for an AMG-type pc from AMG_MIN_DOFS dofs on, or at any size
+    when the oracle gives the AMG a matrix of its own (`_amg_matrix`:
+    Helmholtz's shifted Laplacian) or a near-nullspace (`_amg_B`:
+    elasticity's rigid-body modes, with `_amg_block` dofs a node); Jacobi
+    otherwise, or where the coarsest level cannot be inverted (the reason
+    kept under opts["_amg_failed"]). The f32 twin feeds the refinement."""
+    from .amg import setup_amg_masked_pair
+
+    if pc in AMG_PC and (
+        op.ndof >= AMG_MIN_DOFS
+        or opts.get("_amg_matrix") is not None
+        or opts.get("_amg_B") is not None
+    ):
+        A_pc = opts.get("_amg_matrix")
+        if A_pc is None:
+            A_pc = op.to_scipy()
+        try:
+            M64, M32, _ = setup_amg_masked_pair(
+                A_pc, mask.cpu().numpy(), B=opts.get("_amg_B"),
+                block_size=int(opts.get("_amg_block", 1)), device=mask.device,
+            )
+            return M64, M32, "amg"
+        except np.linalg.LinAlgError as e:  # the coarsest level's pinv
+            opts["_amg_failed"] = f"{e}"
+    diag = _jacobi_diagonal(op, mask)
+    return jacobi_preconditioner(diag), jacobi_preconditioner(diag.to(torch.float32)), "jacobi"
+
+
+def _off_lattice(op, b, mask, g, opts, symmetric, info, rtol, atol, maxiter):
+    """The route off the lattice (module docstring): (the solution, None)
+    with `info` filled in, or (None, what did not converge)."""
+    method = krylov_method(opts, symmetric)
+    A, rhs, x0 = _constrained_system(op, b, mask, g)
+    if op.ndof < (AMG_MIN_DOFS if symmetric else NONSYM_AMG_MIN_DOFS) and opts.get("_amg_B") is None:
+        # float64 Jacobi Krylov (the reference's non-refined solve_constrained);
+        # block systems with a near-nullspace (elasticity) skip it at every
+        # size: near-incompressible conditioning stalls it
+        M64, pc_used, mixed = jacobi_preconditioner(_jacobi_diagonal(op, mask)), "jacobi", False
+    else:
+        # the preconditioner per method, shape and constraint set, built
+        # once: the warm run reuses the cold run's setup (biharmonic's two
+        # solves share one)
+        cache = opts.setdefault("_amg_cache", {})
+        key = (method, op.ndof, int(mask.sum()), int(mask.to(torch.uint8).argmax()))
+        if key not in cache:
+            cache[key] = _build_preconditioner(op, mask, str(opts.get("pc_type", "jacobi")).lower(), opts)
+        M64, M32, pc_used = cache[key]
+        mixed = method in ("cg", "gmres")
+    inner_kind = "cg" if (method == "cg" and symmetric) else "gmres"
+    info["pc_used"] = pc_used + ("+ir32" if mixed else "")
+    inner = f"{pc_used}-{inner_kind}-ir" if mixed else f"{pc_used}-{method}"
+    if mixed:
+        A32 = constrained_operator(op.astype(torch.float32), mask)
+        x, kinfo = refined_solve(
+            A, A32, rhs, x0=x0, M32=M32, rtol=rtol, atol=atol,
+            inner=inner_kind, inner_iters=30 if inner_kind == "cg" else 60,
+        )
+    else:
+        x, kinfo = _krylov(A, rhs, x0, M64, method, rtol, atol, maxiter)
+    if mixed and not kinfo.converged:
+        # the float32 floor or hard conditioning: a float64 retry, but only
+        # where the refinement made progress; one stopped at O(||b||) means
+        # a bad preconditioner, and the retry would grind its whole budget
+        if kinfo.residual < RETRY_MAX_RESIDUAL * max(float(torch.linalg.norm(b)), 1e-300):
+            info["ir_stopped"] = {"inner": inner, "iterations": int(kinfo.iterations),
+                                  "residual": float(kinfo.residual)}
+            x, kinfo = _krylov(A, rhs, x0, M64, method, rtol, atol, min(maxiter, F64_RETRY_MAXITER))
+            info["pc_used"], inner = pc_used + "+f64retry", f"{pc_used}-{method}"
+        else:
+            info["pc_used"] = pc_used + "+stagnated"
+    if kinfo.converged:
+        info.update(method=method, inner=inner, iterations=int(kinfo.iterations),
+                    residual=float(kinfo.residual))
+        return x, None
+    return None, {"inner": inner, "iterations": int(kinfo.iterations), "residual": float(kinfo.residual)}
 
 
 def solve_linear(
@@ -291,12 +432,15 @@ def solve_linear(
     pc = str(opts.get("pc_type", "jacobi")).lower()
     rtol = float(opts.get("rtol", 1e-10))
     atol = float(opts.get("atol", 1e-14))
+    maxiter = int(opts.get("max_it", opts.get("maxiter", 25000)))
 
     use_direct = direct_request(opts)
     info: Dict[str, Any] = {"ksp_type": ksp, "pc_type": pc, "rtol": rtol}
     lat32 = opts.get("_lattice32")
+    on_card = b.device.type != "cpu"
 
     if lat32 is not None:
+        rerouted = use_direct
         if use_direct:
             # structured preonly/lu: the stencil-GMG IR reaches the same
             # rtol far faster than a host LU; on CPU tensors the LU stays
@@ -343,15 +487,33 @@ def solve_linear(
             "iterations": int(iters),
             "residual": float(res),
         }
-        if b.device.type != "cpu":
+        if rerouted and on_card:
             raise RuntimeError(
                 f"lattice IR did not converge on {b.device}: "
                 f"{info['iterative_failed']} (rtol {rtol}, atol {atol})"
             )
-    elif not use_direct:
-        raise NotImplementedError(
-            "iterative solves on unstructured meshes are not ported yet"
-        )
+        # a direct request goes on to the host LU; any other falls through
+        # to the route off the lattice (the reference's generic route)
+    elif (
+        not use_direct
+        and not symmetric
+        and op.ndof <= HOST_LU_MAX_DOFS
+        and not on_card
+    ):
+        use_direct = True
+        info["cpu_main_direct"] = True
+
+    if not use_direct:
+        x, failed = _off_lattice(op, b, mask, g, opts, symmetric, info, rtol, atol, maxiter)
+        if x is not None:
+            return x.cpu().numpy(), info
+        # a lattice IR's failure stays the first record
+        info["iterative_failed_off_lattice" if "iterative_failed" in info else "iterative_failed"] = failed
+        if on_card:
+            raise RuntimeError(
+                f"the solve did not converge on {b.device}: {failed} (rtol {rtol}, atol {atol})"
+                + (f"; the lattice IR before it: {info['iterative_failed']}" if lat32 is not None else "")
+            )
 
     # host sparse-direct path (or the CPU fallback)
     x = directmod.solve_direct_constrained(

@@ -1,12 +1,13 @@
-"""Krylov solvers: PCG and mixed-precision iterative refinement.
+"""Krylov solvers: PCG, BiCGStab, restarted GMRES, MINRES and
+mixed-precision iterative refinement.
 
 Python loops where the reference has lax.while_loop / fori_loop; every
 vector is a torch tensor on the solve's device. Convergence:
 ||r||_2 <= max(rtol * ||b||_2, atol), the PETSc KSP default the dataset's
 per-case rtol/atol assume.
 
-Port of pdebench_tpu/solvers/krylov.py (cg, minres, refined_solve with
-its CG and GMRES inners, jacobi_preconditioner).
+Port of pdebench_tpu/solvers/krylov.py (cg, bicgstab, gmres, minres,
+refined_solve with its CG and GMRES inners, jacobi_preconditioner).
 """
 
 from __future__ import annotations
@@ -66,6 +67,109 @@ def cg(
         k += 1
         rn = float(torch.linalg.norm(r))
     return x, KrylovInfo(k, rn, rn <= tol)
+
+
+def bicgstab(
+    A: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    M: Optional[Callable] = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-14,
+    maxiter: int = 10000,
+):
+    """Preconditioned BiCGStab (nonsymmetric systems). Stops at the
+    tolerance, at maxiter, or when rho or omega falls below 1e-300 in
+    magnitude (breakdown)."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if M is None:
+        M = lambda r: r
+    tol = _tolerance(b, rtol, atol)
+    eps = 1e-300
+
+    def guard(v):
+        return torch.where(torch.abs(v) < eps, eps, v)
+
+    x = x0
+    r = b - A(x0)
+    rhat = r
+    p = v = torch.zeros_like(b)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho = alpha = omega = one
+    k = 0
+    stag = False
+    while k < maxiter and float(torch.linalg.norm(r)) > tol and not stag:
+        rho_new = torch.dot(rhat, r)
+        beta = (rho_new / guard(rho)) * (alpha / guard(omega))
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = A(phat)
+        alpha = rho_new / guard(torch.dot(rhat, v))
+        s = r - alpha * v
+        shat = M(s)
+        t = A(shat)
+        tt = torch.dot(t, t)
+        omega = torch.dot(t, s) / torch.where(tt < eps, eps, tt)
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        stag = bool(torch.abs(rho_new) < eps) or bool(torch.abs(omega) < eps)
+        k += 1
+    res = float(torch.linalg.norm(r))
+    return x, KrylovInfo(k, res, res <= tol)
+
+
+def gmres(
+    A: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    M: Optional[Callable] = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-14,
+    maxiter: int = 2000,
+    restart: int = 60,
+):
+    """Restarted GMRES(m) with left preconditioning, in b's dtype.
+
+    Each cycle runs m = min(restart, n) Arnoldi steps with CGS2
+    orthogonalization (classical Gram-Schmidt applied twice; rows of V
+    beyond the current column are zero) and solves the small least
+    squares by `lstsq_hessenberg`. The true residual ||b - A x|| is
+    checked before every cycle; the count goes up by m a cycle."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if M is None:
+        M = lambda r: r
+    n = b.shape[0]
+    m = min(restart, n)
+    tol = _tolerance(b, rtol, atol)
+    eps = torch.tensor(1e-300, dtype=b.dtype, device=b.device)
+
+    def cycle(x):
+        r = M(b - A(x))
+        beta = torch.linalg.norm(r)
+        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+        V[0] = r / torch.where(beta < eps, eps, beta)
+        for j in range(m):
+            w = M(A(V[j]))
+            h1 = V @ w
+            w = w - V.T @ h1
+            h2 = V @ w
+            w = w - V.T @ h2
+            H[:, j] += h1 + h2
+            hn = torch.linalg.norm(w)
+            H[j + 1, j] = hn
+            V[j + 1] = w / torch.where(hn < eps, eps, hn)
+        return x + V[:m].T @ lstsq_hessenberg(H, beta)
+
+    x, k = x0, 0
+    while k < maxiter and float(torch.linalg.norm(b - A(x))) > tol:
+        x = cycle(x)
+        k += m
+    res = float(torch.linalg.norm(b - A(x)))
+    return x, KrylovInfo(k, res, res <= tol)
 
 
 def minres(

@@ -1,8 +1,8 @@
 """The port's mesher against the JAX package's: the masked rectilinear
 meshes of the dataset's l_shape and t_junction geometries array-equal to
 the reference's, the sampled grid's NaN mask equal, the copied geometry
-module array-equal on a signed-distance domain, and the domains that form
-no lattice refused before any meshing."""
+module array-equal on a signed-distance domain, and the meshes that form
+no lattice (periodic_square, distmesh) array-equal to the reference's."""
 
 import json
 from pathlib import Path
@@ -87,14 +87,21 @@ def test_signed_distance_mesher_copy_matches_reference():
     {"type": "l_shape", "geometry_params": {
         "vertices": [[0, 0], [1, 0], [1, 0.5], [0.5, 0.5], [0.2, 1], [0, 1]]}},
 ])
-def test_domains_off_the_lattice_raise_before_meshing(dom, monkeypatch):
-    def no_meshing(*a, **k):
-        raise AssertionError("meshed")
-
-    monkeypatch.setattr(geometry, "distmesh2d", no_meshing)
-    monkeypatch.setattr(geometry, "_mesh_domain_cached", no_meshing)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        base.build_mesh(dom, {"resolution": 16})
+def test_domains_off_the_lattice_mesh_like_the_reference(dom):
+    """Meshes whose dofs form no lattice: periodic_square (a rectangle
+    mesh with its periodic bounds), the distmesh circle and an l_shape
+    that falls through to distmesh, array-equal to the reference's, and
+    flagged as lattice-free before any meshing."""
+    spec = {"resolution": 16}
+    mesh, ref_mesh = base.build_mesh(dom, spec), ref_base.build_mesh(dom, spec)
+    np.testing.assert_array_equal(mesh.coords, np.asarray(ref_mesh.coords))
+    np.testing.assert_array_equal(mesh.cells, np.asarray(ref_mesh.cells))
+    assert mesh.periodic == ref_mesh.periodic
+    assert base.lattice_free_domain(dom)
+    # the periodic dofmap identifies the opposite sides in both packages
+    V, rV = FunctionSpace(mesh, 2), RefSpace(ref_mesh, 2)
+    np.testing.assert_array_equal(V.dofmap, rV.dofmap)
+    np.testing.assert_array_equal(V.dof_coords, rV.dof_coords)
 
 
 def test_clear_setup_caches_clears_the_mesh_cache():

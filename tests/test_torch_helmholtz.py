@@ -164,9 +164,12 @@ def test_quadrilateral_case_matches_reference():
 
 
 def test_unconverged_ir_falls_through_to_host_lu_on_cpu(monkeypatch):
-    """On CPU tensors an unconverged nonsymmetric lattice solve ends in the
-    host LU, recording what failed; the answer is the LU's."""
+    """On CPU tensors an unconverged nonsymmetric lattice solve falls
+    through to the route off the lattice (here, below 8,000 dofs, float64
+    Jacobi GMRES); where that does not converge either, it ends in the host
+    LU, recording both failures; the answer is the LU's."""
     from pdebench_tpu_torch.solvers import dispatch
+    from pdebench_tpu_torch.solvers.krylov import KrylovInfo
 
     cfg = _small(40)
     want = OracleSolver(device="cpu").solve(copy.deepcopy(cfg))
@@ -174,8 +177,13 @@ def test_unconverged_ir_falls_through_to_host_lu_on_cpu(monkeypatch):
     def stalled(op, b, *args, **kwargs):
         return torch.zeros_like(b), 40 * 60, 1.0, False, "gmres+jacobi"
 
+    def stalled_off(A, rhs, x0, M, method, rtol, atol, maxiter):
+        return torch.zeros_like(rhs), KrylovInfo(maxiter, 1.0, False)
+
     monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    monkeypatch.setattr(dispatch, "_krylov", stalled_off)
     res = OracleSolver(device="cpu").solve(copy.deepcopy(cfg))
     assert res.solver_info["inner"] == "host-lu"
     assert res.solver_info["iterative_failed"]["inner"] == "gmres+jacobi"
+    assert res.solver_info["iterative_failed_off_lattice"]["inner"] == "jacobi-gmres"
     assert _rel_l2(res.reference, want.reference) < GRID_TOL

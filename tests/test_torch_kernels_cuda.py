@@ -1275,3 +1275,33 @@ def test_wave_oracle_runs_on_the_card(dev):
     inside = ~np.isnan(res.reference)
     assert inside.any() and not inside.all() and np.isfinite(res.reference[inside]).all()
     assert abs(res.baseline_error - WAVE_TJUNC_COS2) <= 1e-6 * WAVE_TJUNC_COS2
+
+
+def test_amg_vcycle_on_the_card_matches_its_cpu_twin(dev):
+    """SA-AMG off the lattice: the hierarchy of a distmesh circle's
+    constrained P2 stiffness (poisson_circle_sinsin at resolution 40),
+    its levels on the card and on the CPU; one V-cycle of each on the same
+    residual within TOL, and the same bits on a second call on the card."""
+    from pdebench_tpu_torch.fem.assemble import LocalOperator, local_stiffness
+    from pdebench_tpu_torch.oracle import scalar
+    from pdebench_tpu_torch.solvers import amg
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == "poisson_circle_sinsin")
+    cfg = copy.deepcopy(cfg)
+    cfg["mesh"]["resolution"] = 40
+    ctx = scalar.setup_scalar(cfg, "cpu")
+    K = torch.as_tensor(local_stiffness(ctx.cb))
+    A = LocalOperator(K, ctx.space.dofmap_scalar, ctx.space.ndof).to_scipy()
+    mask = ctx.mask.numpy()
+    M64, M32, hier = amg.setup_amg_masked_pair(A, mask, device=dev)
+    C64, C32, _ = amg.setup_amg_masked_pair(A, mask)
+    assert len(hier.levels) >= 2 and hier.coarse_inv.device.type == "cuda"
+    r = np.random.default_rng(5).standard_normal(A.shape[0])
+    for dtype, M, C in ((torch.float64, M64, C64), (torch.float32, M32, C32)):
+        rd = torch.as_tensor(r, device=dev).to(dtype)
+        z = M(rd)
+        assert torch.equal(M(rd), z)
+        zc = C(torch.as_tensor(r).to(dtype))
+        err = float((z.cpu() - zc).abs().max() / zc.abs().max())
+        assert err <= TOL[dtype], err

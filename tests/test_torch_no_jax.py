@@ -75,3 +75,9 @@ def test_pattern_catches_imports():
 def test_wave_slice_sources():
     for name in ("oracle/wave.py", "fem/geometry.py"):
         assert PKG / name in SOURCES
+
+
+def test_off_lattice_slice_sources():
+    for name in ("solvers/amg.py", "solvers/krylov.py", "fem/geometry.py", "oracle/base.py"):
+        assert PKG / name in SOURCES
+    assert (ROOT / "scripts" / "torch_sweep_cases.py") in SOURCES

@@ -126,9 +126,22 @@ def test_unconverged_ir_falls_through_to_host_lu(monkeypatch):
         return torch.zeros_like(b), 40, 1.0, False, "stencil-cg"
 
     monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    # first to the route off the lattice (below the AMG gate: Jacobi CG),
+    # the lattice attempt kept in the record
+    x, info = dispatch.solve_linear(op, b, mask, g, dict(opts))
+    assert info["inner"] == "jacobi-cg" and info["method"] == "cg"
+    assert info["iterative_failed"]["inner"] == "stencil-cg"
+    np.testing.assert_allclose(x, x_ir, rtol=1e-8, atol=1e-12)
+
+    # then, when that does not converge either, to the host LU
+    def stalled_off(A, rhs, x0, M, method, rtol, atol, maxiter):
+        return torch.zeros_like(rhs), krylov.KrylovInfo(maxiter, 1.0, False)
+
+    monkeypatch.setattr(dispatch, "_krylov", stalled_off)
     x, info = dispatch.solve_linear(op, b, mask, g, dict(opts))
     assert info["inner"] == "host-lu" and info["method"] == "lu"
     assert info["iterative_failed"]["inner"] == "stencil-cg"
+    assert info["iterative_failed_off_lattice"]["inner"] == "jacobi-cg"
     np.testing.assert_allclose(x, x_ir, rtol=1e-8, atol=1e-12)
 
 
@@ -142,8 +155,11 @@ def test_direct_and_unported_routes():
     np.testing.assert_allclose(
         A[np.ix_(free, free)] @ x[free], b.numpy()[free], rtol=1e-9, atol=1e-14
     )
-    with pytest.raises(NotImplementedError):
-        dispatch.solve_linear(op, b, mask, g, base.solver_opts({}))
+    # the default options (cg, jacobi) off the lattice: float64 Jacobi CG,
+    # the answer the LU gives
+    x_j, info_j = dispatch.solve_linear(op, b, mask, g, base.solver_opts({}))
+    assert info_j["inner"] == "jacobi-cg" and info_j["pc_used"] == "jacobi"
+    np.testing.assert_allclose(x_j, x, rtol=1e-8, atol=1e-12)
 
 
 def test_cg_matches_dense_solve():
@@ -177,5 +193,5 @@ def test_oracle_requires_device_and_rejects_unported():
     cfg["pde"]["type"] = "no_such_pde"
     with pytest.raises(ValueError):
         OracleSolver(device="cpu").solve(cfg)
-    with pytest.raises(NotImplementedError):
-        base.build_mesh({"type": "circle"}, {"resolution": 8})
+    with pytest.raises(ValueError, match="unsupported complex domain"):
+        base.build_mesh({"type": "no_such_domain"}, {"resolution": 8})
