@@ -86,6 +86,20 @@ recorded values:
               CG-IR); no kernel of the table runs there (the reference's
               route is XLA): the V-cycle (16a) is checked against its CPU
               twin and itself, bit for bit
+  Cell-local  `wave_annulus_trig` (P2, 83,400 dofs: the step loop on the
+  (17)        cell-local operators, CG-IR with a float32 SA-AMG V-cycle of
+              the step matrix, built once) and `wave_multiconn_circ_trig`
+              at resolution 48 (below the AMG gate: Jacobi CG-IR);
+              `burgers_circle_v1` and the thin t_junction's
+              `burgers_tjunction_v1` (each step's cell batch on the device,
+              Jacobi GMRES(60)-IR), `rd_dumbbell_allencahn` (Newton, the
+              Jacobian's cell batch), `rd_annulus_linear` (Jacobi CG-IR),
+              `convdiff_periodic_square_highfreq_supg` (SA-AMG on the SPD
+              surrogate, FGMRES-IR); (17b) Stokes with the saddle AMG (one SA-AMG
+              V-cycle of the velocity block) on a signed-distance mesh, a
+              masked l_shape lattice and unit_cube. No kernel of the table
+              runs there; the two solves of a case give the same grid, bit
+              for bit
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -236,6 +250,52 @@ OFF_LATTICE = {
     "biharmonic_circle_test_v1": (4.98519719553631e-08, 1e-5, "amg-gmres-ir"),
     "helmholtz_square_square_hole": (4.303553589698658e-05, 1e-5, "amg-gmres-ir"),
     "le_exp_multiconn_circle_hole": (3.5360035049831796e-06, 1e-5, "amg-cg-ir"),
+}
+# The cell-local step loops and the last SA-AMG preconditioners (phase
+# 17, off the lattice): case id -> (recorded baseline_error, relative
+# tolerance, inner on the card). Their records were written by the JAX
+# package on another machine's distmesh output; RECORD_TOL_MESH covers
+# what that alone moves (PERF.md §6: up to 7e-5). Wave on AMG-CG-IR
+# from 20,000 dofs on (wave_annulus_trig, 83,400 dofs); below, Jacobi
+# CG-IR: no dataset wave case off the lattice has fewer than 20,000 dofs,
+# so wave_multiconn_circ_trig at mesh resolution 48 (~9,000 dofs), held to
+# the JAX package's CPU run of that configuration,
+# 0.0003145111997973872 (`scripts/transient_record_check.py --today
+# --resolution 48 wave_multiconn_circ_trig`: its host LU, the exact
+# discrete answer the card's refinement approaches to rtol 1e-10). Two of
+# the cases first named for this phase took most of its time, mostly in
+# host meshing (on an H100, PERF.md §6: rd_circle_allencahn 59.6 s and
+# convdiff_annulus_diag_supg 123.2 s for 2 solves, 25 s and 41-43 s of
+# t_setup a solve): the same routes run here on rd_dumbbell_allencahn
+# (6,728 dofs) and convdiff_periodic_square_highfreq_supg (102,400 dofs
+# on periodic_square, which no mesher has to fill)
+RECORD_TOL_MESH = 1e-4
+CELL_LOCAL = {
+    "wave_annulus_trig": (0.001530442978718416, RECORD_TOL_MESH, "amg-cg-ir"),
+    "wave_multiconn_circ_trig@48": (0.0003145111997973872, 1e-5, "jacobi-cg-ir"),
+    "burgers_circle_v1": (0.0016821368533185108, RECORD_TOL_MESH, "jacobi-gmres-ir"),
+    "rd_dumbbell_allencahn": (0.00030446930124667043, RECORD_TOL_MESH, "jacobi-gmres-ir"),
+    "rd_annulus_linear": (0.00028702038340679386, RECORD_TOL_MESH, "jacobi-cg-ir"),
+    # the thin t_junction: rectilinear, but under 40% of its box, so no
+    # lattice. Held to the JAX package's CPU run of the case today,
+    # 0.0004959819577386328 (`scripts/transient_record_check.py --today
+    # burgers_tjunction_v1`): its record, 0.0004960251368039803, sits
+    # 8.7e-5 from both packages (on an H100, PERF.md §6: the card 5.2e-8 from
+    # today's reference), a stale record on an exact rectilinear mesh
+    "burgers_tjunction_v1": (0.0004959819577386328, 1e-6, "jacobi-gmres-ir"),
+    # SA-AMG on the SPD surrogate eps K + SUPG(eps = 0), FGMRES-IR
+    "convdiff_periodic_square_highfreq_supg": (0.00017900894652586634, RECORD_TOL_MESH,
+                                               "amg-gmres-ir"),
+}
+# Stokes off the GMG preconditioner at 20,000 dofs and more: MINRES-IR with
+# one SA-AMG V-cycle of the velocity block, one case of each group (a
+# signed-distance mesh, whose no-exact re-solve at resolution 128 takes
+# the same route; a masked lattice; unit_cube)
+STOKES_AMG = {
+    "stokes_exp_multi_connected_off_center_source": (0.0006628130965917609, RECORD_TOL_MESH,
+                                                     "minres+amg"),
+    "stokes_exp_lshape_trifreq_flow": (7.086023784365608e-06, 1e-5, "minres+amg"),
+    "stokes_3d_multifreq": (0.1929079144510536, 1e-5, "minres+amg"),
 }
 # the inner routes off the lattice (they launch no kernel of the table)
 OFF_LATTICE_ROUTES = ("amg-", "jacobi-")
@@ -1132,18 +1192,29 @@ def stokes_kernel_ops(prob_2d, prob_3d, rng, dev, report):
                      9 * _taps_flops(K, n) + 6 * n)
 
 
-def drive_stokes(solver, cases, want, phase):
+def same_bits(phase, cid, grids) -> None:
+    """The grids of a case's solves, equal bit for bit (NaN where the
+    first is), or an AssertionError."""
+    first = grids[0]
+    same = all(np.array_equal(first, g, equal_nan=True) for g in grids[1:])
+    say(phase, f"{cid}: the {len(grids)} solves' grids equal bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{cid}: the grids of the solves differ")
+
+
+def drive_stokes(solver, cases, want, phase, bitwise=False):
     """SOLVES whole-case Stokes solves per case through OracleSolver, setup
     caches cleared before each: the error within its tolerance of the
     record, a finite grid of the case's shape, the inner asserted, no
     unconverged solve, kernel #1 launched in every solve (the lattice and
     3-D saddle applies) and #3 in every solve of a fused-richardson case,
-    and the same MINRES iterations on every solve."""
+    and the same MINRES iterations on every solve (with `bitwise`, the
+    same grid bit for bit)."""
     from pdebench_tpu_torch.oracle import base
     from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
 
     for cid, (ref_err, tol, inner_want) in want.items():
-        warm, total, its_seen = [], [], set()
+        warm, total, its_seen, grids = [], [], set(), []
         for _ in range(SOLVES):
             base.clear_setup_caches()
             before = stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES_RICHARDSON
@@ -1161,14 +1232,12 @@ def drive_stokes(solver, cases, want, phase):
                        f"iterations {info.get('iterations')}, restarts {info.get('restarts')}, "
                        f"residual {info.get('residual')!r}; launches in this solve (cold and "
                        f"warm runs): #1 {n1}, #3 {n3}")
-            g = cases[cid]["output"]["grid"]
-            shape = tuple(g[k] for k in ("nz", "ny", "nx") if k in g)
-            if grid.shape != shape or not np.isfinite(grid).all():
-                raise AssertionError(f"{cid}: bad grid {grid.shape}, expected {shape}")
+            check_grid(cid, cases[cid], grid)
             if not rel <= tol:
                 raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
-            if info.get("inner") != inner_want or "iterative_failed" in info:
+            if info.get("inner") != inner_want or "iterative_failed" in info or "amg_failed" in info:
                 raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
+            grids.append(grid)
             # P3-P2's flat saddle apply is the cell-based one: no #1 there
             needs_1 = info.get("saddle_layout") == "lattice" or inner_want == "minres+diag"
             if (needs_1 and n1 < 1) or ("fused-richardson" in inner_want and n3 < 1):
@@ -1178,6 +1247,8 @@ def drive_stokes(solver, cases, want, phase):
             total.append(res.baseline_time)
         if len(its_seen) != 1:
             raise AssertionError(f"{cid}: the MINRES iterations moved between solves: {its_seen}")
+        if bitwise:
+            same_bits(phase, cid, grids)
         say(phase, f"{cid} over {SOLVES} solves: warm solve median "
                    f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
                    f"baseline_time median {statistics.median(total):.4f} s "
@@ -1277,7 +1348,7 @@ def check_grid(cid, config, grid):
                              f"{int(outside.sum())} NaN, {int(np.isinf(grid).sum())} inf")
 
 
-def drive_cases(solver, cases, want, phase):
+def drive_cases(solver, cases, want, phase, bitwise=False):
     """SOLVES whole-case solves per case of the heat, biharmonic,
     convection-diffusion, reaction-diffusion, Burgers and wave paths and
     of the route off the lattice, setup caches cleared before each: the
@@ -1287,12 +1358,13 @@ def drive_cases(solver, cases, want, phase):
     and #2 in every solve of a fused-cg-cuda case, and the same outer
     rounds (per step in a step loop; the Newton
     and linear iterations per step in a Newton loop; the iterations of a
-    solve off the lattice) on every solve."""
+    solve off the lattice) on every solve (with `bitwise`, the same grid
+    bit for bit)."""
     from pdebench_tpu_torch.oracle import base
     from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
 
     for cid, (ref_err, tol, inner_want) in want.items():
-        warm, total, rounds_seen = [], [], set()
+        warm, total, rounds_seen, grids = [], [], set(), []
         for _ in range(SOLVES):
             base.clear_setup_caches()
             before = stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES
@@ -1316,8 +1388,9 @@ def drive_cases(solver, cases, want, phase):
                        f"{res.baseline_time:.4f} s, t_setup {info['t_setup']:.4f} s, "
                        f"warm solve {info['t_warm']:.4f} s, cold {info['t_cold']:.4f} s; "
                        f"inner {info.get('inner')}, " + counts
-                       + f", residual {info.get('residual')}; launches in this solve (cold "
-                       f"and warm runs): #1 {n1}, #2 {n2}")
+                       + f", residual {info.get('residual')}"
+                       + (f", host LU: {info['host_lu']}" if "host_lu" in info else "")
+                       + f"; launches in this solve (cold and warm runs): #1 {n1}, #2 {n2}")
             check_grid(cid, cases[cid], grid)
             if not rel <= tol:
                 raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
@@ -1327,10 +1400,13 @@ def drive_cases(solver, cases, want, phase):
             if (on_lattice and n1 < 1) or (inner_want == "fused-cg-cuda" and n2 < 1):
                 raise AssertionError(f"{cid}: kernel launches #1 {n1}, #2 {n2}")
             rounds_seen.add(repr(rounds))
+            grids.append(grid)
             warm.append(info["t_warm"])
             total.append(res.baseline_time)
         if len(rounds_seen) != 1:
             raise AssertionError(f"{cid}: the outer rounds moved between solves: {rounds_seen}")
+        if bitwise:
+            same_bits(phase, cid, grids)
         say(phase, f"{cid} over {SOLVES} solves: warm solve median "
                    f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f}), "
                    f"baseline_time median {statistics.median(total):.4f} s "
@@ -1423,7 +1499,8 @@ def main() -> int:
     cases = load_cases(set(POISSON) | set(HELMHOLTZ) | set(ELASTICITY) | set(LATTICE_3D)
                        | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
                        | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS) | set(STOKES_2D)
-                       | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC) | set(OFF_LATTICE))
+                       | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC) | set(OFF_LATTICE)
+                       | set(CELL_LOCAL) | set(STOKES_AMG))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
@@ -1558,10 +1635,18 @@ def main() -> int:
         # (16) Poisson, biharmonic, Helmholtz and elasticity off the
         # lattice: SA-AMG or Jacobi Krylov, no kernel of the table
         ("16", OFF_LATTICE, {}),
+        # (17) wave, Burgers, reaction-diffusion and steady convection-
+        # diffusion off the lattice (the cell-local step loops, wave's and
+        # the surrogate's SA-AMG), (17b) Stokes with the saddle AMG: no
+        # kernel of the table; two solves of a case give the same bits
+        ("17", CELL_LOCAL, {}),
+        ("17b", STOKES_AMG, {}),
     )
     drive_path = {"8": drive_ns, "9": drive_cases, "9b": drive_cases, "10": drive_cases,
                   "11": drive_cases, "12": drive_cases, "13": drive_cases, "14": drive_stokes,
-                  "14b": drive_stokes, "15": drive_cases, "15b": drive_cases, "16": drive_cases}
+                  "14b": drive_stokes, "15": drive_cases, "15b": drive_cases, "16": drive_cases,
+                  "17": lambda *a: drive_cases(*a, bitwise=True),
+                  "17b": lambda *a: drive_stokes(*a, bitwise=True)}
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0

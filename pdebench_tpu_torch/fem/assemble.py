@@ -112,6 +112,24 @@ class CellBatch:
             object.__setattr__(self, name, t)
         return t
 
+    def on(self, name: str, device) -> torch.Tensor:
+        """A float64 copy on `device` of one of this batch's host arrays
+        ("phi", "wdetJ", "grad_phys"; "wphi" is wdetJ[c, q] phi[q, i]),
+        made once per device: a per-step assembly on the device reads it
+        every step and must not copy it from the host each time."""
+        device = torch.device(device)
+        cache = self._ref_tensor("_on_device", dict)
+        key = (name, str(device))
+        if key not in cache:
+            host = {
+                "phi": lambda: self.phi,
+                "wdetJ": lambda: self.wdetJ,
+                "grad_phys": self.grad_phys,
+                "wphi": lambda: self.wdetJ[:, :, None] * self.phi[None],
+            }[name]()
+            cache[key] = torch.as_tensor(np.ascontiguousarray(host), dtype=torch.float64, device=device)
+        return cache[key]
+
     def laplace_phys(self) -> np.ndarray:
         """Physical basis Laplacians (n_cells, nq, nl), exact for affine
         cell maps (simplices, axis-aligned rectangles): d2phi/dx_a dx_a =
@@ -204,11 +222,11 @@ def cell_batch(mesh: Mesh, degree: int, qdegree: Optional[int] = None) -> CellBa
 
 def _weights(cb: CellBatch, coef_q):
     """cb.wdetJ times an optional coefficient (numpy, or tensor on its
-    device)."""
+    device, where wdetJ's device copy is made once)."""
     if coef_q is None:
         return cb.wdetJ
     if isinstance(coef_q, torch.Tensor):
-        return _like(cb.wdetJ, coef_q) * coef_q
+        return cb.on("wdetJ", coef_q.device) * coef_q
     return cb.wdetJ * coef_q
 
 
@@ -246,7 +264,11 @@ def local_stiffness(cb: CellBatch, coef_q=None):
 
 
 def local_mass(cb: CellBatch, coef_q=None):
-    """∫ coef u v : (n_cells, nl, nl)."""
+    """∫ coef u v : (n_cells, nl, nl); on coef_q's device when it is a
+    tensor (a Newton Jacobian's R'(u) term, every iteration)."""
+    if isinstance(coef_q, torch.Tensor):
+        phi = cb.on("phi", coef_q.device)
+        return torch.einsum("qi,qj,cq->cij", phi, phi, _weights(cb, coef_q))
     return xeinsum("qi,qj,cq->cij", cb.phi, cb.phi, _weights(cb, coef_q))
 
 
@@ -257,12 +279,21 @@ def local_load(cb: CellBatch, f_q):
 
 # The convection-diffusion forms take host numpy operands and run on the
 # host, as the reference's do: a device beta would turn the (SUPG)
-# assembly into dozens of small device einsums.
+# assembly into dozens of small device einsums. `local_advection` also
+# takes a device beta, for the per-step batch of Burgers' lagged
+# convection.
 
 
-def local_advection(cb: CellBatch, beta_q: np.ndarray) -> np.ndarray:
+def local_advection(cb: CellBatch, beta_q):
     """∫ (β·∇u) v with β (n_cells, nq, d) : (n_cells, nl, nl), row index
-    = test function v."""
+    = test function v. A tensor β keeps the whole form on its device: two
+    contractions, (β·∇φ_j) at every quadrature point, then the batched
+    product with wdetJ φ_i (the device copies of the geometry made once,
+    `CellBatch.on`)."""
+    if isinstance(beta_q, torch.Tensor):
+        dev = beta_q.device
+        bg = torch.einsum("cqjd,cqd->cqj", cb.on("grad_phys", dev), beta_q)
+        return torch.einsum("cqi,cqj->cij", cb.on("wphi", dev), bg)
     aff = cb.affine_host()
     if aff is not None:
         iJ, detJ = aff
@@ -475,16 +506,22 @@ class LocalOperator:
             self._gather = GatherSum(self.dofmap.cpu().numpy(), self.ndof, self.A.device)
         return self._gather
 
+    def with_local(self, A_local: torch.Tensor) -> "LocalOperator":
+        """The operator of another cell batch on the same dofs (a step
+        loop's fresh batch each step or Newton iteration), sharing the
+        dofmap and the fixed-order sum: no gather plan is rebuilt."""
+        self.gather_sum()
+        twin = copy.copy(self)
+        twin.A, twin._cast = A_local, {}
+        return twin
+
     def astype(self, dtype) -> "LocalOperator":
         """This operator with its cell matrices in `dtype` (made once),
         sharing the dofmap and the fixed-order sum."""
         if self.A.dtype == dtype:
             return self
         if dtype not in self._cast:
-            self.gather_sum()
-            twin = copy.copy(self)
-            twin.A, twin._cast = self.A.to(dtype), {}
-            self._cast[dtype] = twin
+            self._cast[dtype] = self.with_local(self.A.to(dtype))
         return self._cast[dtype]
 
     def to_scipy(self):

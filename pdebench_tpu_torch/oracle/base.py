@@ -138,16 +138,6 @@ def lattice_free_domain(domain_spec: Dict[str, Any]) -> bool:
     return dtype == "periodic_square" or geometry.rectilinear_outline(dtype, domain_spec) is None
 
 
-def unported_off_lattice(pde: str, what: str) -> NotImplementedError:
-    """The error an oracle raises before any solve where its iterative
-    solve would leave the lattice, which is ported for the steady
-    Poisson, biharmonic, Helmholtz and elasticity solves only."""
-    return NotImplementedError(
-        f"{pde}: {what} on a mesh whose dofs form no lattice is not ported yet "
-        "(ROADMAP.md, Queue 1 item 9)"
-    )
-
-
 # ---------------------------------------------------------------------------
 # Coefficients & expressions
 # ---------------------------------------------------------------------------

@@ -8,23 +8,32 @@ Scheme (reference: pdebench/oracle/burger.py:28-181):
   the linear solve of a step at rtol 1e-8, atol 1e-10 whatever the case
   asks (the reference's :123-127)
 
-The step matrix changes every step, but it is linear in u_n: its stencil
-weights are W_const + W(u_n), W the bilinear map of the advection tensor
-T_adv (`stencil.BilinearLatticeWeightMap`), built on the host once. So
-every step runs on the device without a scatter: heat's step loop
-(`heat.step_loop`, b = M u_n / dt + b_f, the mass apply by kernel #1)
-with the step's weights, solved by `dispatch.solve_constrained_ir
-(step_weights=...)`: GMRES(20) in f32 preconditioned by the PyTorch
-V-cycle of the constant part's hierarchy (M / dt + nu K), the f64 outer
-on the float32 weights cast to f64, every apply one stencil kernel
-launch. A step that does not converge raises on a CUDA device; on the
-CPU the loop goes on and records `iterative_failed`.
+On a lattice with a hierarchy the step matrix changes every step, but it
+is linear in u_n: its stencil weights are W_const + W(u_n), W the bilinear
+map of the advection tensor T_adv (`stencil.BilinearLatticeWeightMap`),
+built on the host once. So every step runs on the device without a
+scatter: heat's step loop (`heat.step_loop`, b = M u_n / dt + b_f, the
+mass apply by kernel #1) with the step's weights, solved by
+`dispatch.solve_constrained_ir(step_weights=...)`: GMRES(20) in f32
+preconditioned by the PyTorch V-cycle of the constant part's hierarchy
+(M / dt + nu K), the f64 outer on the float32 weights cast to f64, every
+apply one stencil kernel launch. Above the bilinear map's size gate each
+step's cell batch (below) is summed into the weights instead, as the
+reference does.
 
-Port of pdebench_tpu/oracle/burgers.py on unit_square lattices.
-Periodic cases need `periodic_square` and the other domains unstructured
-meshes; both raise in base.build_mesh, and a per-step lattice without a
-hierarchy raises NotImplementedError (the reference's cell-apply solve is
-not ported).
+Elsewhere (no lattice: the signed-distance domains, periodic_square, the
+thin t_junction; or a lattice without a hierarchy) each step builds the
+cell-local A = M / dt + advection(beta = u_n (1, 1) at the quadrature
+points) + nu K on the device (`local_advection` on a device beta) and
+solves it by the cell-local refinement: the exact float64 cell apply as
+the outer, GMRES(60) in f32 with Jacobi on the float32 batch's diagonal
+("jacobi-gmres-ir", the reference's :216-224). Periodic cases identify
+opposite sides in the function space and carry no Dirichlet rows.
+
+A step that does not converge raises on a CUDA device; on the CPU the
+loop goes on and records `iterative_failed`.
+
+Port of pdebench_tpu/oracle/burgers.py.
 """
 
 from __future__ import annotations
@@ -36,14 +45,16 @@ import sympy as sp
 import torch
 
 from ..fem import symbolic
-from ..fem.assemble import local_load, local_mass, local_stiffness
+from ..fem.assemble import LocalOperator, local_advection, local_load, local_mass, local_stiffness
 from . import base, heat, scalar
 from .types import OracleResult, compute_rel_L2_grid
 
 # the reference's hard-coded linear tolerances of a step
 RTOL, ATOL = 1e-8, 1e-10
-# GMRES(m) a refinement round of a step
+# GMRES(m) a refinement round of a step: with the constant part's
+# hierarchy, with Jacobi (the cell-local route)
 INNER_ITERS = 20
+CELL_INNER_ITERS = 60
 
 
 def step_matrices(cb, dt: float, nu: float):
@@ -69,8 +80,6 @@ class BurgersSolver:
         self, config: Dict[str, Any], _compute_baseline: bool = True
     ) -> OracleResult:
         pde = config["pde"]
-        if base.lattice_free_domain(config["domain"]):
-            raise base.unported_off_lattice("burgers", "the time loop")
         mms_u = pde.get("manufactured_solution", {}).get("u")
         periodic = "periodic" in config.get("bc", {})
         if mms_u is not None and not periodic:
@@ -99,30 +108,60 @@ class BurgersSolver:
         ts = t0 + dt * np.arange(1, num_steps + 1)
         A_const, M = step_matrices(cb, dt, nu)
 
+        dev = self.device
+
+        def cells(ops, u_n):
+            """The step's cell batch A = M / dt + advection(u_n) + nu K on
+            the device, the convection coefficient u_n (1, ..., 1) at the
+            quadrature points."""
+            M_loc, K_loc, phi, dofmap = ops
+            un_q = torch.einsum("qi,ci->cq", phi, u_n[dofmap])
+            beta_q = un_q[..., None].expand(-1, -1, dim)
+            return (1.0 / dt) * M_loc + local_advection(cb, beta_q) + nu * K_loc
+
         def build():
-            lat32, wmap, bwm = scalar.bilinear_step_lattice(ctx, A_const, lambda: advection_tensor(cb))
-            if bwm is None:
-                raise NotImplementedError(
-                    "Burgers above the bilinear weight map's size gate (the reference "
-                    "scatters each step's advection batch there) is not ported yet"
-                )
+            u0_dev = torch.as_tensor(u0, device=dev)
+            step = scalar.bilinear_step_lattice(ctx, A_const, lambda: advection_tensor(cb))
+            ops = None
+            if step is None or step[2] is None:
+                # the device pieces of the per-step cell batch
+                ops = (torch.as_tensor(M, device=dev), torch.as_tensor(local_stiffness(cb), device=dev),
+                       cb.on("phi", dev), torch.as_tensor(space.dofmap_scalar, device=dev))
+            if step is None:
+                # the cell-local route: one operator's dofs and sum plan,
+                # a fresh cell batch every step
+                mass_op = LocalOperator(ops[0], space.dofmap_scalar, space.ndof)
+                return None, mass_op, None, None, ops, u0_dev
+            lat32, wmap, bwm = step
             (mass_apply,) = scalar.stencil_appliers64(lat32, space.dofmap_scalar, M)
-            W_c32 = torch.as_tensor(wmap.weights_np(A_const), device=self.device).to(torch.float32)
-            return (lat32, wmap, bwm, bwm.device_stack(self.device), W_c32, mass_apply,
-                    torch.as_tensor(u0, device=self.device))
+            W_c32 = torch.as_tensor(wmap.weights_np(A_const), device=dev).to(torch.float32)
+            P = None if bwm is None else bwm.device_stack(dev)
+            return lat32, mass_apply, (wmap, bwm, W_c32), P, ops, u0_dev
 
-        lat32, wmap, bwm, P, W_c32, mass_apply, u0_dev = base.charge_setup(ctx, build)
+        lat32, mass_apply, wparts, P, ops, u0_dev = base.charge_setup(ctx, build)
 
-        def step_weights(u_n):
-            u_lat = lat32.lattice.embed(u_n.to(torch.float32), 0.0).reshape(wmap.shape)
-            return wmap, W_c32 + bwm.weights_w(P, u_lat)
+        if lat32 is None:
+            step_kw = dict(step_op=lambda u_n: mass_apply.with_local(cells(ops, u_n)))
+            n_inner = CELL_INNER_ITERS
+        else:
+            wmap, bwm, W_c32 = wparts
+
+            def step_weights(u_n):
+                if bwm is None:
+                    # above the bilinear map's gate: the cell batch summed
+                    # into the weights in a fixed order
+                    return wmap, wmap.weights(cells(ops, u_n).to(torch.float32))
+                u_lat = lat32.lattice.embed(u_n.to(torch.float32), 0.0).reshape(wmap.shape)
+                return wmap, W_c32 + bwm.weights_w(P, u_lat)
+
+            step_kw = dict(step_weights=step_weights)
+            n_inner = INNER_ITERS
 
         def run():
             loads = heat.step_loads(ctx, [local_load(cb, f_q) for f_q in f_steps(qpts, ts)])
             u, info = heat.step_loop(
                 None, lat32, heat.mass_rhs(mass_apply, loads, 1.0 / dt), u0_dev, g_fn, ts,
-                ctx.mask, RTOL, ATOL, inner="gmres", inner_iters=INNER_ITERS,
-                step_weights=step_weights,
+                ctx.mask, RTOL, ATOL, inner="gmres", inner_iters=n_inner, **step_kw,
             )
             return ctx.sample(u.cpu().numpy()), info
 

@@ -28,9 +28,19 @@ Scheme (reference: pdebench/oracle/convection_diffusion.py):
 The Laplacian in the SUPG term uses exact physical basis Laplacians
 (affine cells), nonzero only from degree 2 on.
 
-Port of pdebench_tpu/oracle/convection_diffusion.py on lattices (the
-reference's unstructured steady route, an AMG preconditioner built on an
-SPD surrogate, waits for AMG).
+Off the lattice a steady solve takes dispatch's route off the lattice
+(host LU for the direct requests and, on CPU tensors, for systems of at
+most dispatch.HOST_LU_MAX_DOFS dofs; Jacobi GMRES below
+NONSYM_AMG_MIN_DOFS; FGMRES-IR above). From dispatch.AMG_MIN_DOFS dofs on
+the oracle hands the AMG the SPD surrogate eps K + SUPG(eps = 0), the
+symmetric streamline diffusion (`_amg_matrix`, charged to setup): SA-AMG
+on the nonsymmetric operator itself can give a divergent V-cycle (the
+reference's convection_diffusion.py:128-153); between the two gates the
+refinement takes Jacobi ("jacobi-gmres-ir"), as the reference's does. A
+transient solve off the lattice runs heat's loop on the cell-local
+operators, GMRES(60) with Jacobi.
+
+Port of pdebench_tpu/oracle/convection_diffusion.py.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ from ..fem.assemble import (
     local_supg,
     local_supg_load,
 )
-from ..solvers.dispatch import direct_request, solve_linear
+from ..solvers import dispatch
 from . import base, heat, scalar
 from .types import OracleResult, compute_rel_L2_grid
 
@@ -83,12 +93,6 @@ class ConvectionDiffusionSolver:
             config = scalar.override_bc_with_mms(config, mms_u)
             pde = config["pde"]
         transient = bool(pde.get("time"))
-        direct = direct_request(base.solver_opts(config))
-        if base.lattice_free_domain(config["domain"]) and (transient or not direct):
-            raise base.unported_off_lattice(
-                "convection_diffusion",
-                "the time loop" if transient else "an iterative solve (its SPD-surrogate AMG)",
-            )
 
         ctx = scalar.setup_scalar(
             config, self.device,
@@ -142,10 +146,15 @@ class ConvectionDiffusionSolver:
         if not transient:
             f_np = symbolic.lambdify_numpy(src, dim)
             opts["_lattice32"] = scalar.maybe_lattice32(ctx, assemble_A())
-            if opts["_lattice32"] is None and not direct:
-                raise base.unported_off_lattice(
-                    "convection_diffusion", "an iterative solve (its SPD-surrogate AMG)"
-                )
+            if opts["_lattice32"] is None and space.ndof >= dispatch.AMG_MIN_DOFS:
+
+                def spd_surrogate():
+                    A_spd = epsilon * local_stiffness(cb)
+                    if tau_c is not None:
+                        A_spd = A_spd + local_supg(cb, beta_q, tau_c, 0.0)
+                    return LocalOperator(torch.as_tensor(A_spd), space.dofmap_scalar, space.ndof).to_scipy()
+
+                opts["_amg_matrix"] = base.charge_setup(ctx, spd_surrogate)
 
             def build():
                 op = LocalOperator(
@@ -158,7 +167,7 @@ class ConvectionDiffusionSolver:
             op, b = base.charge_setup(ctx, build)
 
             def run():
-                x, info = solve_linear(op, b, ctx.mask, ctx.g, opts, symmetric=False)
+                x, info = dispatch.solve_linear(op, b, ctx.mask, ctx.g, opts, symmetric=False)
                 return ctx.sample(x), info
 
             t_final, dt = None, None

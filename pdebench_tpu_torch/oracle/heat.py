@@ -23,8 +23,12 @@ Scheme (reference: pdebench/oracle/heat.py):
   f    = u_t - div(kappa grad u_exact) derived symbolically (MMS)
   num_steps = int((t_end - t0)/dt + 0.5)
 
-Port of pdebench_tpu/oracle/heat.py (its lattice route: the reference's
-non-IR solve_constrained, taken by non-CG ksp types, is not ported).
+Where the dofs form no lattice the same loop runs on the cell-local
+operators (`step_operators`' cell-local pieces, the refinement's inner
+Jacobi-preconditioned, 30 CG steps a round).
+
+Port of pdebench_tpu/oracle/heat.py (the reference's non-IR
+solve_constrained, taken by non-CG ksp types, is not ported).
 """
 
 from __future__ import annotations
@@ -61,18 +65,25 @@ def step_operators(
     dt L; host cell-local batches): (lattice operator with its hierarchy,
     the hierarchy's failure or None, the f64 applies of the `applied`
     cell-local matrices (the mass matrix; wave's stiffness too), A as a
-    LocalOperator, the inner steps a round). Builds the inner's kernel object too. Raises
-    NotImplementedError where the dofs form no lattice or the applied
-    stencils are wider than the weight map takes."""
+    LocalOperator, the inner steps a round). Builds the inner's kernel
+    object too. The applies are stencil kernel launches on the lattice,
+    and cell-based applies on the device where the applied node pairs
+    reach further than the weight map takes (the reference's
+    `_apply_local` there). Where the dofs form no lattice, the cell-local
+    pieces: no lattice operator, the applies cell-based, inner_iters[1]
+    steps a round (Jacobi; a caller with an AMG V-cycle passes its own
+    count to step_loop)."""
     space, device = ctx.space, ctx.device
+    op = LocalOperator(torch.as_tensor(A, device=device), space.dofmap_scalar, space.ndof)
+
+    def cell_applies():
+        return [op.with_local(torch.as_tensor(a, device=device)) for a in applied]
+
     lat32 = scalar.maybe_lattice32(ctx, A)
     if lat32 is None:
-        raise base.unported_off_lattice("time loops", "a step solve")
+        return None, None, cell_applies(), op, inner_iters[1]
     gmg_failed = scalar.attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
-    appliers = scalar.stencil_appliers64(lat32, space.dofmap_scalar, *applied)
-    if appliers is None:
-        raise NotImplementedError("mass stencils reaching beyond 4 lattice sites are not ported yet")
-    op = LocalOperator(torch.as_tensor(A, device=device), space.dofmap_scalar, space.ndof)
+    appliers = scalar.stencil_appliers64(lat32, space.dofmap_scalar, *applied) or cell_applies()
     n_inner = inner_iters[0] if lat32.gmg is not None else inner_iters[1]
     dispatch.prepare_inner(op, ctx.mask, lat32, inner, n_inner)
     return lat32, gmg_failed, appliers, op, n_inner
@@ -116,14 +127,19 @@ def step_loop(
     inner_iters: int,
     u_prev: Optional[torch.Tensor] = None,
     step_weights: Optional[Callable] = None,
+    step_op: Optional[Callable] = None,
+    M32: Optional[Callable] = None,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, Any]]:
     """Steps u_{n+1} = A^{-1} rhs(n, u_n, u_{n-1}) with u_{n+1} =
     g_fn(ts[n]) on the Dirichlet dofs, one refinement per step, from u0
     (and u_prev, the iterate before it, for a two-level recurrence such as
     wave's Newmark scheme; backward Euler reads only u_n: `mass_rhs`).
     `step_weights(u_n)` gives a per-step operator's (weight map, float32
-    weights) for solve_constrained_ir (Burgers); without it every step
-    solves lat32's operator.
+    weights) on lat32's lattice for solve_constrained_ir (Burgers); without
+    it every step solves lat32's operator. Without a lattice (lat32 None)
+    every step solves the cell-local `op`, or `step_op(u_n)`, a fresh cell
+    batch on op's dofs (Burgers' lagged convection), preconditioned by
+    M32 (a float32 AMG V-cycle built once) or Jacobi.
 
     Returns (u, info): info has the inner's name, the iterations and the
     per-step outer rounds. A step that does not converge raises on a CUDA
@@ -135,9 +151,10 @@ def step_loop(
     for n, t in enumerate(ts):
         b = rhs(n, u, u_prev)
         x, its, residual, conv, name = dispatch.solve_constrained_ir(
-            op, b, mask, g_fn(t), lat32, rtol, atol,
+            op if step_op is None else step_op(u), b, mask, g_fn(t), lat32, rtol, atol,
             inner=inner, inner_iters=inner_iters, max_outer=dispatch.STEP_MAX_OUTER,
             step_weights=None if step_weights is None else step_weights(u),
+            M32_custom=M32,
         )
         names.append(name)
         rounds.append(its // inner_iters)

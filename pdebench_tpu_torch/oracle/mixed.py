@@ -15,13 +15,13 @@ The Stokes MINRES takes a block-diagonal SPD preconditioner: on 2-D
 lattices `saddle_gmg_precond_parts` (per velocity component a chain of
 SADDLE_VCYCLES V-cycles of the constrained scalar stiffness's hierarchy,
 kernel #3 where the hierarchy halves at every level; the lumped
-pressure-mass Schur diagonal), elsewhere `saddle_diag_precond`
-(diag(A) and the lumped pressure mass over nu).
+pressure-mass Schur diagonal), elsewhere `saddle_amg_precond` (one SA-AMG
+V-cycle of the velocity block and the same Schur diagonal) or
+`saddle_diag_precond` (diag(A) and the lumped pressure mass over nu).
 
-Port of pdebench_tpu/oracle/mixed.py without the reference's SA-AMG
-saddle preconditioner (unstructured meshes are not ported) and its
-Chebyshev pressure-mass solve (`Mp_solve`, read only by the Navier-Stokes
-opt-in PDEBENCH_TPU_NS_SCHUR=mass).
+Port of pdebench_tpu/oracle/mixed.py without the reference's Chebyshev
+pressure-mass solve (`Mp_solve`, read only by the Navier-Stokes opt-in
+PDEBENCH_TPU_NS_SCHUR=mass).
 """
 
 from __future__ import annotations
@@ -208,6 +208,48 @@ def saddle_diag_precond(
     diag = np.concatenate([dA, dMp / max(nu_visc, 1e-300)])
     diag = np.where(np.asarray(mask), 1.0, diag)
     return 1.0 / np.where(np.abs(diag) > 1e-300, diag, 1.0)
+
+
+def saddle_amg_precond(
+    A_loc: np.ndarray,
+    cb: CellBatch,
+    psi: np.ndarray,
+    dofmap_u: np.ndarray,
+    dofmap_p: np.ndarray,
+    nu_dofs: int,
+    np_dofs: int,
+    nu_visc: float,
+    mask: np.ndarray,
+    device,
+):
+    """The block preconditioner AMG(A) (+) nu * lumped(Mp)^-1 for MINRES,
+    on `device`: (M, None), or (None, why) where the velocity block's
+    hierarchy cannot be built (the coarsest level's pseudo-inverse fails)
+    and the caller takes saddle_diag_precond, as the reference does (its
+    mixed.py:205-245), naming the reason in solver_info.
+
+    The velocity block gets one float64 SA-AMG V-cycle of its constrained
+    matrix (SPD, so MINRES stays valid; scalar aggregation over the
+    interleaved velocity dofs, no near-nullspace, as the reference
+    builds it), the identity on constrained dofs; the pressure block the
+    lumped pressure-mass Schur diagonal (1 on the pinned pressure dof)."""
+    from ..solvers.amg import setup_amg_masked
+
+    device = torch.device(device)
+    mask_np = np.asarray(mask, dtype=bool)
+    op_u = LocalOperator(torch.as_tensor(np.asarray(A_loc)), np.asarray(dofmap_u), nu_dofs)
+    try:
+        amg_u = setup_amg_masked(op_u.to_scipy(), mask_np[:nu_dofs], device=device)
+    except np.linalg.LinAlgError as e:
+        return None, f"{e}"
+    inv_p = torch.as_tensor(
+        schur_diag(cb, psi, dofmap_p, np_dofs, nu_visc, mask_np, nu_dofs), device=device
+    )
+
+    def M(r):
+        return torch.cat([amg_u(r[:nu_dofs]), inv_p * r[nu_dofs:]])
+
+    return M, None
 
 
 def velocity_lattice(V: FunctionSpace) -> Optional[Lattice]:

@@ -14,27 +14,33 @@ Scheme (reference :344-405):
 
 Linear reactions: the step matrix A = M / dt + eps K + alpha M is
 constant, so heat's step loop solves it (`heat.step_loop`, the
-reference's scaling: b = M u_n / dt + b_f), kernel #2 at 12 PCG steps a
-round on an unpadded hierarchy, kernel #1 for the f64 mass apply.
+reference's scaling: b = M u_n / dt + b_f): on a lattice kernel #2 at 12
+PCG steps a round on an unpadded hierarchy and kernel #1 for the f64 mass
+apply; off the lattice the cell-local refinement, 30 Jacobi-CG steps a
+round ("jacobi-cg-ir").
 
 Nonlinear reactions (`newton_steps`): the Newton residual on the device,
-its mass and stiffness applies through kernel #1 in f64, R(u) at the
-quadrature points summed into dofs in a fixed order (GatherSum); the
-Jacobian as per-step stencil weights W_const + W(R'(u)), R' interpolated
-at the nodes so that the mass-weighted term is a bilinear map of a nodal
-field (`stencil.BilinearLatticeWeightMap` on T_mass; above its size gate,
-the reference's cell Jacobian with R' at the quadrature points, summed
-into weights in a fixed order: `solver_info["jacobian_weights"]`), solved by
+its mass and stiffness applies in f64 (kernel #1 on a lattice, cell-based
+off it), R(u) at the quadrature points summed into dofs in a fixed order
+(GatherSum). On a lattice with a hierarchy the Jacobian is per-step
+stencil weights W_const + W(R'(u)), R' interpolated at the nodes so that
+the mass-weighted term is a bilinear map of a nodal field
+(`stencil.BilinearLatticeWeightMap` on T_mass; above its size gate, the
+reference's cell Jacobian with R' at the quadrature points, summed into
+weights in a fixed order: `solver_info["jacobian_weights"]`), solved by
 `dispatch.solve_constrained_ir(step_weights=...)`: GMRES(15) in f32
 preconditioned by the PyTorch V-cycle of the constant part's hierarchy,
-the f64 outer on the float32 weights cast to f64. One host read of the
-residual norm a Newton iteration. A per-step lattice without a hierarchy
-raises NotImplementedError (the reference's cell-apply solve is not
-ported). A step whose Newton (or linear IR) stops above its tolerance
-raises on a CUDA device; on the CPU the loop goes on and records
-`iterative_failed`, as the reference's scan does.
+the f64 outer on the float32 weights cast to f64. Elsewhere (no lattice,
+or a lattice without a hierarchy) the Jacobian is the cell batch J = M /
+dt + eps K + local_mass(R'(u) at the quadrature points), built on the
+device each Newton iteration, solved by the cell-local refinement:
+GMRES(60) in f32 with Jacobi, at most NEWTON_MAX_OUTER rounds
+("jacobi-gmres-ir", the reference's :283-330). One host read of the
+residual norm a Newton iteration. A step whose Newton (or linear IR)
+stops above its tolerance raises on a CUDA device; on the CPU the loop
+goes on and records `iterative_failed`, as the reference's scan does.
 
-Port of pdebench_tpu/oracle/reaction_diffusion.py on lattices.
+Port of pdebench_tpu/oracle/reaction_diffusion.py.
 """
 
 from __future__ import annotations
@@ -47,17 +53,19 @@ import sympy as sp
 import torch
 
 from ..fem import symbolic
-from ..fem.assemble import GatherSum, local_load, local_mass, local_stiffness
+from ..fem.assemble import CellBatch, GatherSum, LocalOperator, local_load, local_mass, local_stiffness
 from ..solvers import dispatch
 from . import base, heat, scalar
 from .convection_diffusion import transient_time
 from .types import OracleResult, compute_rel_L2_grid
 
 _U = sp.Symbol("u", real=True)
-# the Newton direction: GMRES(m) a round, rounds, and its relative
-# tolerance's floor (inexact Newton: the outer loop enforces the
+# the Newton direction: GMRES(m) a round (with the constant part's
+# hierarchy, with Jacobi on the cell-local Jacobian), rounds, and its
+# relative tolerance's floor (inexact Newton: the outer loop enforces the
 # nonlinear tolerance)
 NEWTON_GMRES = 15
+NEWTON_GMRES_CELL = 60
 NEWTON_MAX_OUTER = 10
 NEWTON_LIN_RTOL = 1e-6
 
@@ -106,10 +114,12 @@ def mass_tensor(cb) -> np.ndarray:
 @dataclass
 class NewtonSteps:
     """The constant pieces of the nonlinear step loop, built once (setup):
-    the lattice and its hierarchy, the step weights' map, the bilinear map
-    with its P on the device and the constant part's float32 weights W_c32
-    = (M / dt + eps K) on the map's offsets (or, above the bilinear map's
-    size gate, no bilinear map and the cell batches M and K on the device),
+    on a lattice with a hierarchy, the lattice, the step weights' map, the
+    bilinear map with its P on the device and the constant part's float32
+    weights W_c32 = (M / dt + eps K) on the map's offsets (above the
+    bilinear map's size gate, no bilinear map); elsewhere no lattice. The
+    cell batches M and K on the device where a Jacobian is a cell batch
+    (`cells` sums them with the R'(u) mass through its fixed-order plan),
     the f64 mass and stiffness applies, and the quadrature data of the
     reaction load and the Jacobian."""
 
@@ -120,9 +130,11 @@ class NewtonSteps:
     W_c32: Optional[torch.Tensor]
     M_loc: Optional[torch.Tensor]
     K_loc: Optional[torch.Tensor]
+    cells: Optional[LocalOperator]
     mass_apply: Callable
     stiff_apply: Callable
     gather: GatherSum
+    cb: CellBatch
     phi: torch.Tensor  # (nq, nl)
     wdetJ: torch.Tensor  # (c, nq)
     dofmap: torch.Tensor  # (c, nl)
@@ -148,20 +160,37 @@ class NewtonSteps:
         )
         return torch.where(mask, 0.0, G)
 
+    def jacobian_cells(self, u):
+        """The reference's cell Jacobian M / dt + eps K + the mass weighted
+        by R'(u) at the quadrature points, (c, nl, nl) float64 on the
+        device."""
+        rp_mass = local_mass(self.cb, self.Rp(self.at_q(u)))
+        return (1.0 / self.dt) * self.M_loc + self.epsilon * self.K_loc + rp_mass
+
     def jacobian_weights(self, u):
-        """(wmap, float32 weights) of J(u) = M / dt + eps K + the mass
-        weighted by R'(u): R' interpolated at the nodes through the
-        bilinear map or, above its size gate, R' at the quadrature points
-        in the cell batch, cast to float32 and summed into weights in a
-        fixed order (the reference scatter-adds that batch there). Either
+        """(wmap, float32 weights) of J(u) on the lattice: R' interpolated
+        at the nodes through the bilinear map or, above its size gate, the
+        cell Jacobian cast to float32 and summed into weights in a fixed
+        order (the reference scatter-adds that batch there). Either
         Jacobian only steers Newton: the residual decides its stop."""
         if self.bwm is not None:
             lat = self.lat32.lattice
             v_lat = lat.embed(self.Rp(u).to(torch.float32), 0.0).reshape(self.wmap.shape)
             return self.wmap, self.W_c32 + self.bwm.weights_w(self.P, v_lat)
-        rp_mass = torch.einsum("qi,qj,cq->cij", self.phi, self.phi, self.wdetJ * self.Rp(self.at_q(u)))
-        J = (1.0 / self.dt) * self.M_loc + self.epsilon * self.K_loc + rp_mass
-        return self.wmap, self.wmap.weights(J.to(torch.float32))
+        return self.wmap, self.wmap.weights(self.jacobian_cells(u).to(torch.float32))
+
+    def direction(self, u, G, mask, zeros, lin_rtol, atol):
+        """The Newton direction J(u) d = -G: the step weights' solve on a
+        lattice, the cell-local one elsewhere. Returns solve_constrained_ir's
+        (d, iterations, residual, converged, inner name)."""
+        if self.lat32 is None:
+            op, sw, n_inner = self.cells.with_local(self.jacobian_cells(u)), None, NEWTON_GMRES_CELL
+        else:
+            op, sw, n_inner = None, self.jacobian_weights(u), NEWTON_GMRES
+        return dispatch.solve_constrained_ir(
+            op, -G, mask, zeros, self.lat32, lin_rtol, atol,
+            inner="gmres", inner_iters=n_inner, max_outer=NEWTON_MAX_OUTER, step_weights=sw,
+        )
 
 
 def newton_steps(
@@ -198,11 +227,7 @@ def newton_steps(
             if k >= max_it or rn <= tol:
                 break
             # the reference does not look at the direction's convergence
-            d, its, _, _, name = dispatch.solve_constrained_ir(
-                None, -G, mask, zeros, ns.lat32, lin_rtol, atol,
-                inner="gmres", inner_iters=NEWTON_GMRES, max_outer=NEWTON_MAX_OUTER,
-                step_weights=ns.jacobian_weights(u),
-            )
+            d, its, _, _, name = ns.direction(u, G, mask, zeros, lin_rtol, atol)
             names.add(name)
             u = u + d
             k += 1
@@ -218,7 +243,7 @@ def newton_steps(
     if len(names) > 1:
         raise RuntimeError(f"the Newton directions took different inner solves: {sorted(names)}")
     info = dict(
-        inner=names.pop() if names else "gmres+vcycle",
+        inner=names.pop() if names else ("jacobi-gmres-ir" if ns.lat32 is None else "gmres+vcycle"),
         newton_iterations=newton, linear_iterations=linear,
         iterations=sum(linear), residual=rn,
     )
@@ -235,8 +260,6 @@ class ReactionDiffusionSolver:
         self, config: Dict[str, Any], _compute_baseline: bool = True
     ) -> OracleResult:
         pde = config["pde"]
-        if base.lattice_free_domain(config["domain"]):
-            raise base.unported_off_lattice("reaction_diffusion", "the time loop")
         mms_u = pde.get("manufactured_solution", {}).get("u")
         if mms_u is not None:
             config = scalar.override_bc_with_mms(config, mms_u)
@@ -301,21 +324,27 @@ class ReactionDiffusionSolver:
         else:
 
             def build():
-                lat32, wmap, bwm = scalar.bilinear_step_lattice(ctx, A_pre, lambda: mass_tensor(cb))
-                mass_apply, stiff_apply = scalar.stencil_appliers64(
-                    lat32, space.dofmap_scalar, M, K
-                )
                 dev = self.device
+                step = scalar.bilinear_step_lattice(ctx, A_pre, lambda: mass_tensor(cb))
+                lat32, wmap, bwm = step if step is not None else (None, None, None)
                 bilinear = bwm is not None
+                M_loc = None if bilinear else torch.as_tensor(M, device=dev)
+                K_loc = None if bilinear else torch.as_tensor(K, device=dev)
+                cells = None
+                if lat32 is None:
+                    cells = LocalOperator(M_loc, space.dofmap_scalar, space.ndof)
+                    mass_apply, stiff_apply = cells, cells.with_local(K_loc)
+                else:
+                    mass_apply, stiff_apply = scalar.stencil_appliers64(
+                        lat32, space.dofmap_scalar, M, K
+                    )
                 ns = NewtonSteps(
                     lat32=lat32, wmap=wmap, bwm=bwm, P=bwm.device_stack(dev) if bilinear else None,
                     W_c32=(torch.as_tensor(wmap.weights_np(A_c), device=dev).to(torch.float32)
                            if bilinear else None),
-                    M_loc=None if bilinear else torch.as_tensor(M, device=dev),
-                    K_loc=None if bilinear else torch.as_tensor(K, device=dev),
+                    M_loc=M_loc, K_loc=K_loc, cells=cells,
                     mass_apply=mass_apply, stiff_apply=stiff_apply, gather=ctx.gather_sum(),
-                    phi=torch.as_tensor(cb.phi, device=dev),
-                    wdetJ=torch.as_tensor(cb.wdetJ, device=dev),
+                    cb=cb, phi=cb.on("phi", dev), wdetJ=cb.on("wdetJ", dev),
                     dofmap=torch.as_tensor(space.dofmap_scalar, device=dev),
                     R=R_fn, Rp=Rp_fn,
                     epsilon=epsilon, dt=dt,
@@ -329,7 +358,9 @@ class ReactionDiffusionSolver:
                     ns, u0_dev, step_loads(), g_fn, ts, ctx.mask, newton_rtol, atol,
                     newton_maxit, max(NEWTON_LIN_RTOL, ksp_rtol),
                 )
-                info["jacobian_weights"] = "bilinear" if ns.bwm is not None else "cell-batch"
+                info["jacobian_weights"] = (
+                    "bilinear" if ns.bwm is not None else "cell-batch" if ns.lat32 is not None else "cell-local"
+                )
                 return ctx.sample(u.cpu().numpy()), info
 
         (fem_grid, info), t_warm, t_cold = base.timed_run(run, self.device)

@@ -224,29 +224,20 @@ def bilinear_step_lattice(ctx: ScalarContext, A_const, T_fn: Callable):
     None where T would hold more than BILINEAR_MAX_ENTRIES (the reference
     then scatters each step's cell batch through the weight map).
 
-    Raises NotImplementedError where the reference leaves the lattice for
-    its cell-apply solve, which is not ported: the dofs form no lattice,
-    no hierarchy attaches (fewer than GMG_MIN_DOFS dofs, or its coarsest
-    level too large), or the node pairs reach beyond the weight map's
-    pad."""
-    from ..solvers.dispatch import GMG_MIN_DOFS
+    Returns None where the reference leaves the lattice for its
+    cell-local step solve: the dofs form no lattice, no hierarchy attaches
+    (fewer than GMG_MIN_DOFS dofs, or its coarsest level too large), or
+    the node pairs reach beyond the weight map's pad."""
     from ..solvers.stencil import BilinearLatticeWeightMap, lattice_weight_map
 
     space = ctx.space
     lat32 = maybe_lattice32(ctx, A_const)
     if lat32 is None:
-        raise NotImplementedError("per-step operators on meshes whose dofs form no lattice are not ported yet")
-    failed = attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
-    if lat32.gmg is None:
-        raise NotImplementedError(
-            f"a per-step lattice solve needs a GMG hierarchy, and none attaches here "
-            f"({space.ndof} dofs, the gate is {GMG_MIN_DOFS}"
-            + (f"; {failed}" if failed else "") + "): the reference's cell-apply solve "
-            "is not ported yet"
-        )
-    wmap = lattice_weight_map(lat32.lattice, space.dofmap_scalar)
+        return None
+    attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
+    wmap = lattice_weight_map(lat32.lattice, space.dofmap_scalar) if lat32.gmg is not None else None
     if wmap is None:
-        raise NotImplementedError("per-step weights of node pairs reaching beyond 4 lattice sites are not ported yet")
+        return None
     c, nl = space.dofmap_scalar.shape
     if c * nl**3 > BILINEAR_MAX_ENTRIES:
         return lat32, wmap, None

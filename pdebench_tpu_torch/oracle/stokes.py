@@ -26,23 +26,25 @@ solver_info["inner"]:
       kernel #1's d = 2 block form, in the f32 recurrence and in the f64
       residual alike. Elsewhere (P3-P2, nesting ratio 3/2) the vectors are
       flat and the saddle apply is the cell-based one.
-  minres+diag
-      3-D lattices (unit_cube) below AMG_MIN_DOFS, not asking for a direct
-      solve: MINRES-IR with the diagonal preconditioner diag(A) (+) nu /
-      diag(Mp); the saddle apply on flat vectors, its A block kernel #1's
-      d = 3 block form.
+  minres+amg, minres+diag
+      no GMG preconditioner (3-D lattices, masked lattices, meshes whose
+      dofs form no lattice), not asking for a direct solve: MINRES-IR with
+      `mixed.saddle_amg_precond` (one float64 SA-AMG V-cycle of the
+      velocity block, built here, before any solve; the lumped
+      pressure-mass Schur diagonal) from AMG_MIN_DOFS dofs on, the
+      diagonal preconditioner diag(A) (+) nu / diag(Mp) below (and where
+      the AMG hierarchy cannot be built: solver_info["amg_failed"] says
+      why); the saddle apply on flat vectors, its A block kernel #1's
+      d = 2 or 3 block form where the Taylor-Hood dofs form nested
+      lattices, the cell-based apply elsewhere.
   host-lu
-      a direct request without the GMG preconditioner (3-D preonly/lu):
-      the host SuperLU.
+      a direct request without the GMG preconditioner: the host SuperLU.
 
 The port takes the lattice layout on every device, where the reference
 takes it only on the TPU (its CPU default is flat: the CPU parity tests
 pin it with PDEBENCH_TPU_SADDLE_LAT=1). A MINRES that does not converge
 raises on CUDA tensors; on CPU tensors the solve goes to the host LU and
-records `iterative_failed`, as the reference does. Without the GMG
-preconditioner at AMG_MIN_DOFS dofs and more the reference takes SA-AMG,
-which is not ported: those solves raise NotImplementedError, before any
-Krylov work (for a re-solve of the baseline, before the case's own solve).
+records `iterative_failed`, as the reference does.
 
 Port of pdebench_tpu/oracle/stokes.py.
 """
@@ -74,9 +76,10 @@ from .types import OracleResult, compute_rel_L2_grid
 # a saddle MINRES that has not converged in this many preconditioned
 # iterations (over all restarts) will not: the reference's cap
 MAXITER = 5000
-# without the GMG preconditioner, the reference takes SA-AMG from this many
-# dofs on (not ported) and the diagonal preconditioner below
+# without the GMG preconditioner, SA-AMG from this many dofs on and the
+# diagonal preconditioner below (the reference's stokes.py:113-123)
 AMG_MIN_DOFS = 20000
+ROUTE_AMG = "minres+amg"
 ROUTE_DIAG = "minres+diag"
 ROUTE_HOST_LU = "host-lu"
 
@@ -124,10 +127,6 @@ class StokesProblem:
             config = scalar.override_bc_with_mms(config, list(mms_u))
             pde = config["pde"]
         self.config = config
-        if base.lattice_free_domain(config["domain"]) and not dispatch.direct_request(
-            base.solver_opts(config)
-        ):
-            raise base.unported_off_lattice("stokes", "an iterative solve (the SA-AMG saddle preconditioner)")
         self.nu = nu = float(pde.get("pde_params", {}).get("nu", 1.0))
         ctx = self.ctx = mixed.setup_taylor_hood(config, dev)
         V, Q, cb = ctx.V, ctx.Q, ctx.cb
@@ -159,16 +158,17 @@ class StokesProblem:
         parts = self.parts = mixed.saddle_gmg_precond_parts(
             V, nu, cb, ctx.psi, Q.dofmap_scalar, Q.ndof, mask_np, dev
         )
-        self.layout = self.sst = self.WA64 = None
+        self.layout = self.sst = self.WA64 = self.amg_failed = None
         if parts is None and use_direct:
             self.route = ROUTE_HOST_LU
             return
+        M = None
         if parts is None and ctx.N >= AMG_MIN_DOFS:
-            raise NotImplementedError(
-                f"stokes: {ctx.N} dofs without the stencil-GMG preconditioner take SA-AMG, "
-                f"which is not ported yet"
+            M, self.amg_failed = mixed.saddle_amg_precond(
+                self.A_loc, cb, ctx.psi, V.dofmap, Q.dofmap_scalar, V.ndof, Q.ndof, nu, mask_np, dev
             )
-        if parts is None:
+            self.route = ROUTE_AMG
+        if parts is None and M is None:
             inv = torch.as_tensor(
                 mixed.saddle_diag_precond(
                     self.A_loc, cb, ctx.psi, V.dofmap, Q.dofmap_scalar, V.ndof, Q.ndof, nu, mask_np
@@ -176,7 +176,7 @@ class StokesProblem:
                 device=dev,
             )
             self.route, M = ROUTE_DIAG, lambda r: inv * r
-        else:
+        elif parts is not None:
             self.route = f"minres+{parts.route}"
 
             def M(r):  # block-diagonal, SPD
@@ -235,6 +235,8 @@ class StokesProblem:
             "ksp_type": str(opts["ksp_type"]).lower(), "pc_type": str(opts["pc_type"]).lower(),
             "rtol": self.rtol,
         }
+        if self.amg_failed:
+            info["amg_failed"] = self.amg_failed
         if self.route != ROUTE_HOST_LU:
             x, kinfo = self.minres_solve()
             if kinfo.converged:
@@ -278,7 +280,7 @@ class StokesSolver:
             and config["pde"].get("manufactured_solution", {}).get("u") is None
             and "reference_config" in config
         ):
-            # the re-solve's route, and a refusal, before any solve
+            # the re-solve's route, and its preconditioner, before any solve
             ref_prob = StokesProblem(reference_config(config), self.device)
         (fem_grid, info), t_warm, t_cold = base.timed_run(prob.run, prob.device)
         baseline_time = ctx.t_setup + t_warm

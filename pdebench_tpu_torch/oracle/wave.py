@@ -15,9 +15,25 @@ loop with the two-level right-hand side
 step (12 GMG-PCG steps a round with a hierarchy, kernel #2 on an unpadded
 one; 30 Jacobi-PCG steps without) with the Dirichlet values g(t_n + dt).
 
+Meshes whose dofs form no lattice (the signed-distance domains,
+periodic_square, the thin t_junction) take, as the reference does:
+  - on CUDA tensors, the same loop on the cell-local operators (the M and
+    K applies and the refinement's operators cell-based, every sum in a
+    fixed order): from dispatch.AMG_MIN_DOFS dofs on the inner is 12 CG
+    steps a round preconditioned by a float32 SA-AMG V-cycle of A, built
+    once per case and charged to setup ("amg-cg-ir"; the reference's CPU
+    branch, :128-152), below that 30 Jacobi-CG steps ("jacobi-cg-ir");
+  - on CPU tensors of at most dispatch.HOST_LU_MAX_DOFS dofs, the host
+    SuperLU (A factored once, a back-substitution a step: the
+    reference's CPU branch, :113-126), above that the loop of the card;
+  - for the untimed re-solve of a no-exact case (reference_config at
+    dt / 2) on a mesh whose dof coordinates form no lattice, the host
+    SuperLU on every device (the reference's route on every platform,
+    :90-100); the main solve's solver_info names the re-solve's route.
+solver_info["host_lu"] says why a solve took the host LU.
+
 A step that does not converge raises on a CUDA device; on the CPU the
 whole loop is solved again with the host SuperLU, as the reference does.
-Meshes whose dofs form no lattice raise NotImplementedError.
 
 Scheme (reference: pdebench/oracle/wave.py:34-127):
   u^0    = u_exact(t0) (MMS) or initial_condition
@@ -25,8 +41,8 @@ Scheme (reference: pdebench/oracle/wave.py:34-127):
   BCs    = u_exact(t_{n+1}) on all boundary facets (MMS) or the case's bc
   f      = u_tt - c^2 Lap(u_exact) derived symbolically (MMS)
 
-Port of pdebench_tpu/oracle/wave.py (its lattice route: the reference's
-non-IR solve_constrained, taken by non-CG ksp types, is not ported).
+Port of pdebench_tpu/oracle/wave.py (the reference's non-IR
+solve_constrained, taken by non-CG ksp types, is not ported).
 """
 
 from __future__ import annotations
@@ -40,10 +56,26 @@ import torch
 
 from ..fem import symbolic
 from ..fem.assemble import local_load, local_mass, local_stiffness
+from ..solvers import dispatch
+from ..solvers.stencil import detect_lattice
 from . import base, heat, scalar
 from .types import OracleResult, compute_rel_L2_grid
 
 THETA = 0.25
+
+
+def amg_step_preconditioner(op, mask: torch.Tensor):
+    """The float32 SA-AMG V-cycle of the constrained step matrix `op` (a
+    LocalOperator), its levels on mask's device, or (None, why) where the
+    coarsest level cannot be inverted: the loop then takes Jacobi, as the
+    reference does."""
+    from ..solvers.amg import setup_amg_masked_pair
+
+    try:
+        _, M32, _ = setup_amg_masked_pair(op.to_scipy(), mask.cpu().numpy(), device=mask.device)
+    except np.linalg.LinAlgError as e:
+        return None, f"{e}"
+    return M32, None
 
 
 class WaveSolver:
@@ -62,8 +94,6 @@ class WaveSolver:
         t0, _, dt, num_steps = base.time_params(pde)
         t_final = t0 + num_steps * dt
         opts = base.solver_opts(config)
-        if base.lattice_free_domain(config["domain"]):
-            raise base.unported_off_lattice("wave", "the time loop")
         if str(opts.get("ksp_type", "cg")).lower() not in ("cg", "minres"):
             raise NotImplementedError(
                 f"wave with ksp_type {opts['ksp_type']!r} takes the reference's "
@@ -102,6 +132,23 @@ class WaveSolver:
             ctx, build
         )
 
+        # the route off the lattice (module docstring)
+        host_lu, M32, amg_failed = None, None, None
+        if lat32 is None:
+            if not _compute_baseline and detect_lattice(ctx.space.dof_coords) is None:
+                host_lu = "no-exact re-solve"
+            elif self.device.type == "cpu" and op.ndof <= dispatch.HOST_LU_MAX_DOFS:
+                host_lu = "cpu"
+            elif op.ndof >= dispatch.AMG_MIN_DOFS:
+                # built once, charged to setup; CG-IR takes a multigrid
+                # preconditioner's inner count
+                t_amg = time.perf_counter()
+                M32, amg_failed = amg_step_preconditioner(op, ctx.mask)
+                base.synchronize(self.device)
+                ctx.t_setup += time.perf_counter() - t_amg
+                if M32 is not None:
+                    n_inner = heat.INNER_ITERS[0]
+
         def newmark_rhs(M_ap, K_ap, loads):
             def rhs(n, u, u_prev):
                 return (
@@ -113,18 +160,21 @@ class WaveSolver:
 
             return rhs
 
+        def host_steps(loads):
+            rhs = newmark_rhs(heat.host_apply(op, M), heat.host_apply(op, K), loads.cpu().numpy())
+            return heat.host_lu_steps(op, rhs, u0, g_fn, t_ns + dt, ctx.mask, u_prev=um1)
+
         def run():
             loads = heat.step_loads(ctx, [local_load(cb, f_q) for f_q in f_steps(qpts, t_ns)])
+            if host_lu is not None:
+                return ctx.sample(host_steps(loads)), dict(inner="host-lu", host_lu=host_lu, iterations=1)
             u, info = heat.step_loop(
                 op, lat32, newmark_rhs(M_ap, K_ap, loads), u0_dev, g_fn, t_ns + dt, ctx.mask,
-                rtol, atol, inner="cg", inner_iters=n_inner, u_prev=um1_dev,
+                rtol, atol, inner="cg", inner_iters=n_inner, u_prev=um1_dev, M32=M32,
             )
             if "iterative_failed" in info:
                 # CPU only: step_loop raises on a CUDA device
-                rhs = newmark_rhs(
-                    heat.host_apply(op, M), heat.host_apply(op, K), loads.cpu().numpy()
-                )
-                u = heat.host_lu_steps(op, rhs, u0, g_fn, t_ns + dt, ctx.mask, u_prev=um1)
+                u = host_steps(loads)
                 info.update(inner="host-lu", fallback="direct")
             else:
                 u = u.cpu().numpy()
@@ -141,6 +191,8 @@ class WaveSolver:
         baseline_time = ctx.t_setup + t_warm
         if gmg_failed:
             info["gmg_failed"] = gmg_failed
+        if amg_failed:
+            info["amg_failed"] = amg_failed
 
         baseline_error = 1e-2
         if _compute_baseline:
@@ -151,6 +203,9 @@ class WaveSolver:
                     _compute_baseline=False,
                 )
                 err = compute_rel_L2_grid(fem_grid, ref.reference)
+                info["reference_solve"] = {
+                    k: ref.solver_info[k] for k in ("inner", "host_lu") if k in ref.solver_info
+                }
             baseline_error = err if err is not None else 0.0
 
         solver_info = {

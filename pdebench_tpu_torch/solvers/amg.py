@@ -396,8 +396,11 @@ def masked_precond(amg: AMG, mask: np.ndarray) -> Callable:
     n = len(m)
 
     def precond(r: torch.Tensor) -> torch.Tensor:
+        # in r's dtype: a float32 vector through a float64 hierarchy (the
+        # saddle preconditioner in MINRES-IR's float32 recurrence) comes
+        # back float32, as the reference's `.at[free].set` casts it
         out = r.new_zeros(n)
-        out[free] = vcycle(r[free])
+        out[free] = vcycle(r[free]).to(r.dtype)
         return torch.where(mask_t, r, out)
 
     return precond

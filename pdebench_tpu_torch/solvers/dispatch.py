@@ -52,6 +52,11 @@ a CUDA kernel, "-torch" its plain version (CPU tensors):
                 "jacobi-gmres", "jacobi-bicgstab" (float64 Jacobi Krylov),
                 "jacobi-cg-ir", "jacobi-gmres-ir" (a pc that is not
                 AMG-type above the gate)
+  cell-local    "jacobi-cg-ir", "jacobi-gmres-ir", "amg-cg-ir" (one step
+  steps:        of a step loop off the lattice, or of a per-step operator
+                on a lattice without a hierarchy: `solve_constrained_ir`
+                with lattice32=None, the same refinement as the route off
+                the lattice; wave's AMG is built once per case)
   host:         "host-lu"
 
 After a lattice IR that did not converge, `solver_info["iterative_failed"]`
@@ -66,7 +71,7 @@ below 40,000 dofs sent to the host LU there).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +107,10 @@ NONSYM_AMG_MIN_DOFS = 8000
 # nonsymmetric systems off the lattice of at most this many dofs take the
 # host LU on CPU tensors (the reference's CPU branch, :686-700)
 HOST_LU_MAX_DOFS = 80000
+# the refinement off the lattice: inner steps a round (CG, GMRES) and
+# rounds (the reference's refined_solve defaults)
+OFF_LATTICE_INNER_ITERS = {"cg": 30, "gmres": 60}
+OFF_LATTICE_MAX_OUTER = 60
 # the float64 retry after a refinement that stopped short
 F64_RETRY_MAXITER = 3000
 # a refinement that stopped above this share of ||b|| stagnated (a bad
@@ -165,6 +174,7 @@ def solve_constrained_ir(
     inner_iters: int,
     max_outer: int,
     step_weights=None,
+    M32_custom: Optional[Callable] = None,
 ):
     """Mixed-precision constrained solve of a lattice operator: the f64
     outer applies lattice32.W_f64 as a stencil, the f32 inner ("cg" or
@@ -182,8 +192,26 @@ def solve_constrained_ir(
     GMRES inner through the PyTorch V-cycle ("gmres+vcycle"); every apply
     is one stencil kernel launch on CUDA tensors. `op` is not used.
 
+    lattice32=None: the cell-local form (meshes whose dofs form no
+    lattice, lattices without a hierarchy for a per-step operator). The
+    f64 outer applies `op`, a float64 LocalOperator, the f32 inner its
+    float32 cast, both summed in a fixed order; the inner is
+    preconditioned by M32_custom (a float32 SA-AMG V-cycle built once,
+    outside the step loop: "amg-<inner>-ir") or by Jacobi on the float32
+    batch's constrained diagonal ("jacobi-<inner>-ir"). A step loop passes
+    a fresh cell batch as `op.with_local(A)` each step.
+
     Returns (x, iterations, residual, converged, inner_name).
     """
+    if lattice32 is None:
+        A64, rhs, x0 = _constrained_system(op, b, mask, g)
+        if M32_custom is None:
+            M32 = jacobi_preconditioner(torch.where(mask, 1.0, op.astype(torch.float32).diagonal()))
+        else:
+            M32 = M32_custom
+        x, info = _cell_refinement(op, A64, rhs, x0, mask, M32, rtol, atol, inner, inner_iters, max_outer)
+        pc = "jacobi" if M32_custom is None else "amg"
+        return x, info.iterations, info.residual, info.converged, f"{pc}-{inner}-ir"
     emb, inv = lattice32.embedding, lattice32.inv_j
     gshape = lattice32.grid_shape
     if step_weights is None:
@@ -334,6 +362,18 @@ def _constrained_system(op: LocalOperator, b, mask, g):
     return constrained_operator(A64, mask), constrained_rhs(A64, b, mask, g), torch.where(mask, g, 0.0)
 
 
+def _cell_refinement(op: LocalOperator, A64, rhs, x0, mask, M32, rtol, atol, inner, inner_iters, max_outer):
+    """The mixed-precision refinement on the cell-local operator: the
+    constrained float64 system (A64, rhs, x0) as the outer, op's float32
+    cast as the inner's operator. The route off the lattice and the
+    cell-local step solves share it. Returns (x, KrylovInfo)."""
+    A32 = constrained_operator(op.astype(torch.float32), mask)
+    return refined_solve(
+        A64, A32, rhs, x0=x0, M32=M32, rtol=rtol, atol=atol,
+        inner=inner, inner_iters=inner_iters, max_outer=max_outer,
+    )
+
+
 def _jacobi_diagonal(op: LocalOperator, mask):
     """The float64 diagonal of the constrained system (1 on constrained
     dofs)."""
@@ -394,10 +434,9 @@ def _off_lattice(op, b, mask, g, opts, symmetric, info, rtol, atol, maxiter):
     info["pc_used"] = pc_used + ("+ir32" if mixed else "")
     inner = f"{pc_used}-{inner_kind}-ir" if mixed else f"{pc_used}-{method}"
     if mixed:
-        A32 = constrained_operator(op.astype(torch.float32), mask)
-        x, kinfo = refined_solve(
-            A, A32, rhs, x0=x0, M32=M32, rtol=rtol, atol=atol,
-            inner=inner_kind, inner_iters=30 if inner_kind == "cg" else 60,
+        x, kinfo = _cell_refinement(
+            op, A, rhs, x0, mask, M32, rtol, atol, inner_kind,
+            OFF_LATTICE_INNER_ITERS[inner_kind], OFF_LATTICE_MAX_OUTER,
         )
     else:
         x, kinfo = _krylov(A, rhs, x0, M64, method, rtol, atol, maxiter)

@@ -21,7 +21,10 @@ for any other solve that did not converge; the
 Navier-Stokes oracle has no `solve_linear`: its route is its solve's
 `inner`), the warm solve and `baseline_time`. One line per case, then a summary: the
 worst relative difference, the cases per inner route and their median warm
-solve. A case that raises, whose error is off by more than --tol, or any
+solve. A step loop off the lattice names its route by its inner
+(`jacobi-cg-ir`, `amg-cg-ir`, `jacobi-gmres-ir`), a solve on the host LU
+why it took it (`host LU: ...`: the CPU branch, or a no-exact wave case's
+re-solve, whose route the case's line gives after `re-solve`). A case that raises, whose error is off by more than --tol, or any
 of whose solves records an unconverged IR (`iterative_failed`) is counted
 as failed, and the script then exits non-zero. A fall-through is counted
 as failed too unless the case is one of EXPECTED_FALL_THROUGH, whose
@@ -39,7 +42,11 @@ point location's leniency for grid points just outside the mesh
 oracle did before the JAX package took that leniency, so that a record
 written before it can be reproduced. --direct solves every case as a direct request (ksp preonly,
 pc lu): the host LU off the lattice, the witness of what an iterative
-route should converge to. --device cpu runs the plain
+route should converge to. --resolve-at-case-dt makes a transient no-exact
+case's re-solve step at the case's own dt, its reference_config's `time`
+dropped (the JAX package's re-solve before its commit 1101cb6, as
+`transient_record_check.py`'s second solve; the record of a case written
+before that commit then is the answer). --device cpu runs the plain
 versions on the CPU instead of the card (no timing is meaningful there).
 
 Imports neither jax nor pdebench_tpu.
@@ -124,6 +131,8 @@ def main(argv) -> int:
     ap.add_argument("--rtol", type=float, help="solve at this rtol (atol 1e-16)")
     ap.add_argument("--boundary-tol", type=float, help="the point location's boundary leniency")
     ap.add_argument("--direct", action="store_true", help="solve as a direct request (host LU)")
+    ap.add_argument("--resolve-at-case-dt", action="store_true",
+                    help="a no-exact re-solve at the case's dt, reference_config's time dropped")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if not args.case and not args.domain:
@@ -138,6 +147,11 @@ def main(argv) -> int:
 
     if args.boundary_tol is not None:
         sampling._TOL_BOUNDARY = args.boundary_tol
+    if args.resolve_at_case_dt:
+        from pdebench_tpu_torch.oracle import scalar
+
+        merge = scalar.merge_reference_config
+        scalar.merge_reference_config = lambda c, refine_dt=None: merge(c)
 
     if args.device == "cuda":
         print(subprocess.run(
@@ -160,6 +174,8 @@ def main(argv) -> int:
                 if args.direct:
                     oc["oracle_solver"] = dict(oc.get("oracle_solver", {}), ksp_type="preonly",
                                                pc_type="lu")
+                if args.resolve_at_case_dt:
+                    oc.get("reference_config", {}).pop("time", None)
                 cases.append((c["id"], oc))
     solver = OracleSolver(device=args.device)
     worst, failed, raised, fell = 0.0, [], [], []
@@ -205,7 +221,11 @@ def main(argv) -> int:
         print(f"{cid}: dofs {res.num_dofs} baseline_error {res.baseline_error!r} recorded "
               f"{ref!r} rel {rel:.2e}; inner {inner} iterations {info.get('iterations')}"
               + (f" Krylov {info['kry_its']}" if "kry_its" in info else "")
-              + (f" restarts {info['restarts']}" if "restarts" in info else "") + "; "
+              + (f" restarts {info['restarts']}" if "restarts" in info else "")
+              + (f" host LU: {info['host_lu']}" if "host_lu" in info else "")
+              + (f" AMG failed: {info['amg_failed']}" if "amg_failed" in info else "")
+              + (f"; re-solve {info['reference_solve']}" if "reference_solve" in info else "")
+              + "; "
               f"routes {routes}; warm "
               f"{info['t_warm']:.4f} s, baseline_time {res.baseline_time:.4f} s, whole call "
               f"{time.perf_counter() - t0:.2f} s", flush=True)

@@ -14,13 +14,16 @@ package's exact cell-based f64 outer (PDEBENCH_TPU_STEP_OUTER=cell),
 where today's outer applies the float32 step weights cast to f64.
 --today skips the second solve: the package's answer today beside the
 record, for any case (a steady one too). --rtol R solves at oracle_solver
-rtol R and atol 1e-16 instead of the case's own.
+rtol R and atol 1e-16 instead of the case's own. --resolution N solves
+every case at mesh resolution N (a case cut to size, as chip_smoke.py's
+"<case>@N" entries are; the record then belongs to another mesh).
 
     python3 scripts/transient_record_check.py heat_no_exact [case_id ...]
     python3 scripts/transient_record_check.py --pde reaction_diffusion --domain unit_square
     python3 scripts/transient_record_check.py --cell-outer --pde burgers --domain unit_square
     python3 scripts/transient_record_check.py --pde wave --domain l_shape
     python3 scripts/transient_record_check.py --today biharmonic_lshape_v2
+    python3 scripts/transient_record_check.py --today --resolution 48 wave_multiconn_circ_trig
 
 --pde and --domain take every case of that pde type and domain with no
 manufactured solution and a reference_config (the 7 unit_square
@@ -51,6 +54,7 @@ def main(argv) -> int:
                     help="the second solve with the exact cell-based f64 outer")
     ap.add_argument("--today", action="store_true", help="no second solve")
     ap.add_argument("--rtol", type=float, help="solve at this rtol (atol 1e-16)")
+    ap.add_argument("--resolution", type=int, help="solve at this mesh resolution")
     args = ap.parse_args(argv)
     if bool(args.pde) != bool(args.domain) or not (args.ids or args.pde):
         ap.error("give case ids, or --pde and --domain")
@@ -66,6 +70,9 @@ def main(argv) -> int:
     if args.rtol is not None:
         for oc in cases.values():
             oc["oracle_solver"] = dict(oc.get("oracle_solver", {}), rtol=args.rtol, atol=1e-16)
+    if args.resolution is not None:
+        for oc in cases.values():
+            oc["mesh"] = dict(oc.get("mesh", {}), resolution=args.resolution)
     with open(os.path.join(ROOT, "results", "oracle_sweep_progress.jsonl")) as fh:
         records = {r["case_id"]: r.get("baseline_error") for r in map(json.loads, fh) if r.get("ok")}
     ids = list(args.ids)

@@ -1305,3 +1305,39 @@ def test_amg_vcycle_on_the_card_matches_its_cpu_twin(dev):
         zc = C(torch.as_tensor(r).to(dtype))
         err = float((z.cpu() - zc).abs().max() / zc.abs().max())
         assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("case_id,resolution,inner", [
+    ("burgers_circle_v1", 40, "jacobi-gmres-ir"),
+    ("rd_circle_allencahn", 40, "jacobi-gmres-ir"),
+])
+def test_cell_local_step_loop_on_the_card(dev, case_id, resolution, inner):
+    """A step loop off the lattice on the card (a distmesh circle, 3
+    steps): each step's cell batch assembled on the device, the
+    cell-local refinement with Jacobi; two solves give the same bits and
+    the same per-step counts, and the grid is the CPU route's to 1e-9 of
+    its largest magnitude. No kernel of the table runs there."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+    cfg = copy.deepcopy(cfg)
+    cfg["mesh"]["resolution"] = resolution
+    if "time" in cfg["pde"]:
+        tc = cfg["pde"]["time"]
+        tc["t_end"] = tc.get("t0", 0.0) + 3 * tc["dt"]
+    else:
+        cfg["pde"]["t_final"] = 3 * cfg["pde"].get("dt", 0.01)
+    before = stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES
+    runs = [OracleSolver(device="cuda").solve(copy.deepcopy(cfg)) for _ in range(2)]
+    assert (stencil_kernel.LAUNCHES, gmg_fused.LAUNCHES) == before
+    cpu = OracleSolver(device="cpu").solve(copy.deepcopy(cfg))
+    counts = [(r.solver_info.get("outer_rounds"), r.solver_info.get("linear_iterations")) for r in runs]
+    for r in runs:
+        assert r.solver_info["inner"] == inner and "iterative_failed" not in r.solver_info
+    assert counts[0] == counts[1]
+    a, b = runs[0].reference, runs[1].reference
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    assert np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)])
+    want = cpu.reference[~np.isnan(cpu.reference)]
+    assert np.abs(a[~np.isnan(a)] - want).max() <= 1e-9 * np.abs(want).max()

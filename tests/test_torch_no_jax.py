@@ -81,3 +81,13 @@ def test_off_lattice_slice_sources():
     for name in ("solvers/amg.py", "solvers/krylov.py", "fem/geometry.py", "oracle/base.py"):
         assert PKG / name in SOURCES
     assert (ROOT / "scripts" / "torch_sweep_cases.py") in SOURCES
+
+
+def test_cell_local_slice_sources():
+    """The modules of the cell-local step loops and the last SA-AMG
+    preconditioners are scanned."""
+    for name in ("solvers/dispatch.py", "solvers/amg.py", "fem/assemble.py", "oracle/base.py",
+                 "oracle/heat.py", "oracle/scalar.py", "oracle/wave.py", "oracle/burgers.py",
+                 "oracle/reaction_diffusion.py", "oracle/convection_diffusion.py",
+                 "oracle/mixed.py", "oracle/stokes.py"):
+        assert PKG / name in SOURCES

@@ -99,13 +99,16 @@ def test_no_exact_case_matches_reference():
     assert res.baseline_error > 0
 
 
-def test_no_hierarchy_raises():
+def test_no_hierarchy_takes_the_cell_local_route():
     """A nonlinear reaction below the hierarchy's size gate (17 x 17 P1
-    nodes): the reference falls back to its cell-apply solve, which is not
-    ported; the port says so instead of solving another way."""
-    cfg = case("reaction_diffusion_cubic_manufactured", 16, 2)
-    with pytest.raises(NotImplementedError, match="GMG hierarchy"):
-        OracleSolver(device="cpu").solve(cfg)
+    nodes): both packages leave the lattice for the cell-local Newton
+    solve (the Jacobian's cell batch with R' at the quadrature points,
+    GMRES(60) with Jacobi); the Newton and linear iterations agree."""
+    res, ref = compare(case("reaction_diffusion_cubic_manufactured", 16, 2), "reaction_diffusion")
+    assert np.abs(res.reference - ref.reference).max() <= 1e-9 * np.abs(ref.reference).max()
+    info = res.solver_info
+    assert info["inner"] == "jacobi-gmres-ir" and info["jacobian_weights"] == "cell-local"
+    assert info["iterations"] == ref.solver_info["iterations"] == sum(info["linear_iterations"])
 
 
 def test_unconverged_newton_is_recorded_on_cpu():

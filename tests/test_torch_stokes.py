@@ -97,22 +97,60 @@ def test_stokes_matches_reference(pinned, case_id, resolution, ref_resolution, i
     assert res.num_dofs == ref.num_dofs
 
 
-def test_without_gmg_parts_over_the_amg_gate_raises(monkeypatch):
-    """3-D MINRES solves from AMG_MIN_DOFS dofs on take SA-AMG in the
-    reference, which is not ported: NotImplementedError, and for a
-    no-exact case whose re-solve is over the gate, before the case's own
-    solve (the gate patched between the two sizes: 402 and 1,093 dofs)."""
+def test_without_gmg_parts_over_the_amg_gate_takes_saddle_amg(monkeypatch):
+    """3-D MINRES solves from AMG_MIN_DOFS dofs on take the saddle AMG
+    preconditioner (one SA-AMG V-cycle of the velocity block), below it
+    the diagonal one (the gate patched between stokes_3d_basic's sizes at
+    resolutions 2 and 3: 402 and 1,093 dofs); the AMG route's grid and
+    error held to the reference's host LU; a direct request without GMG
+    parts takes the host LU at any size."""
     monkeypatch.setattr(stokes, "AMG_MIN_DOFS", 1000)
-    runs = []
-    run = stokes.StokesProblem.run
-    monkeypatch.setattr(stokes.StokesProblem, "run", lambda self: runs.append(1) or run(self))
-    with pytest.raises(NotImplementedError, match="SA-AMG"):
-        OracleSolver(device="cpu").solve(case("stokes_3d_basic", 3))
-    with pytest.raises(NotImplementedError, match="SA-AMG"):
-        OracleSolver(device="cpu").solve(case("stokes_3d_body_force", 2, 3))
-    assert not runs
+    assert stokes.StokesProblem(case("stokes_3d_basic", 2), "cpu").route == "minres+diag"
+    config = case("stokes_3d_basic", 3)
+    ref_cfg = copy.deepcopy(config)
+    ref_cfg["oracle_solver"] = {**ref_cfg["oracle_solver"], "ksp_type": "preonly", "pc_type": "lu"}
+    ref = RefOracle().solve(ref_cfg)
+    res = OracleSolver(device="cpu").solve(copy.deepcopy(config))
+    info = res.solver_info
+    assert info["inner"] == "minres+amg" and res.num_dofs == ref.num_dofs == 1093
+    assert "iterative_failed" not in info and "amg_failed" not in info
+    gap = np.linalg.norm(res.reference - ref.reference) / np.linalg.norm(ref.reference)
+    assert gap < GRID_TOL, gap
+    assert abs(res.baseline_error - ref.baseline_error) <= ERR_TOL * ref.baseline_error
     # a direct request without GMG parts takes the host LU at any size
     assert stokes.StokesProblem(case("stokes_3d_low_nu", 3), "cpu").route == "host-lu"
+
+
+def test_saddle_amg_precond_matches_reference():
+    """mixed.saddle_amg_precond on stokes_exp_multi_connected_off_center_source's
+    P2-P1 spaces at resolution 24 (a distmesh square with a hole, 4,890
+    velocity and 642 pressure dofs: two AMG levels above a dense 76 x 76
+    coarse one), applied to a seeded vector in float64
+    and in float32 (MINRES-IR's recurrence): within 1e-12 of the
+    reference's, the constrained entries passed through."""
+    import jax.numpy as jnp
+
+    from pdebench_tpu.oracle.mixed import saddle_amg_precond as ref_precond
+    from pdebench_tpu_torch.fem.assemble import local_vector_laplacian
+    from pdebench_tpu_torch.oracle import mixed
+
+    config = case("stokes_exp_multi_connected_off_center_source", 24)
+    ctx = mixed.setup_taylor_hood(config, "cpu")
+    V, Q, nu = ctx.V, ctx.Q, 0.7
+    A_loc = local_vector_laplacian(ctx.cb, nu)
+    mask = ctx.mask.numpy()
+    args = (A_loc, ctx.cb, ctx.psi, V.dofmap, Q.dofmap_scalar, V.ndof, Q.ndof, nu, mask)
+    M, failed = mixed.saddle_amg_precond(*args, "cpu")
+    ref_M = ref_precond(*args)
+    assert failed is None and (V.ndof, Q.ndof) == (4890, 642)
+    r = np.random.default_rng(3).standard_normal(ctx.N)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+        r_in = torch.as_tensor(r).to(dtype)
+        got = M(r_in).numpy()
+        want = np.asarray(ref_M(jnp.asarray(r_in.numpy())))
+        assert got.dtype == want.dtype
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+        np.testing.assert_array_equal(got[mask], r_in.numpy()[mask])
 
 
 def test_unconverged_minres_on_cpu_takes_the_host_lu(pinned, monkeypatch):

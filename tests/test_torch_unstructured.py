@@ -31,6 +31,7 @@ torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent.parent / "data" / "benchmark_v2.jsonl"
 GRID_TOL = 1e-8  # max |difference| over the grid's largest magnitude
+MINRES_TOL = 1e-7  # a MINRES stopped at rtol 1e-10 against the host LU
 ERR_TOL = 1e-6  # relative difference of baseline_error
 
 
@@ -103,22 +104,58 @@ def test_helmholtz_shifted_laplacian_amg_route_matches_reference(nonsymmetric_am
     assert res.solver_info["inner"] == "amg-gmres-ir" and res.num_dofs >= 8000
 
 
-@pytest.mark.parametrize("case_id", [
-    "wave_multiconn_circ_trig", "burgers_hole_v1", "rd_square_hole_linear",
-    "convdiff_dumbbell_low_pe", "stokes_exp_multi_connected_off_center_source",
+def _off_lattice_case(case_id):
+    """The five types that took no route off the lattice before the
+    cell-local step loops and the last AMG preconditioners: cut to
+    resolution 8-10 and 2-3 steps; the Stokes no-exact case's re-solve at
+    P2-P1 and resolution 10, so that the port's re-solve (capped at P2-P1)
+    and the reference's direct one solve the same problem."""
+    cfg = _case(case_id, 8 if case_id.startswith("stokes") else 10)
+    if "time" in cfg["pde"]:
+        tc = cfg["pde"]["time"]
+        tc["t_end"] = tc.get("t0", 0.0) + 3 * tc["dt"]
+    elif case_id.startswith("burgers"):
+        cfg["pde"]["t_final"] = 2 * cfg["pde"].get("dt", 0.01)
+    if "reference_config" in cfg:
+        cfg["reference_config"]["mesh"]["resolution"] = 10
+        cfg["reference_config"]["fem"] = {"degree_u": 2, "degree_p": 1}
+    return cfg
+
+
+@pytest.mark.parametrize("case_id,inner", [
+    # the host LU: the CPU branch of both packages up to 80,000 dofs
+    ("wave_multiconn_circ_trig", "host-lu"),
+    # the cell batch of every step on the device, GMRES(60) with Jacobi
+    ("burgers_hole_v1", "jacobi-gmres-ir"),
+    # the constant step matrix, CG(30) with Jacobi
+    ("rd_square_hole_linear", "jacobi-cg-ir"),
+    # steady and nonsymmetric: the host LU in both packages on the CPU
+    ("convdiff_dumbbell_low_pe", "host-lu"),
+    # MINRES with one SA-AMG V-cycle of the velocity block (the gate
+    # patched to 0), held to the reference's host LU
+    ("stokes_exp_multi_connected_off_center_source", "minres+amg"),
 ])
-def test_unported_types_raise_before_meshing(case_id, monkeypatch):
-    """Wave, Burgers, reaction-diffusion, and iterative convection-
-    diffusion and Stokes solves off the lattice are not ported: they
-    raise NotImplementedError naming the roadmap item, before any mesh is
-    made."""
-    from pdebench_tpu_torch.fem import geometry
+def test_off_lattice_types_take_their_routes(case_id, inner, monkeypatch):
+    """Wave, Burgers, reaction-diffusion, convection-diffusion and the
+    iterative Stokes solves off the lattice answer on the CPU, on the
+    route the card takes or the reference's CPU branch, within GRID_TOL of
+    the reference (Stokes: of its host LU, MINRES_TOL) and its
+    baseline_error."""
+    cfg = _off_lattice_case(case_id)
+    ref_cfg, tol = copy.deepcopy(cfg), GRID_TOL
+    if case_id.startswith("stokes"):
+        from pdebench_tpu_torch.oracle import stokes
 
-    def no_meshing(*a, **k):
-        raise AssertionError("meshed")
-
-    monkeypatch.setattr(geometry, "mesh_domain", no_meshing)
-    with open(DATA) as fh:
-        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        OracleSolver(device="cpu").solve(cfg)
+        monkeypatch.setattr(stokes, "AMG_MIN_DOFS", 0)
+        for c in (ref_cfg, ref_cfg["reference_config"]):
+            c["oracle_solver"] = {**ref_cfg["oracle_solver"], "ksp_type": "preonly", "pc_type": "lu"}
+        tol = MINRES_TOL
+    ref = RefOracle().solve(ref_cfg)
+    res = OracleSolver(device="cpu").solve(copy.deepcopy(cfg))
+    got, want = res.reference, ref.reference
+    assert got.shape == want.shape and res.num_dofs == ref.num_dofs
+    outside = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), outside)
+    assert np.abs(got[~outside] - want[~outside]).max() <= tol * np.abs(want[~outside]).max()
+    assert abs(res.baseline_error - ref.baseline_error) <= ERR_TOL * ref.baseline_error
+    assert res.solver_info["inner"] == inner and "iterative_failed" not in res.solver_info
