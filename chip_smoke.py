@@ -100,6 +100,20 @@ recorded values:
               masked l_shape lattice and unit_cube. No kernel of the table
               runs there; the two solves of a case give the same grid, bit
               for bit
+  3-D elas-   `le_3d_basic` (P2, 21^3 nodes, 27,783 dofs) and
+  ticity (18) `le_3d_multifreq_mms` (25^3, 46,875 dofs) on unit_cube block
+              lattices: CG preconditioned by the PyTorch block V-cycle,
+              every level apply and the f64 residual on the stencil
+              kernel's d = 3 block form (18k: the form at 25^3 against its
+              plain version); the two solves give the same grid, bit for bit
+  Darcy (18b) the elliptic form on `poisson_basic`'s mesh and solution
+              (the fused inner CG) and the mixed RT1 x DG1 form at res 16
+              (the host LU)
+  Hyper-      hyperelasticity (the stretch, Newton-CG on the autodiff
+  elasticity, energy) and Cahn-Hilliard (mass conservation, Newton with a
+  Cahn-       Jacobi GMRES a step) at the JAX package's test resolutions
+  Hilliard    and at 64, the checks of its tests; no kernel of the table
+  (18c)       runs there; two solves give the same grid, bit for bit
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -297,8 +311,30 @@ STOKES_AMG = {
     "stokes_exp_lshape_trifreq_flow": (7.086023784365608e-06, 1e-5, "minres+amg"),
     "stokes_3d_multifreq": (0.1929079144510536, 1e-5, "minres+amg"),
 }
-# the inner routes off the lattice (they launch no kernel of the table)
-OFF_LATTICE_ROUTES = ("amg-", "jacobi-")
+# 3-D elasticity on unit_cube block lattices (phase 18): case id ->
+# (recorded baseline_error, relative tolerance, inner on the card, pc_used).
+# le_3d_basic is 21^3 P2 nodes (27,783 dofs, hierarchy 21^3 -> 11^3 -> 6^3
+# coarse), le_3d_multifreq_mms 25^3 (46,875 dofs, the largest 3-D
+# elasticity case: 25^3 -> 13^3 -> 7^3 -> 4^3): CG preconditioned by the
+# PyTorch block V-cycle, every level apply and the f64 residual one launch
+# of the stencil kernel's d = 3 block form
+LE_3D = {
+    "le_3d_basic": (0.0010009789573300774, 1e-6, "stencil-cg", "gmg+stencil-ir32"),
+    "le_3d_multifreq_mms": (0.001278049716574264, 1e-6, "stencil-cg", "gmg+stencil-ir32"),
+}
+# Darcy (phase 18b): the elliptic form on poisson_basic's mesh (unit_square
+# res 120, P1, 14,641 dofs) with its kappa and its manufactured solution as
+# p: Poisson's problem, so poisson_basic's record, and kernel #2 as its inner;
+# the mixed RT1 x DG1 form at res 16 on the host LU, held to the JAX
+# package's CPU run of that configuration (the reference's
+# tests/test_mixed_pdes.py::test_darcy_rt1_convergence_order at res 16)
+DARCY = {
+    "darcy:poisson_basic": (1.924806820736457e-4, 1e-6, "fused-cg-cuda"),
+    "darcy:rt1@16": (0.0034248804530593066, 1e-6, "host-lu"),
+}
+# the inner routes that launch no kernel of the table: off the lattice and
+# the host LU
+OFF_LATTICE_ROUTES = ("amg-", "jacobi-", "host-")
 # whole-case solves per case on each main path: two hold a case's counts
 # equal from solve to solve and keep the script's wall time near ~400 s
 SOLVES = 2
@@ -490,6 +526,28 @@ def load_cases(ids):
         if res:
             out[key]["mesh"]["resolution"] = int(res)
     return out
+
+
+def darcy_cases(cases):
+    """The configurations of DARCY: poisson_basic's with the pde replaced
+    by Darcy's elliptic form (its kappa, its manufactured solution as p),
+    and the mixed RT1 x DG1 form at res 16."""
+    pb = copy.deepcopy(cases["poisson_basic"])
+    pde = pb["pde"]
+    pb["pde"] = {"type": "darcy", "coefficients": copy.deepcopy(pde.get("coefficients", {})),
+                 "manufactured_solution": {"p": pde["manufactured_solution"]["u"]}}
+    rt1 = {
+        "pde": {"type": "darcy", "formulation": "mixed",
+                "coefficients": {"kappa": {"type": "constant", "value": 1.0}},
+                "manufactured_solution": {"p": "sin(pi*x)*sin(pi*y)"}},
+        "domain": {"type": "unit_square"},
+        "mesh": {"resolution": 16},
+        "fem": {"family": "RT", "degree_u": 2, "degree_p": 1},
+        "bc": {},
+        "output": {"grid": {"bbox": [0, 1, 0, 1], "nx": 40, "ny": 40}},
+        "oracle_solver": {"ksp_type": "preonly", "pc_type": "lu"},
+    }
+    return {"darcy:poisson_basic": pb, "darcy:rt1@16": rt1}
 
 
 def poisson_operator(config, device):
@@ -716,12 +774,14 @@ def graph_ms(fn, calls: int = 20, samples: int = 5) -> float:
     return statistics.median(times)
 
 
-def stencil_line(phase, name, cid, lat, W, u, plain, tol, report, nbytes, flops):
+def stencil_line(phase, name, cid, lat, W, u, plain, tol, report, nbytes, flops,
+                 report_dtype=torch.float64):
     """One stencil apply on the card against its plain version: the
     wrapper's time (median_ms around the plan's call, the kernels line's
     `ms`, as for every kernel), its device time (graph_ms, `device_ms`),
     the caller-level apply_grid_w time (median_ms, `caller_ms`), the plain
-    version's, the bound."""
+    version's, the bound; reported under `name` at its first call in
+    `report_dtype`."""
     from pdebench_tpu_torch.solvers import stencil_kernel
 
     before = stencil_kernel.LAUNCHES
@@ -743,7 +803,7 @@ def stencil_line(phase, name, cid, lat, W, u, plain, tol, report, nbytes, flops)
                f"({b['bound_by']})")
     if not err <= tol or launched != 1:
         raise AssertionError(f"{name} disagrees or launched {launched} times at {cid} {tag}: {err}")
-    if name not in report and W.dtype == torch.float64:
+    if name not in report and W.dtype == report_dtype:
         report[name] = dict(max_abs_err=float((yk - yp).abs().max()), ms=ms, plain_ms=plain_ms,
                             device_ms=device_ms, caller_ms=caller_ms, **b)
 
@@ -1192,6 +1252,123 @@ def stokes_kernel_ops(prob_2d, prob_3d, rng, dev, report):
                      9 * _taps_flops(K, n) + 6 * n)
 
 
+def check_block3_elasticity(config, rng, dev, report):
+    """(18k) The stencil kernel's d = 3 block form at le_3d_multifreq_mms'
+    25^3 lattice (65 taps): the f32 apply of the refinement's inner
+    operator (the V-cycle's finest level applies its constrained copy, of
+    the same shape and taps), reported under
+    stencil_apply_block_3d_elasticity, and the f64 apply of the outer
+    residual. Bound: the 9 K n weights and 6 n of u and y; 2 operations a
+    tap and coupling, 2 adds a row."""
+    from pdebench_tpu_torch.fem.assemble import local_elasticity
+    from pdebench_tpu_torch.oracle import linear_elasticity, scalar
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, list(pde["manufactured_solution"]["u"]))
+    lam, mu = linear_elasticity.lame_from_params(pde["pde_params"])
+    ctx = scalar.setup_scalar(config, dev, ncomp=-1)
+    lat = scalar.maybe_block_lattice32(ctx, local_elasticity(ctx.cb, mu, lam))
+    n, K = int(np.prod(lat.shape)), len(lat.offsets)
+    for W, tol, dtype in ((lat.W, TOL_F32, torch.float32), (lat.W_f64, TOL_F64, torch.float64)):
+        u = torch.as_tensor(rng.standard_normal(lat.grid_shape), device=dev).to(dtype)
+        stencil_line("18k", "stencil_apply_block_3d_elasticity", "le_3d_multifreq_mms", lat, W, u,
+                     stencil_kernel.block_stencil_plain, tol, report, K * 9 * n + 2 * 3 * n,
+                     9 * _taps_flops(K, n) + 6 * n, report_dtype=torch.float32)
+
+
+# Hyperelasticity and Cahn-Hilliard (phase 18c): the configurations of the
+# JAX package's tests/test_northstar_pdes.py (the stretch at its resolution
+# 10, Cahn-Hilliard's mass conservation at its 16), and each at resolution
+# 64; each solve held to what that test asserts
+def hyper_stretch(resolution):
+    return {
+        "pde": {"type": "hyperelasticity", "pde_params": {"E": 1.0, "nu": 0.3},
+                "body_force": ["0", "0"]},
+        "domain": {"type": "unit_square"},
+        "mesh": {"resolution": resolution, "cell_type": "triangle"},
+        "fem": {"family": "Lagrange", "degree": 1},
+        "bc": {"dirichlet": [{"on": "x0", "value": ["0", "0"]},
+                             {"on": "x1", "value": ["0.2", "0"]}]},
+        "output": {"field": "displacement_magnitude",
+                   "grid": {"bbox": [0, 1, 0, 1], "nx": 20, "ny": 20}},
+        "oracle_solver": {"rtol": 1e-9, "max_it": 40},
+    }
+
+
+def cahn_hilliard_mass(resolution):
+    return {
+        "pde": {"type": "cahn_hilliard", "pde_params": {"lambda": 1e-2, "M": 1.0},
+                "time": {"t0": 0.0, "t_end": 5e-5, "dt": 5e-6},
+                "initial_condition": "random", "seed": 3},
+        "domain": {"type": "unit_square"},
+        "mesh": {"resolution": resolution, "cell_type": "triangle"},
+        "fem": {"family": "Lagrange", "degree": 1},
+        "bc": {},
+        "output": {"grid": {"bbox": [0, 1, 0, 1], "nx": 24, "ny": 24}},
+        "oracle_solver": {"rtol": 1e-8},
+    }
+
+
+def hyper_checks(grid, info):
+    """tests/test_northstar_pdes.py::test_hyperelasticity_stretch_converges"""
+    return (info["residual"] < 1e-6 and abs(np.nanmax(grid) - 0.2) < 0.02
+            and info["inner"] == "newton-cg(autodiff)")
+
+
+def cahn_hilliard_checks(grid, info):
+    """tests/test_northstar_pdes.py::test_cahn_hilliard_mass_conservation"""
+    return (abs(np.nanmean(grid) - 0.63) < 0.02 and np.nanmin(grid) > -0.5
+            and np.nanmax(grid) < 1.5 and info["residual"] < 1e-8
+            and info["inner"] == "jacobi-gmres")
+
+
+NORTHSTAR = {
+    "hyperelasticity_stretch@10": (hyper_stretch(10), hyper_checks),
+    "hyperelasticity_stretch@64": (hyper_stretch(64), hyper_checks),
+    "cahn_hilliard_mass@16": (cahn_hilliard_mass(16), cahn_hilliard_checks),
+    "cahn_hilliard_mass@64": (cahn_hilliard_mass(64), cahn_hilliard_checks),
+}
+
+
+def drive_northstar(solver, cases, want, phase):
+    """SOLVES whole-case solves per configuration through OracleSolver,
+    setup caches cleared before each: a finite grid of the case's shape,
+    the reference test's checks, the same Newton (and linear) iterations
+    on every solve and the same grid bit for bit. No kernel of the table
+    runs there: the energy's derivatives, the applies and GMRES are
+    PyTorch ops, every sum in a fixed order."""
+    from pdebench_tpu_torch.oracle import base
+
+    for cid, (config, checks) in want.items():
+        warm, counts, grids = [], set(), []
+        for _ in range(SOLVES):
+            base.clear_setup_caches()
+            res = solver.solve(copy.deepcopy(config))
+            info = res.solver_info
+            grid = np.asarray(res.reference)
+            its = (info.get("iterations"), info.get("newton_per_step"), info.get("linear_iterations"))
+            say(phase, f"{cid}: {res.num_dofs} dofs; baseline_time {res.baseline_time:.4f} s, "
+                       f"t_setup {info['t_setup']:.4f} s, warm solve {info['t_warm']:.4f} s, "
+                       f"cold {info['t_cold']:.4f} s; inner {info['inner']}, Newton iterations "
+                       f"{info.get('iterations', info.get('newton_iterations'))}"
+                       + (f" (per step {info['newton_per_step']}, GMRES iterations per step "
+                          f"{info['linear_iterations']})" if "newton_per_step" in info else "")
+                       + f", residual {info['residual']!r}; grid max {float(np.nanmax(grid))!r}, "
+                       f"mean {float(np.nanmean(grid))!r}")
+            check_grid(cid, config, grid)
+            if not checks(grid, info):
+                raise AssertionError(f"{cid}: the reference test's checks fail: {info}")
+            counts.add(repr(its))
+            grids.append(grid)
+            warm.append(info["t_warm"])
+        if len(counts) != 1:
+            raise AssertionError(f"{cid}: the iterations moved between solves: {counts}")
+        same_bits(phase, cid, grids)
+        say(phase, f"{cid} over {SOLVES} solves: warm solve median "
+                   f"{statistics.median(warm):.4f} s ({min(warm):.4f}-{max(warm):.4f})")
+
+
 def same_bits(phase, cid, grids) -> None:
     """The grids of a case's solves, equal bit for bit (NaN where the
     first is), or an AssertionError."""
@@ -1363,7 +1540,7 @@ def drive_cases(solver, cases, want, phase, bitwise=False):
     from pdebench_tpu_torch.oracle import base
     from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
 
-    for cid, (ref_err, tol, inner_want) in want.items():
+    for cid, (ref_err, tol, inner_want, *pc_want) in want.items():
         warm, total, rounds_seen, grids = [], [], set(), []
         for _ in range(SOLVES):
             base.clear_setup_caches()
@@ -1390,11 +1567,14 @@ def drive_cases(solver, cases, want, phase, bitwise=False):
                        f"inner {info.get('inner')}, " + counts
                        + f", residual {info.get('residual')}"
                        + (f", host LU: {info['host_lu']}" if "host_lu" in info else "")
+                       + (f", pc {info['pc_used']}, levels (shape, taps) {info.get('gmg_levels')}"
+                          if pc_want else "")
                        + f"; launches in this solve (cold and warm runs): #1 {n1}, #2 {n2}")
             check_grid(cid, cases[cid], grid)
             if not rel <= tol:
                 raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
-            if info.get("inner") != inner_want or "iterative_failed" in info:
+            if (info.get("inner") != inner_want or "iterative_failed" in info
+                    or (pc_want and info.get("pc_used") != pc_want[0])):
                 raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
             on_lattice = not inner_want.startswith(OFF_LATTICE_ROUTES)
             if (on_lattice and n1 < 1) or (inner_want == "fused-cg-cuda" and n2 < 1):
@@ -1500,7 +1680,8 @@ def main() -> int:
                        | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
                        | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS) | set(STOKES_2D)
                        | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC) | set(OFF_LATTICE)
-                       | set(CELL_LOCAL) | set(STOKES_AMG))
+                       | set(CELL_LOCAL) | set(STOKES_AMG) | set(LE_3D))
+    cases.update(darcy_cases(cases))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
     e_ops = {cid: elasticity_operator(cases[cid], dev) for cid in ELASTICITY}
@@ -1589,6 +1770,11 @@ def main() -> int:
     # stiffness (23,009 dofs): the card against its CPU twin, and itself
     check_amg_vcycle(cases["poisson_circle_sinsin"], dev)
 
+    # (18k) the stencil kernel's d = 3 block form on le_3d_multifreq_mms'
+    # 25^3 lattice, f32 (the inner's operator and the V-cycle's finest
+    # level) and f64 (the outer residual)
+    check_block3_elasticity(cases["le_3d_multifreq_mms"], rng, dev, report)
+
     # (4) the Poisson main path, (5) the Helmholtz main path, (6) the
     # elasticity main path, (7) the 3-D main path, (8) the Navier-Stokes
     # main path: OracleSolver on the
@@ -1641,12 +1827,22 @@ def main() -> int:
         # kernel of the table; two solves of a case give the same bits
         ("17", CELL_LOCAL, {}),
         ("17b", STOKES_AMG, {}),
+        # (18) 3-D elasticity on unit_cube block lattices: the d = 3 block
+        # form in every level apply of the PyTorch block V-cycle and in the
+        # f64 residual; (18b) Darcy, the elliptic form on kernel #2 and a
+        # mixed form on the host LU; (18c) hyperelasticity and
+        # Cahn-Hilliard, no kernel of the table
+        ("18", LE_3D, {"stencil_apply_block_3d_elasticity": "stencil_apply"}),
+        ("18b", DARCY, {"stencil_apply_2d": "stencil_apply", "gmg_fused_cg": "gmg_fused_cg"}),
+        ("18c", NORTHSTAR, {}),
     )
     drive_path = {"8": drive_ns, "9": drive_cases, "9b": drive_cases, "10": drive_cases,
                   "11": drive_cases, "12": drive_cases, "13": drive_cases, "14": drive_stokes,
                   "14b": drive_stokes, "15": drive_cases, "15b": drive_cases, "16": drive_cases,
                   "17": lambda *a: drive_cases(*a, bitwise=True),
-                  "17b": lambda *a: drive_stokes(*a, bitwise=True)}
+                  "17b": lambda *a: drive_stokes(*a, bitwise=True),
+                  "18": lambda *a: drive_cases(*a, bitwise=True),
+                  "18b": lambda *a: drive_cases(*a, bitwise=True), "18c": drive_northstar}
     for phase, want, entries in paths:
         stencil_kernel.LAUNCHES = 0
         gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
@@ -1713,6 +1909,11 @@ def main() -> int:
                                               "pdebench_tpu/solvers/stencil_pallas.py:131"),
         "gmg_fused_cg_masked": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
         "gmg_fused_cg_masked_nonsquare": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        # the d = 3 block form on 3-D elasticity's lattices and block
+        # levels; the reference applies them in XLA
+        # (BlockLatticeOperator.apply_grid_w, the block V-cycle's levels)
+        "stencil_apply_block_3d_elasticity": ("stencil_apply.cu",
+                                              "pdebench_tpu/solvers/stencil.py:857"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or

@@ -27,8 +27,12 @@ Where the dofs form no lattice the same loop runs on the cell-local
 operators (`step_operators`' cell-local pieces, the refinement's inner
 Jacobi-preconditioned, 30 CG steps a round).
 
-Port of pdebench_tpu/oracle/heat.py (the reference's non-IR
-solve_constrained, taken by non-CG ksp types, is not ported).
+A case whose ksp_type is not CG (gmres, bicgstab, preonly, ...) solves
+every step with `dispatch.solve_constrained` on the cell-local
+operators, as the reference does (its heat.py:128-133): float64 Krylov
+with Jacobi on the constrained diagonal, the mass apply cell-based.
+
+Port of pdebench_tpu/oracle/heat.py.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ def step_matrices(ctx, pde: Dict[str, Any], dt: float) -> Tuple[np.ndarray, np.n
 
 
 def step_operators(
-    ctx, A: np.ndarray, applied: Sequence[np.ndarray], inner: str, inner_iters: Tuple[int, int]
+    ctx, A: np.ndarray, applied: Sequence[np.ndarray], inner: str, inner_iters: Tuple[int, int],
+    lattice: bool = True,
 ):
     """The constant pieces of a step loop on its step matrix A (heat's M +
     dt L; host cell-local batches): (lattice operator with its hierarchy,
@@ -72,14 +77,15 @@ def step_operators(
     `_apply_local` there). Where the dofs form no lattice, the cell-local
     pieces: no lattice operator, the applies cell-based, inner_iters[1]
     steps a round (Jacobi; a caller with an AMG V-cycle passes its own
-    count to step_loop)."""
+    count to step_loop). lattice=False gives the cell-local pieces on
+    every mesh (the steps of a non-CG ksp: `solve_constrained`)."""
     space, device = ctx.space, ctx.device
     op = LocalOperator(torch.as_tensor(A, device=device), space.dofmap_scalar, space.ndof)
 
     def cell_applies():
         return [op.with_local(torch.as_tensor(a, device=device)) for a in applied]
 
-    lat32 = scalar.maybe_lattice32(ctx, A)
+    lat32 = scalar.maybe_lattice32(ctx, A) if lattice else None
     if lat32 is None:
         return None, None, cell_applies(), op, inner_iters[1]
     gmg_failed = scalar.attach_gmg(lat32, space.ndof, ctx.mask.cpu().numpy())
@@ -129,6 +135,8 @@ def step_loop(
     step_weights: Optional[Callable] = None,
     step_op: Optional[Callable] = None,
     M32: Optional[Callable] = None,
+    method: Optional[str] = None,
+    maxiter: int = 25000,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, Any]]:
     """Steps u_{n+1} = A^{-1} rhs(n, u_n, u_{n-1}) with u_{n+1} =
     g_fn(ts[n]) on the Dirichlet dofs, one refinement per step, from u0
@@ -139,25 +147,37 @@ def step_loop(
     it every step solves lat32's operator. Without a lattice (lat32 None)
     every step solves the cell-local `op`, or `step_op(u_n)`, a fresh cell
     batch on op's dofs (Burgers' lagged convection), preconditioned by
-    M32 (a float32 AMG V-cycle built once) or Jacobi.
+    M32 (a float32 AMG V-cycle built once) or Jacobi. With `method` (a
+    non-CG ksp: "gmres" or "bicgstab") every step solves the cell-local
+    `op` with `dispatch.solve_constrained` instead, at most `maxiter`
+    iterations ("jacobi-<method>"; lat32 must be None).
 
     Returns (u, info): info has the inner's name, the iterations and the
-    per-step outer rounds. A step that does not converge raises on a CUDA
+    per-step outer rounds (with `method`, the per-step Krylov iterations
+    under "step_iterations"). A step that does not converge raises on a CUDA
     device; on the CPU the loop goes on from its iterate, as the
     reference's scan does, and info["iterative_failed"] names the first
     such step."""
     u = u0
     names, rounds, iterations, residual, failed = [], [], 0, None, None
+    if method is not None and lat32 is not None:
+        raise ValueError("a step loop with a non-CG method takes the cell-local operator")
     for n, t in enumerate(ts):
         b = rhs(n, u, u_prev)
-        x, its, residual, conv, name = dispatch.solve_constrained_ir(
-            op if step_op is None else step_op(u), b, mask, g_fn(t), lat32, rtol, atol,
-            inner=inner, inner_iters=inner_iters, max_outer=dispatch.STEP_MAX_OUTER,
-            step_weights=None if step_weights is None else step_weights(u),
-            M32_custom=M32,
-        )
+        if method is not None:
+            x, its, residual, conv = dispatch.solve_constrained(
+                op, b, mask, g_fn(t), method, rtol, atol, maxiter
+            )
+            name = f"jacobi-{method}"
+        else:
+            x, its, residual, conv, name = dispatch.solve_constrained_ir(
+                op if step_op is None else step_op(u), b, mask, g_fn(t), lat32, rtol, atol,
+                inner=inner, inner_iters=inner_iters, max_outer=dispatch.STEP_MAX_OUTER,
+                step_weights=None if step_weights is None else step_weights(u),
+                M32_custom=M32,
+            )
         names.append(name)
-        rounds.append(its // inner_iters)
+        rounds.append(its if method is not None else its // inner_iters)
         iterations += its
         if not conv and failed is None:
             failed = dict(
@@ -171,7 +191,8 @@ def step_loop(
         u_prev, u = u, x
     if len(set(names)) != 1:
         raise RuntimeError(f"the steps took different inner solves: {sorted(set(names))}")
-    info = dict(inner=names[0], iterations=iterations, residual=residual, outer_rounds=rounds)
+    info = dict(inner=names[0], iterations=iterations, residual=residual)
+    info["step_iterations" if method is not None else "outer_rounds"] = rounds
     if failed is not None:
         info["iterative_failed"] = failed
     return u, info
@@ -229,18 +250,18 @@ class HeatSolver:
         _, g_fn = base.dirichlet_traceable(ctx.space, config.get("bc", {}), self.device)
 
         opts = base.solver_opts(config)
-        if str(opts.get("ksp_type", "cg")).lower() not in ("cg", "minres"):
-            raise NotImplementedError(
-                f"heat with ksp_type {opts['ksp_type']!r} takes the reference's "
-                "solve_constrained, which is not ported"
-            )
+        # a non-CG ksp: solve_constrained every step, on the cell-local
+        # operators (the reference's route on every platform)
+        method = dispatch.krylov_method(opts, symmetric=True)
+        krylov = None if method == "cg" else method
+        maxiter = int(opts.get("max_it", 25000))
         rtol, atol = float(opts["rtol"]), float(opts.get("atol", 1e-14))
         cb, qpts = ctx.cb, ctx.qpts()
         ts = t0 + dt * np.arange(1, num_steps + 1)
         A, M = step_matrices(ctx, pde, dt)
 
         def build():
-            return step_operators(ctx, A, (M,), "cg", INNER_ITERS) + (
+            return step_operators(ctx, A, (M,), "cg", INNER_ITERS, lattice=krylov is None) + (
                 torch.as_tensor(u0, device=self.device),
             )
 
@@ -250,7 +271,7 @@ class HeatSolver:
             loads = step_loads(ctx, [local_load(cb, f_q) for f_q in f_steps(qpts, ts)])
             u, info = step_loop(
                 op, lat32, mass_rhs(mass_apply, dt * loads), u0_dev, g_fn, ts, ctx.mask,
-                rtol, atol, inner="cg", inner_iters=n_inner,
+                rtol, atol, inner="cg", inner_iters=n_inner, method=krylov, maxiter=maxiter,
             )
             if "iterative_failed" in info:
                 # CPU only: step_loop raises on a CUDA device

@@ -1,10 +1,7 @@
 """Oracle dispatcher: case pde type -> solver on an explicit device.
 
-Port of pdebench_tpu/oracle/oracle.py. Poisson, Helmholtz, linear
-elasticity, Navier-Stokes, Stokes, heat, biharmonic,
-convection-diffusion, reaction-diffusion, Burgers and wave are ported;
-the other 3 PDE types of the reference raise NotImplementedError until
-their slice lands.
+Port of pdebench_tpu/oracle/oracle.py: all 14 PDE types of the
+reference.
 """
 
 from __future__ import annotations
@@ -28,9 +25,10 @@ _SOLVERS = {
     "reaction_diffusion": ("reaction_diffusion", "ReactionDiffusionSolver"),
     "burgers": ("burgers", "BurgersSolver"),
     "wave": ("wave", "WaveSolver"),
+    "darcy": ("darcy", "DarcySolver"),
+    "hyperelasticity": ("hyperelasticity", "HyperelasticitySolver"),
+    "cahn_hilliard": ("cahn_hilliard", "CahnHilliardSolver"),
 }
-
-_NOT_PORTED = ("darcy", "hyperelasticity", "cahn_hilliard")
 
 
 class OracleSolver:
@@ -47,10 +45,6 @@ class OracleSolver:
 
     def solve(self, oracle_config: Dict[str, Any]) -> OracleResult:
         pde_type = oracle_config["pde"]["type"]
-        if pde_type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"pde type {pde_type!r} is not ported to pdebench_tpu_torch yet"
-            )
         if pde_type not in _SOLVERS:
             raise ValueError(f"unsupported pde type: {pde_type}")
         mod_name, cls_name = _SOLVERS[pde_type]

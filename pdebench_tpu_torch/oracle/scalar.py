@@ -244,14 +244,19 @@ def bilinear_step_lattice(ctx: ScalarContext, A_const, T_fn: Callable):
     return lat32, wmap, BilinearLatticeWeightMap(wmap, lat32.lattice, space.dofmap_scalar, T_fn())
 
 
+# device types on which a 3-D vector operator takes its block lattice (the
+# d = 3 block stencil and the block V-cycle, as the reference does on its
+# TPU); elsewhere the reference's CPU branch, no lattice, which leads to
+# SA-AMG on the rigid-body modes. A CPU test reaches the card's route by
+# patching this
+BLOCK_LATTICE_3D_DEVICES = ("cuda",)
+
+
 def maybe_block_lattice32(ctx: ScalarContext, A_local) -> Optional[object]:
     """Block-stencil (f32) form of a VECTOR operator on a node lattice
-    (structured meshes); None otherwise. 3-D block lattices have no
-    kernel (the reference's block levels are 2-D only): they stay off on
-    the CPU and raise on CUDA."""
-    if ctx.mesh.dim == 3:
-        if ctx.device.type == "cuda":
-            raise NotImplementedError("3-D lattice routes are not ported to CUDA yet")
+    (structured meshes); None otherwise, and None for a 3-D mesh on a
+    device outside BLOCK_LATTICE_3D_DEVICES."""
+    if ctx.mesh.dim == 3 and ctx.device.type not in BLOCK_LATTICE_3D_DEVICES:
         return None
     from ..solvers.stencil import block_lattice_operator_from_local
 

@@ -32,6 +32,12 @@ periodic_square, the thin t_junction) take, as the reference does:
     :90-100); the main solve's solver_info names the re-solve's route.
 solver_info["host_lu"] says why a solve took the host LU.
 
+A case whose ksp_type is not CG takes the cell-local operators on every
+mesh, as the reference does (no lattice, no AMG): on CPU tensors of at
+most dispatch.HOST_LU_MAX_DOFS dofs the host SuperLU, elsewhere every
+step solved by `dispatch.solve_constrained` (float64 Krylov with Jacobi,
+the reference's wave.py:197-202; "jacobi-<method>").
+
 A step that does not converge raises on a CUDA device; on the CPU the
 whole loop is solved again with the host SuperLU, as the reference does.
 
@@ -41,8 +47,7 @@ Scheme (reference: pdebench/oracle/wave.py:34-127):
   BCs    = u_exact(t_{n+1}) on all boundary facets (MMS) or the case's bc
   f      = u_tt - c^2 Lap(u_exact) derived symbolically (MMS)
 
-Port of pdebench_tpu/oracle/wave.py (the reference's non-IR
-solve_constrained, taken by non-CG ksp types, is not ported).
+Port of pdebench_tpu/oracle/wave.py.
 """
 
 from __future__ import annotations
@@ -94,11 +99,9 @@ class WaveSolver:
         t0, _, dt, num_steps = base.time_params(pde)
         t_final = t0 + num_steps * dt
         opts = base.solver_opts(config)
-        if str(opts.get("ksp_type", "cg")).lower() not in ("cg", "minres"):
-            raise NotImplementedError(
-                f"wave with ksp_type {opts['ksp_type']!r} takes the reference's "
-                "solve_constrained, which is not ported"
-            )
+        method = dispatch.krylov_method(opts, symmetric=True)
+        krylov = None if method == "cg" else method
+        maxiter = int(opts.get("max_it", 25000))
         ctx = scalar.setup_scalar(config, self.device, t0=t0)
         dim = ctx.dim
 
@@ -123,7 +126,9 @@ class WaveSolver:
         A = inv_dt2 * M + THETA * c2 * K
 
         def build():
-            return heat.step_operators(ctx, A, (M, K), "cg", heat.INNER_ITERS) + (
+            return heat.step_operators(
+                ctx, A, (M, K), "cg", heat.INNER_ITERS, lattice=krylov is None
+            ) + (
                 torch.as_tensor(u0, device=self.device),
                 torch.as_tensor(um1, device=self.device),
             )
@@ -139,7 +144,7 @@ class WaveSolver:
                 host_lu = "no-exact re-solve"
             elif self.device.type == "cpu" and op.ndof <= dispatch.HOST_LU_MAX_DOFS:
                 host_lu = "cpu"
-            elif op.ndof >= dispatch.AMG_MIN_DOFS:
+            elif krylov is None and op.ndof >= dispatch.AMG_MIN_DOFS:
                 # built once, charged to setup; CG-IR takes a multigrid
                 # preconditioner's inner count
                 t_amg = time.perf_counter()
@@ -171,6 +176,7 @@ class WaveSolver:
             u, info = heat.step_loop(
                 op, lat32, newmark_rhs(M_ap, K_ap, loads), u0_dev, g_fn, t_ns + dt, ctx.mask,
                 rtol, atol, inner="cg", inner_iters=n_inner, u_prev=um1_dev, M32=M32,
+                method=krylov, maxiter=maxiter,
             )
             if "iterative_failed" in info:
                 # CPU only: step_loop raises on a CUDA device

@@ -49,7 +49,10 @@ a CUDA kernel, "-torch" its plain version (CPU tensors):
   off lattice:  "amg-cg-ir", "amg-gmres-ir" (the refinement), "amg-cg",
                 "amg-gmres", "amg-bicgstab" (float64 Krylov with the AMG
                 V-cycle: the retry, or bicgstab), "jacobi-cg",
-                "jacobi-gmres", "jacobi-bicgstab" (float64 Jacobi Krylov),
+                "jacobi-gmres", "jacobi-bicgstab" (float64 Jacobi Krylov:
+                `solve_constrained`, which heat's and wave's step loops
+                with a non-CG ksp and Cahn-Hilliard's Newton steps call
+                too),
                 "jacobi-cg-ir", "jacobi-gmres-ir" (a pc that is not
                 AMG-type above the gate)
   cell-local    "jacobi-cg-ir", "jacobi-gmres-ir", "amg-cg-ir" (one step
@@ -61,8 +64,11 @@ a CUDA kernel, "-torch" its plain version (CPU tensors):
 
 After a lattice IR that did not converge, `solver_info["iterative_failed"]`
 keeps that attempt and `inner` names the route that answered. The routes
-and names are the same on 2-D and 3-D scalar lattices; block lattices are
-2-D only.
+and names are the same on 2-D and 3-D scalar lattices. Block lattices
+(elasticity) take "fused-block-cg-*" in 2-D (d = 2); 3-D ones (d = 3)
+take "stencil-cg", CG preconditioned by the PyTorch block V-cycle, each
+level's apply one stencil kernel launch (the reference's scope: its
+fused block kernel is 2-D only).
 
 Port of pdebench_tpu/solvers/dispatch.py. Not ported, by decision: the
 reference's small-direct gate for its remote TPU (systems off the lattice
@@ -348,11 +354,52 @@ def krylov_method(opts: Dict[str, Any], symmetric: bool = True) -> str:
     return "gmres"
 
 
+# the restart of the float64 GMRES (the reference's solve_constrained default)
+GMRES_RESTART = 60
+
+
 def _krylov(A, rhs, x0, M, method: str, rtol: float, atol: float, maxiter: int):
     """Float64 Krylov solve of the constrained system with preconditioner
-    M: method "cg", "bicgstab" or "gmres" (GMRES(60)). Returns (x, info)."""
-    kry = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}[method]
+    M: method "cg", "bicgstab" or "gmres" (GMRES(GMRES_RESTART)). Returns
+    (x, info)."""
+    if method == "gmres":
+        return gmres(A, rhs, x0=x0, M=M, rtol=rtol, atol=atol, maxiter=maxiter, restart=GMRES_RESTART)
+    kry = {"cg": cg, "bicgstab": bicgstab}[method]
     return kry(A, rhs, x0=x0, M=M, rtol=rtol, atol=atol, maxiter=maxiter)
+
+
+def solve_constrained(
+    A,
+    b: torch.Tensor,
+    mask: torch.Tensor,
+    g: torch.Tensor,
+    method: str,
+    rtol: float,
+    atol: float,
+    maxiter: int,
+    restart: int = GMRES_RESTART,
+    dofmap: Optional[np.ndarray] = None,
+):
+    """Float64 constrained Krylov solve on cell-local matrices: the
+    reference's solve_constrained (pdebench_tpu/solvers/dispatch.py:42-90).
+
+    A is a LocalOperator, or a (n_cells, nl, nl) batch of cell matrices
+    with its `dofmap` (the system has b's length). Dirichlet dofs (mask)
+    take g: the system is A with identity rows and columns there, the
+    right-hand side b - A g on the free dofs, the start x0 = g on the
+    constrained dofs and 0 elsewhere, the preconditioner Jacobi on the
+    constrained diagonal; method "cg", "bicgstab" or "gmres" (GMRES(
+    restart)). Every sum runs in a fixed order (LocalOperator's), so a
+    solve repeats bit for bit on the card. Returns (x, iterations,
+    residual, converged)."""
+    op = A if isinstance(A, LocalOperator) else LocalOperator(A, dofmap, b.shape[0])
+    Ac, rhs, x0 = _constrained_system(op, b, mask, g)
+    M = jacobi_preconditioner(_jacobi_diagonal(op, mask))
+    if method == "gmres" and restart != GMRES_RESTART:
+        x, info = gmres(Ac, rhs, x0=x0, M=M, rtol=rtol, atol=atol, maxiter=maxiter, restart=restart)
+    else:
+        x, info = _krylov(Ac, rhs, x0, M, method, rtol, atol, maxiter)
+    return x, int(info.iterations), float(info.residual), bool(info.converged)
 
 
 def _constrained_system(op: LocalOperator, b, mask, g):
@@ -414,22 +461,27 @@ def _off_lattice(op, b, mask, g, opts, symmetric, info, rtol, atol, maxiter):
     """The route off the lattice (module docstring): (the solution, None)
     with `info` filled in, or (None, what did not converge)."""
     method = krylov_method(opts, symmetric)
-    A, rhs, x0 = _constrained_system(op, b, mask, g)
     if op.ndof < (AMG_MIN_DOFS if symmetric else NONSYM_AMG_MIN_DOFS) and opts.get("_amg_B") is None:
-        # float64 Jacobi Krylov (the reference's non-refined solve_constrained);
-        # block systems with a near-nullspace (elasticity) skip it at every
-        # size: near-incompressible conditioning stalls it
-        M64, pc_used, mixed = jacobi_preconditioner(_jacobi_diagonal(op, mask)), "jacobi", False
-    else:
-        # the preconditioner per method, shape and constraint set, built
-        # once: the warm run reuses the cold run's setup (biharmonic's two
-        # solves share one)
-        cache = opts.setdefault("_amg_cache", {})
-        key = (method, op.ndof, int(mask.sum()), int(mask.to(torch.uint8).argmax()))
-        if key not in cache:
-            cache[key] = _build_preconditioner(op, mask, str(opts.get("pc_type", "jacobi")).lower(), opts)
-        M64, M32, pc_used = cache[key]
-        mixed = method in ("cg", "gmres")
+        # float64 Jacobi Krylov (solve_constrained, the reference's
+        # non-refined solve); block systems with a near-nullspace
+        # (elasticity) skip it at every size: near-incompressible
+        # conditioning stalls it
+        info["pc_used"], inner = "jacobi", f"jacobi-{method}"
+        x, its, res, conv = solve_constrained(op, b, mask, g, method, rtol, atol, maxiter)
+        if conv:
+            info.update(method=method, inner=inner, iterations=its, residual=res)
+            return x, None
+        return None, {"inner": inner, "iterations": its, "residual": res}
+    # the preconditioner per method, shape and constraint set, built once:
+    # the warm run reuses the cold run's setup (biharmonic's two solves
+    # share one)
+    A, rhs, x0 = _constrained_system(op, b, mask, g)
+    cache = opts.setdefault("_amg_cache", {})
+    key = (method, op.ndof, int(mask.sum()), int(mask.to(torch.uint8).argmax()))
+    if key not in cache:
+        cache[key] = _build_preconditioner(op, mask, str(opts.get("pc_type", "jacobi")).lower(), opts)
+    M64, M32, pc_used = cache[key]
+    mixed = method in ("cg", "gmres")
     inner_kind = "cg" if (method == "cg" and symmetric) else "gmres"
     info["pc_used"] = pc_used + ("+ir32" if mixed else "")
     inner = f"{pc_used}-{inner_kind}-ir" if mixed else f"{pc_used}-{method}"
@@ -508,6 +560,10 @@ def solve_linear(
             n_inner = 25 if has_gmg else 100
         else:
             n_inner = 30 if has_gmg else 60
+        if isinstance(lat32.gmg, BlockLatticeGMG):
+            # each level's shape and taps (the stencil kernel takes at
+            # most stencil_kernel.MAX_TAPS: a level beyond raises at its plan)
+            info["gmg_levels"] = [list(lv.shape) + [len(lv.offsets)] for lv in lat32.gmg.levels]
         x, iters, res, conv, inner_name = solve_constrained_ir(
             op, b, mask, g, lat32, rtol, atol,
             inner=inner, inner_iters=n_inner, max_outer=MAX_OUTER,

@@ -14,9 +14,11 @@ piece of a multigrid hierarchy is a stencil too:
 
 Block (vector) lattices (elasticity) coarsen per component: the same
 scalar transfers on each component plane, a block stencil probed with
-per-component combs, point-block Jacobi smoothing.
+per-component combs (all of a level's probes at once, on the lattice's
+device: `_probe_responses`), point-block Jacobi smoothing.
 
-The hierarchy is built on the host in numpy (copied from the reference)
+The hierarchy is built on the host in numpy (copied from the reference;
+the block probes' elementwise float64 work on the device, the same bits)
 and held as tensors on the solve's device; `LatticeGMG.precond` and
 `BlockLatticeGMG.precond` are the V-cycle in PyTorch with a
 dense-inverse coarse solve.
@@ -172,17 +174,28 @@ def _level_np(W, offsets, shape):
     return 1.0 / diag, float(0.9 / max(lam, 1e-12))
 
 
+# the order in which numpy's einsum("...ab,...b->...a") adds a block row's
+# d products on x86-64 (its two-lane float64 sums: b = 0 and b = 2 first)
+_EINSUM_ROW_ORDER = {1: (0,), 2: (0, 1), 3: (0, 2, 1)}
+
+
 def _apply_block_np(W, offsets, u):
-    """u (..., d) -> (..., d) with block stencil W (K, ..., d, d)."""
+    """u (..., d) -> (..., d) with block stencil W (K, ..., d, d): per tap
+    y[..., a] = sum_b W[k, ..., a, b] u[s + off, b], the products added in
+    einsum's order (_EINSUM_ROW_ORDER), so that the hierarchy is the JAX
+    package's (which applies that einsum) array for array, in less time
+    than einsum takes; the taps added in order."""
     pad = int(max(abs(o) for off in offsets for o in off)) if offsets else 0
     spatial = u.shape[:-1]
+    b0, *rest = _EINSUM_ROW_ORDER[u.shape[-1]]
     up = np.pad(u, [(pad, pad)] * len(spatial) + [(0, 0)])
     out = np.zeros_like(u)
     for k, off in enumerate(offsets):
-        sl = tuple(
-            slice(pad + o, pad + o + s) for o, s in zip(off, spatial)
-        ) + (slice(None),)
-        out += np.einsum("...ab,...b->...a", W[k], up[sl])
+        v = up[tuple(slice(pad + o, pad + o + s) for o, s in zip(off, spatial))]
+        row = W[k][..., b0] * v[..., None, b0]
+        for b in rest:
+            row += W[k][..., b] * v[..., None, b]
+        out += row
     return out
 
 
@@ -199,22 +212,66 @@ def _prolong_block_np(uc, fine_spatial):
     )
 
 
-def _coarsen_block_stencil(W, offsets, shape, d):
-    """Galerkin coarse BLOCK stencil via per-component comb probing."""
+def _probe_responses(W, offsets, shape, shape_c, s, probes, device):
+    """R A P of every comb probe (phase..., component b) at once, a batch
+    axis in front: the arithmetic of _prolong_block_np, _apply_block_np
+    and _restrict_block_np element for element (separate float64 multiplies
+    and adds, no reduction), so the same bits on any device, in one pass of
+    a few hundred tensor ops on `device`. Returns {probe: (shape_c + (d,))
+    numpy response}."""
+    dim, d = len(shape), W.shape[-1]
+    f64 = dict(dtype=torch.float64, device=device)
+    P = len(probes)
+    u = torch.zeros((P,) + tuple(shape) + (d,), **f64)
+    # the prolongation of the combs: injected at even points, then the
+    # odd points averaged along each axis in turn (_prolong_np)
+    even = (slice(None),) + (slice(None, None, 2),) * dim
+    e = torch.zeros((P,) + tuple(shape_c) + (d,), **f64)
+    for i, probe in enumerate(probes):
+        e[(i,) + tuple(slice(p, None, s) for p in probe[:-1]) + (probe[-1],)] = 1.0
+    u[even] = e
+    for ax in range(dim):
+        odd, lo, hi = ([slice(None)] * (dim + 2) for _ in range(3))
+        for later in range(ax + 1, dim):
+            for sl in (odd, lo, hi):
+                sl[1 + later] = slice(None, None, 2)
+        odd[1 + ax], lo[1 + ax], hi[1 + ax] = slice(1, None, 2), slice(None, -1, 2), slice(2, None, 2)
+        u[tuple(odd)] = 0.5 * (u[tuple(lo)] + u[tuple(hi)])
+    # the block apply (_apply_block_np): per tap, the row's products in
+    # einsum's order, then the taps in order
+    pad = int(max(abs(o) for off in offsets for o in off))
+    Wt = torch.as_tensor(np.asarray(W, dtype=np.float64), device=device)
+    b0, *rest = _EINSUM_ROW_ORDER[d]
+    up = torch.nn.functional.pad(u, (0, 0) + (pad, pad) * dim)
+    y = torch.zeros_like(u)
+    for k, off in enumerate(offsets):
+        v = up[(slice(None),) + tuple(slice(pad + o, pad + o + n) for o, n in zip(off, shape))]
+        row = Wt[k][..., b0] * v[..., None, b0]
+        for b in rest:
+            row += Wt[k][..., b] * v[..., None, b]
+        y += row
+    # full weighting at the even points (_restrict_np)
+    wts = np.array([0.25, 0.5, 0.25])
+    yp = torch.nn.functional.pad(y, (0, 0) + (1, 1) * dim)
+    r = torch.zeros_like(y)
+    for off in itertools.product((-1, 0, 1), repeat=dim):
+        w = float(np.prod([wts[o + 1] for o in off]))
+        r += w * yp[(slice(None),) + tuple(slice(1 + o, 1 + o + n) for o, n in zip(off, shape))]
+    r = r[even].cpu().numpy()
+    return {probe: r[i] for i, probe in enumerate(probes)}
+
+
+def _coarsen_block_stencil(W, offsets, shape, d, device="cpu"):
+    """Galerkin coarse BLOCK stencil via per-component comb probing (the
+    probes' responses on `device`, the same bits on any)."""
     dim = len(shape)
     shape_c = tuple((s - 1) // 2 + 1 for s in shape)
     pad_f = int(max(abs(o) for off in offsets for o in off))
     pad_c = -(-(pad_f + 2) // 2)
     s = 2 * pad_c + 1
 
-    resp = {}
-    for phase in itertools.product(range(s), repeat=dim):
-        for b in range(d):
-            e = np.zeros(shape_c + (d,))
-            e[tuple(slice(p, None, s) for p in phase) + (b,)] = 1.0
-            resp[phase + (b,)] = _restrict_block_np(
-                _apply_block_np(W, offsets, _prolong_block_np(e, shape))
-            )
+    probes = [phase + (b,) for phase in itertools.product(range(s), repeat=dim) for b in range(d)]
+    resp = _probe_responses(W, offsets, shape, shape_c, s, probes, device)
 
     offs_c = list(itertools.product(range(-pad_c, pad_c + 1), repeat=dim))
     grids = np.meshgrid(*[np.arange(n) for n in shape_c], indexing="ij")
@@ -635,11 +692,11 @@ def setup_block_gmg(
             padded = True
             W_next = _pad_identity_block(W_cur, offs_cur, shape_cur, shape_pad, d)
             W_cur, offs_cur, shape_cur = _coarsen_block_stencil(
-                W_next, offs_cur, shape_pad, d
+                W_next, offs_cur, shape_pad, d, device
             )
         else:
             W_cur, offs_cur, shape_cur = _coarsen_block_stencil(
-                W_cur, offs_cur, shape_cur, d
+                W_cur, offs_cur, shape_cur, d, device
             )
     n = int(np.prod(shape_cur)) * d
     A = np.zeros((n, n))

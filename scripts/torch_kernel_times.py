@@ -4,6 +4,7 @@
     python3 scripts/torch_kernel_times.py [--root DIR] --block-variants
     python3 scripts/torch_kernel_times.py [--root DIR] --stencil
     python3 scripts/torch_kernel_times.py [--root DIR] --weights
+    python3 scripts/torch_kernel_times.py [--root DIR] --block3
 
 Builds the operators and hierarchies of chip_smoke.py's 2-D cases (with
 --3d also its 3-D ones) through the `chip_smoke.py` of the checkout at DIR
@@ -39,7 +40,17 @@ median of 5 runs. With --weights only the per-step weight build runs
 the first step of burgers_square_v1 and reaction_diffusion_allen_cahn_p2,
 as `chip_smoke.py` phase 3g sets them up: the median over 5 runs of 20
 back-to-back builds between two CUDA events, the device time a build
-(profiler) and the bytes of P on the card.
+(profiler) and the bytes of P on the card. With --block3 only the
+stencil kernel's d = 3 block form runs, on 3-D elasticity's lattices
+(le_3d_basic and le_3d_multifreq_mms, built and coarsened as the oracle
+does on the card): the f64 apply of the fine lattice (the refinement's
+residual) and the f32 apply of every level of the block hierarchy, each
+the median over 5 runs of 20 back-to-back calls of the level's plan
+between two CUDA events, its device time (profiler), its plain version's
+time and its bound (the 9 K n weights and 6 n of u and y; 2 operations a
+tap and coupling, 2 adds a row); then one block V-cycle (the
+preconditioner of the CG inner) by events and by the profiler, with its
+device activities (PyTorch's kernels and copies) and stencil launches.
 Prints the card's name and power limit, then one JSON line
 {"root": DIR, "ms": {"<kernel> <case>": ms, ...}, "device_us": {...}}.
 
@@ -80,6 +91,20 @@ def profiled_us(fn, calls: int = 20, tries: int = 3) -> float:
         if spans:
             return sum(spans) / calls
     raise RuntimeError(f"the profiler recorded no device activity in {tries} profiles")
+
+
+def device_activities(fn) -> int:
+    """The device activities (kernels, copies, sets) torch.profiler
+    records in one call of fn, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 def block_variants(cs, gmg_fused, cases, elasticity, dev, rng, ms) -> None:
@@ -155,6 +180,48 @@ def stencil_times(cs, cases, dev, rng, ms, device_us) -> None:
                    f"{str(W.dtype)[6:]}", wm.apply_grid, W, u)
 
 
+BLOCK3_CASES = ("le_3d_basic", "le_3d_multifreq_mms")
+
+
+def block3_times(cs, dev, rng, ms, device_us) -> None:
+    """The d = 3 block form on 3-D elasticity's lattices and levels
+    (module docstring)."""
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    cases = cs.load_cases(set(BLOCK3_CASES))
+    for cid in BLOCK3_CASES:
+        lat, _ = cs.elasticity_operator(cases[cid], dev)
+        applies = [("fine f64", lat.plan, lat.W_f64, lat.offsets, lat.pad)]
+        applies += [(f"level {i} f32", lv.plan, lv.W, lv.offsets, lv.pad)
+                    for i, lv in enumerate(lat.gmg.levels)]
+        for what, plan, W, offsets, pad in applies:
+            u = torch.as_tensor(rng.standard_normal(plan.u_shape), device=dev).to(W.dtype)
+            n, K = int(np.prod(plan.shape)), len(offsets)
+            key = f"block3 {cid} {what} {'x'.join(map(str, plan.shape))} K={K}"
+            ms[key] = cs.median_ms(lambda: plan(W, u), calls=20, samples=5)
+            device_us[key] = profiled_us(lambda: plan(W, u))
+            plain = cs.median_ms(lambda: stencil_kernel.block_stencil_plain(u, W, offsets, pad),
+                                 calls=5, samples=3)
+            b = cs.bound((K * 9 * n + 2 * 3 * n) * W.element_size(), 9 * 2 * K * n + 6 * n, W.dtype)
+            print(f"{key}: {ms[key]:.4f} ms a call (events), {device_us[key]:.3f} us device time, "
+                  f"plain {plain:.4f} ms, bound {b['bound_ms']:.3e} ms ({b['bound_by']}), share "
+                  f"{b['bound_ms'] / ms[key]:.3f} by events, "
+                  f"{b['bound_ms'] / (device_us[key] * 1e-3):.3f} of the device time", flush=True)
+        vcycle = lat.gmg.precond()
+        r = torch.as_tensor(rng.standard_normal(lat.grid_shape), device=dev).float()
+        before = stencil_kernel.LAUNCHES
+        vcycle(r)
+        launched = stencil_kernel.LAUNCHES - before
+        key = f"block3 {cid} V-cycle"
+        ms[key] = cs.median_ms(lambda: vcycle(r), calls=5, samples=5)
+        device_us[key] = profiled_us(lambda: vcycle(r), calls=5)
+        print(f"{key}: {ms[key]:.4f} ms (events), {device_us[key]:.1f} us device time, "
+              f"{device_activities(lambda: vcycle(r))} device activities (kernels, copies), "
+              f"{launched} of them stencil kernel launches, levels "
+              f"{[(lv.shape, len(lv.offsets)) for lv in lat.gmg.levels]}, coarse "
+              f"{lat.gmg.coarse_shape}", flush=True)
+
+
 WEIGHT_CASES = ("burgers_square_v1", "reaction_diffusion_allen_cahn_p2")
 
 
@@ -181,6 +248,8 @@ def main(argv) -> int:
                     help="time only the per-step weight build (events and device time)")
     ap.add_argument("--block-variants", action="store_true",
                     help="time only kernel #4, in its variants, in turns")
+    ap.add_argument("--block3", action="store_true",
+                    help="time only the d = 3 block stencil on 3-D elasticity's levels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device", file=sys.stderr)
@@ -213,6 +282,10 @@ def main(argv) -> int:
     if args.block_variants:
         block_variants(cs, gmg_fused, cases, elasticity, dev, rng, ms)
         print(json.dumps({"root": args.root, "ms": ms}), flush=True)
+        return 0
+    if args.block3:
+        block3_times(cs, dev, rng, ms, device_us)
+        print(json.dumps({"root": args.root, "ms": ms, "device_us": device_us}), flush=True)
         return 0
     if args.weights:
         weight_times(cs, dev, ms, device_us)

@@ -1341,3 +1341,74 @@ def test_cell_local_step_loop_on_the_card(dev, case_id, resolution, inner):
     assert np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)])
     want = cpu.reference[~np.isnan(cpu.reference)]
     assert np.abs(a[~np.isnan(a)] - want).max() <= 1e-9 * np.abs(want).max()
+
+
+def _le3d_operator(dev, case_id="le_3d_basic"):
+    """A 3-D elasticity case's f32 d = 3 block lattice operator, built on
+    the card as the oracle builds it, with its block hierarchy attached."""
+    from pdebench_tpu_torch.fem.assemble import local_elasticity
+    from pdebench_tpu_torch.oracle import linear_elasticity, scalar
+    from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == case_id)
+    cfg = scalar.override_bc_with_mms(cfg, list(cfg["pde"]["manufactured_solution"]["u"]))
+    lam, mu = linear_elasticity.lame_from_params(cfg["pde"]["pde_params"])
+    ctx = scalar.setup_scalar(cfg, dev, ncomp=-1)
+    lat = scalar.maybe_block_lattice32(ctx, local_elasticity(ctx.cb, mu, lam))
+    attach_lattice_gmg(lat, ctx.mask.cpu().numpy())
+    return lat
+
+
+def test_block3_apply_on_elasticity_levels_matches_plain(dev):
+    """The d = 3 block form, f32, on every level of le_3d_basic's block
+    hierarchy (21^3 with 65 taps, 11^3 with 27) and f64 with the fine
+    level's weights (the refinement's residual): one launch each, the
+    plain version's sums."""
+    lat = _le3d_operator(dev)
+    assert lat.gmg.d == 3 and not lat.gmg.padded
+    assert [lv.shape for lv in lat.gmg.levels] == [(21, 21, 21), (11, 11, 11)]
+    rng = np.random.default_rng(4)
+    pairs = [(lv.plan, lv.W, lv.offsets, lv.pad) for lv in lat.gmg.levels]
+    pairs.append((lat.plan, lat.W_f64, lat.offsets, lat.pad))
+    for plan, W, offsets, pad in pairs:
+        u = torch.as_tensor(rng.standard_normal(plan.u_shape), device=dev).to(W.dtype)
+        before = stencil_kernel.LAUNCHES
+        y = plan(W, u)
+        assert stencil_kernel.LAUNCHES == before + 1
+        y_plain = stencil_kernel.block_stencil_plain(u, W, offsets, pad)
+        err = float((y - y_plain).abs().max() / y_plain.abs().max())
+        assert err <= TOL[W.dtype], (plan.u_shape, err)
+
+
+def test_block_hierarchy_on_the_card_equals_the_cpu_build(dev, monkeypatch):
+    """The block coarsening's comb probes run on the lattice's device in
+    separate float64 multiplies and adds: le_3d_basic's hierarchy built on
+    the card is the CPU build's, array for array."""
+    from pdebench_tpu_torch.oracle import scalar
+
+    monkeypatch.setattr(scalar, "BLOCK_LATTICE_3D_DEVICES", ("cuda", "cpu"))
+    a, b = _le3d_operator(dev).gmg, _le3d_operator(torch.device("cpu")).gmg
+    assert len(a.levels) == len(b.levels) == 2
+    for la, lb in zip(a.levels, b.levels):
+        assert (la.shape, la.offsets, la.omega) == (lb.shape, lb.offsets, lb.omega)
+        assert torch.equal(la.W.cpu(), lb.W) and torch.equal(la.diag_inv.cpu(), lb.diag_inv)
+    assert torch.equal(a.coarse_inv.cpu(), b.coarse_inv)
+
+
+def test_le_3d_solve_on_the_card(dev):
+    """le_3d_basic on the card: the d = 3 block lattice, CG preconditioned
+    by the PyTorch block V-cycle (stencil-cg, no fall-through), every level
+    apply and the f64 residual on the stencil kernel; the recorded error
+    (results/oracle_sweep_progress.jsonl) to 1e-6 relative."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == "le_3d_basic")
+    before = stencil_kernel.LAUNCHES
+    res = OracleSolver(device="cuda").solve(copy.deepcopy(cfg))
+    info = res.solver_info
+    assert info["inner"] == "stencil-cg" and info["pc_used"] == "gmg+stencil-ir32"
+    assert "iterative_failed" not in info and "gmg_failed" not in info
+    assert stencil_kernel.LAUNCHES > before
+    assert abs(res.baseline_error - 1.0009789573300774e-3) <= 1e-6 * 1.0009789573300774e-3

@@ -507,13 +507,19 @@ def test_fused_gate_takes_3d_scalar_hierarchies(p2_6):
     assert not dispatch.fused_gate(block) and not dispatch.fused_block_gate(block)
 
 
-def test_3d_block_lattice_raises_on_cuda_and_stays_off_on_cpu():
-    """3-D elasticity has no kernel: a CUDA request raises before any
-    tensor is made, a CPU one gets no block lattice."""
-    for device, outcome in (("cuda", NotImplementedError), ("cpu", None)):
-        ctx = types.SimpleNamespace(mesh=types.SimpleNamespace(dim=3), device=torch.device(device))
-        if outcome is None:
-            assert scalar.maybe_block_lattice32(ctx, np.zeros((1, 8, 8))) is None
-        else:
-            with pytest.raises(outcome):
-                scalar.maybe_block_lattice32(ctx, np.zeros((1, 8, 8)))
+def test_3d_block_lattice_gate_takes_cuda_and_stays_off_on_cpu(monkeypatch):
+    """A 3-D vector operator takes its block lattice on the devices of
+    scalar.BLOCK_LATTICE_3D_DEVICES (CUDA: the d = 3 block stencil and the
+    block V-cycle, the reference's TPU route); the CPU keeps the
+    reference's CPU branch, no lattice (SA-AMG), until a test patches the
+    gate."""
+    mesh = unit_cube_mesh(2)
+    V = FunctionSpace(mesh, 1, ncomp=3)
+    A = np.ones((mesh.n_cells, 12, 12))
+    ctx = types.SimpleNamespace(mesh=mesh, space=V, device=torch.device("cpu"))
+    assert scalar.BLOCK_LATTICE_3D_DEVICES == ("cuda",)
+    assert scalar.maybe_block_lattice32(ctx, A) is None
+    monkeypatch.setattr(scalar, "BLOCK_LATTICE_3D_DEVICES", ("cpu",))
+    lat = scalar.maybe_block_lattice32(ctx, A)
+    assert lat.ncomp == 3 and lat.shape == (3, 3, 3) and lat.grid_shape == (3, 3, 3, 3)
+    assert lat.W.dtype == torch.float32 and lat.plan.ncomp == 3

@@ -91,3 +91,13 @@ def test_cell_local_slice_sources():
                  "oracle/reaction_diffusion.py", "oracle/convection_diffusion.py",
                  "oracle/mixed.py", "oracle/stokes.py"):
         assert PKG / name in SOURCES
+
+
+def test_last_types_slice_sources():
+    """The modules of the last oracle types (Darcy with the copied H(div)
+    spaces, hyperelasticity, Cahn-Hilliard) and of the 3-D elasticity
+    route are scanned."""
+    for name in ("fem/hdiv.py", "oracle/darcy.py", "oracle/hyperelasticity.py",
+                 "oracle/cahn_hilliard.py", "oracle/oracle.py", "oracle/linear_elasticity.py",
+                 "oracle/scalar.py", "solvers/dispatch.py", "solvers/gmg.py"):
+        assert PKG / name in SOURCES

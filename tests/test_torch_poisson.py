@@ -188,7 +188,8 @@ def test_oracle_requires_device_and_rejects_unported():
     assert OracleSolver(device="cpu").device.type == "cpu"
     cfg = copy.deepcopy(_case("poisson_basic"))
     cfg["pde"]["type"] = "darcy"
-    with pytest.raises(NotImplementedError):
+    cfg["pde"]["formulation"] = "no_such_formulation"
+    with pytest.raises(NotImplementedError, match="unknown darcy formulation"):
         OracleSolver(device="cpu").solve(cfg)
     cfg["pde"]["type"] = "no_such_pde"
     with pytest.raises(ValueError):
