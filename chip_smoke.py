@@ -114,6 +114,12 @@ recorded values:
   Cahn-       Jacobi GMRES a step) at the JAX package's test resolutions
   Hilliard    and at 64, the checks of its tests; no kernel of the table
   (18c)       runs there; two solves give the same grid, bit for bit
+  Harness     `poisson_basic` through scripts/torch_run_benchmark.py's
+  (19)        run_single_case: the oracle on the card (the stencil kernel
+              and the fused inner CG), the mock agent serving the torch
+              guide's quick-start in the sandbox on the card, the gates;
+              then the oracle runner CLI in a process of its own on the
+              same case, its grid against the harness run's
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -1643,6 +1649,110 @@ def check_amg_vcycle(config, dev):
                    f"with padding {padded})")
 
 
+def guide_quickstart() -> str:
+    """The torch library guide's quick-start Poisson solver, verbatim."""
+    import re
+
+    path = os.path.join(ROOT, "pdebench_tpu_torch", "docs", "PDEBENCH_TPU_TORCH_GUIDE.md")
+    with open(path) as fh:
+        blocks = re.findall(r"```python\n(.*?)```", fh.read(), flags=re.S)
+    return next(b for b in blocks if "local_stiffness(cb, kappa_q)" in b)
+
+
+def drive_harness(case_id, config, record, tol):
+    """(19) The benchmark harness on the card: torch_run_benchmark's
+    run_single_case on `case_id` with the mock agent serving the torch
+    guide's quick-start (PDEBENCH_MOCK_RESPONSE_FILE), library "torch",
+    device "cuda", results in a temporary directory; the launch counters
+    set to 0 just before it and returned just after. Fails if the oracle
+    gave the sentinel, its baseline_error is off the record by more than
+    `tol` relative, the agent's run is not exec_valid or its error is above
+    target_error. Then the oracle runner CLI in a subprocess on the same
+    case: its reference.npy against the harness run's grid."""
+    import tempfile
+
+    from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_run_benchmark as trb
+
+    case = next(c for c in trb.load_benchmark_cases(
+        trb.find_data_file("v2", None), [case_id], None, "torch"))
+    with tempfile.TemporaryDirectory() as tmp:
+        resp = os.path.join(tmp, "response.md")
+        with open(resp, "w") as fh:
+            fh.write("```python\n" + guide_quickstart() + "```\n")
+        before = os.environ.get("PDEBENCH_MOCK_RESPONSE_FILE")
+        os.environ["PDEBENCH_MOCK_RESPONSE_FILE"] = resp
+        try:
+            stencil_kernel.LAUNCHES = gmg_fused.LAUNCHES = 0
+            t0 = time.perf_counter()
+            result = trb.run_single_case(case, "mock", None, trb.Path(tmp) / "results", "torch",
+                                         timeout_sec=300, device="cuda")
+            wall = time.perf_counter() - t0
+            counts = {"stencil_apply": stencil_kernel.LAUNCHES, "gmg_fused_cg": gmg_fused.LAUNCHES}
+        finally:
+            if before is None:
+                os.environ.pop("PDEBENCH_MOCK_RESPONSE_FILE", None)
+            else:
+                os.environ["PDEBENCH_MOCK_RESPONSE_FILE"] = before
+        cache = os.path.join(str(trb.oracle_cache_dir(trb.Path(tmp) / "results", "torch", "cuda")),
+                             f"{case_id}.json")
+        with open(cache) as fh:
+            oracle = json.load(fh)
+        if oracle.get("reference") is None:
+            raise AssertionError(f"(19) the oracle gave the sentinel: {oracle}")
+        grid = np.array([np.nan if v is None else v for v in oracle["reference"]],
+                        dtype=np.float64).reshape(oracle["reference_shape"])
+        rel = abs(oracle["error"] - record) / record
+        info = oracle["solver_info"]
+        say("19", f"harness run of {case_id} in {wall:.1f} s: gate {result['status']}, "
+                  f"fail_reason {result['fail_reason']}, oracle time {oracle['time']:.4f} s "
+                  f"(inner {info.get('inner')}), agent time {result['time']:.4f} s, agent error "
+                  f"{result['error']!r} (target {result['target_error']!r}), oracle "
+                  f"baseline_error {oracle['error']!r} (recorded {record!r}, rel {rel:.2e}, "
+                  f"tol {tol:g}); launches {counts}")
+        check_grid(case_id, config, grid)
+        if not rel <= tol:
+            raise AssertionError(f"(19) oracle baseline_error off the record by {rel:.2e}")
+        if not result["gate_breakdown"]["exec_valid"]:
+            raise AssertionError(f"(19) the agent's run is not exec_valid: "
+                                 f"{result.get('error_message')}\n{result.get('stderr')}")
+        if result["error"] is None or not result["error"] <= result["target_error"]:
+            raise AssertionError(f"(19) agent error {result['error']} above target "
+                                 f"{result['target_error']}")
+        for name, n in counts.items():
+            if n < 1:
+                raise AssertionError(f"(19) {name} never launched in the harness run: {counts}")
+
+        # the runner CLI, a process of its own, on the same case
+        spec = os.path.join(tmp, "case.json")
+        with open(spec, "w") as fh:
+            json.dump(case, fh)
+        out = os.path.join(tmp, "runner")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pdebench_tpu_torch.oracle.runner", spec, out],
+            capture_output=True, text=True, cwd=ROOT, timeout=300,
+        )
+        t_cli = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"(19) runner CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        cli = np.load(os.path.join(out, "reference.npy"))
+        with open(os.path.join(out, "meta.json")) as fh:
+            meta = json.load(fh)
+        same = np.array_equal(cli, grid, equal_nan=True)
+        diff = float(np.nanmax(np.abs(cli - grid))) if cli.shape == grid.shape else float("nan")
+        say("19", f"runner CLI in {t_cli:.1f} s: baseline_error {meta['baseline_error']!r}, "
+                  f"reference.npy {'equals the harness grid bit for bit' if same else 'differs from the harness grid'}"
+                  f" (max |diff| {diff:.3e}; inner {meta['solver_info'].get('inner')} vs "
+                  f"{info.get('inner')}, iterations {meta['solver_info'].get('iterations')} vs "
+                  f"{info.get('iterations')})")
+        if not (cli.shape == grid.shape and np.nanmax(np.abs(cli - grid)) <= 1e-8 * np.nanmax(np.abs(grid))):
+            raise AssertionError(f"(19) runner CLI grid off the harness grid by {diff:.3e}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # (0) the card
@@ -1866,6 +1976,20 @@ def main() -> int:
                 raise AssertionError(f"{counter} never launched on main path {phase}: {counts}")
             launches[entry] = launches.get(entry, 0) + counts[counter]
 
+    # (19) the benchmark harness on poisson_basic: the port's oracle (kernels
+    # #1 and #2, the counters set to 0 just before the run) and the agent's
+    # solver in the sandbox on the card; its entries report the kernels at
+    # poisson_basic's shapes, measured in phases 2 and 3
+    t_phase = time.perf_counter()
+    counts = drive_harness("poisson_basic", cases["poisson_basic"], POISSON["poisson_basic"][0],
+                           POISSON["poisson_basic"][1])
+    say("19", f"kernel launches on this main path: {counts}; the phase took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    launches["stencil_apply_2d_harness"] = counts["stencil_apply"]
+    launches["gmg_fused_cg_harness"] = counts["gmg_fused_cg"]
+    report["stencil_apply_2d_harness"] = report["stencil_apply_2d"]
+    report["gmg_fused_cg_harness"] = report["gmg_fused_cg"]
+
     meta = {
         "stencil_apply_2d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
         # the same kernel on 3-D lattices; the reference applies 3-D
@@ -1914,6 +2038,11 @@ def main() -> int:
         # (BlockLatticeOperator.apply_grid_w, the block V-cycle's levels)
         "stencil_apply_block_3d_elasticity": ("stencil_apply.cu",
                                               "pdebench_tpu/solvers/stencil.py:857"),
+        # the harness run's oracle (phase 19): the same kernels on
+        # poisson_basic's 121^2 lattice, launched from
+        # scripts/torch_run_benchmark.py's run_single_case
+        "stencil_apply_2d_harness": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
+        "gmg_fused_cg_harness": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or

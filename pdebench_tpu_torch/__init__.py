@@ -13,10 +13,19 @@ fem/      meshes, reference elements, dof maps (numpy copies), symbolic
 solvers/  lattice stencil operators, stencil GMG, Krylov + mixed-
           precision refinement, dispatch, host LU; each CUDA kernel's
           wrapper sits beside its plain PyTorch version
-oracle/   OracleSolver front end and the ported oracles (Poisson,
-          Helmholtz, elasticity, Navier-Stokes, heat, biharmonic,
-          convection-diffusion)
+oracle/   OracleSolver front end and the ported oracles (all 14 PDE
+          types), the out-of-process runner and the native (C++) backend
 csrc/     CUDA sources, compiled with nvcc at first use (_build.py)
+core/     prompt builder, LLM client (offline `mock`), feedback prompts
+agents/   agent registry + wrappers
+sandbox/  sandboxed execution of agent-generated solvers (Python, C++)
+metrics/  universal + specialized metrics, scoring, tier levels
+analysis/ gate analyzer, error classifier
+docs/     the library guides injected into agents' prompts
+
+The harness modules (core, agents, sandbox, metrics, analysis) are copies
+of the reference's host-only code; scripts/torch_run_benchmark.py drives
+them on this package.
 
 Every entry point runs on `device`, the card ("cuda") unless the caller
 asks for the CPU; f64 for the outer solve and

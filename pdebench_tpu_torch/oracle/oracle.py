@@ -1,13 +1,16 @@
 """Oracle dispatcher: case pde type -> solver on an explicit device.
 
 Port of pdebench_tpu/oracle/oracle.py: all 14 PDE types of the
-reference.
+reference, and its `solve(oracle_config, solver_library, use_docker,
+docker_image)` signature: "cpp" goes to the out-of-process C++ backend
+(cpp_backend.py), every other library to the in-process port on the
+solver's device.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -43,7 +46,19 @@ class OracleSolver:
     def __init__(self, device="cuda"):
         self.device = torch.device(device)
 
-    def solve(self, oracle_config: Dict[str, Any]) -> OracleResult:
+    def solve(
+        self,
+        oracle_config: Dict[str, Any],
+        solver_library: str = "torch",
+        use_docker: bool = False,  # interface parity; no containers needed
+        docker_image: Optional[str] = None,
+    ) -> OracleResult:
+        del use_docker, docker_image
+        if (solver_library or "torch").lower() == "cpp":
+            from .cpp_backend import solve_via_cpp
+
+            return solve_via_cpp(oracle_config)
+
         pde_type = oracle_config["pde"]["type"]
         if pde_type not in _SOLVERS:
             raise ValueError(f"unsupported pde type: {pde_type}")

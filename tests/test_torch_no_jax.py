@@ -101,3 +101,36 @@ def test_last_types_slice_sources():
                  "oracle/cahn_hilliard.py", "oracle/oracle.py", "oracle/linear_elasticity.py",
                  "oracle/scalar.py", "solvers/dispatch.py", "solvers/gmg.py"):
         assert PKG / name in SOURCES
+
+
+def test_harness_slice_sources():
+    """The harness modules, both driver twins and the docs are scanned or
+    present."""
+    for name in (
+        "oracle/cpp_backend.py", "oracle/runner.py", "oracle/oracle.py",
+        "metrics/__init__.py", "metrics/universal.py", "metrics/specialized.py",
+        "metrics/scoring.py", "metrics/tier_levels.py",
+        "analysis/__init__.py", "analysis/gate_analyzer.py", "analysis/error_classifier.py",
+        "core/__init__.py", "core/prompt_builder.py", "core/llm_client.py",
+        "core/feedback_prompt.py", "core/multi_attempt.py",
+        "agents/__init__.py", "agents/base_agent.py", "agents/agent_registry.py",
+        "agents/wrappers.py",
+        "sandbox/__init__.py", "sandbox/executor.py", "sandbox/cpp_executor.py",
+    ):
+        assert PKG / name in SOURCES, name
+    for script in ("torch_run_benchmark.py", "torch_test_oracle_cases.py"):
+        assert ROOT / "scripts" / script in SOURCES
+    for doc in ("PDEBENCH_TPU_TORCH_GUIDE.md", "PYTHON_GUIDE.md", "CPP_GUIDE.md"):
+        assert (PKG / "docs" / doc).is_file()
+
+
+def test_torch_guide_examples_import_no_jax():
+    """Every python block of the torch library's guide (what an agent is
+    taught to write) imports neither jax nor pdebench_tpu."""
+    text = (PKG / "docs" / "PDEBENCH_TPU_TORCH_GUIDE.md").read_text()
+    blocks = re.findall(r"```python\n(.*?)```", text, flags=re.S)
+    assert len(blocks) >= 10
+    for block in blocks:
+        assert not _FORBIDDEN.findall(block), block[:200]
+        assert "jax" not in block
+    assert sum("from pdebench_tpu_torch" in b for b in blocks) >= 5
