@@ -120,6 +120,14 @@ recorded values:
               guide's quick-start in the sandbox on the card, the gates;
               then the oracle runner CLI in a process of its own on the
               same case, its grid against the harness run's
+  Multi-      `poisson_p2` (P2, 201^2), `linear_elasticity_exponential_
+  device      gradients` (P1 block, 151^2) and `poisson_3d_smooth_trig` (P2,
+  (20)        33^3) at full size through dispatch's halo route
+              (PDEBENCH_TPU_HALO=1) on 2 and 4 ranks sharing the card, one
+              process each: every stripe apply one stencil kernel launch,
+              the stripes against the whole-lattice launch bit for bit, the
+              grids against the single-device solve's; the multi-device
+              dry run's legs (parallel/dryrun.py) in the 4-rank launch
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -338,6 +346,20 @@ DARCY = {
     "darcy:poisson_basic": (1.924806820736457e-4, 1e-6, "fused-cg-cuda"),
     "darcy:rt1@16": (0.0034248804530593066, 1e-6, "host-lu"),
 }
+# The multi-device module (phase 20): case id -> the kernels line's entry
+# of the stencil kernel on its stripes. Full dataset size: poisson_p2 (res
+# 100 P2, a 201^2 lattice, 40,401 dofs), linear_elasticity_exponential_
+# gradients (res 150 P1, 151^2 x 2, 45,602 dofs), poisson_3d_smooth_trig
+# (res 16 P2, 33^3, 35,937 dofs), through dispatch's halo route on 2 and 4
+# ranks sharing the card (gloo, every row and scalar through pinned host
+# buffers: NCCL refuses two ranks on one device). The grid is held to the
+# single-device grid by parallel/dryrun.check_halo_route
+HALO = {
+    "poisson_p2": "stencil_apply_2d_halo",
+    "linear_elasticity_exponential_gradients": "stencil_apply_block_2d_halo",
+    "poisson_3d_smooth_trig": "stencil_apply_3d_halo",
+}
+HALO_RANKS = (2, 4)
 # the inner routes that launch no kernel of the table: off the lattice and
 # the host LU
 OFF_LATTICE_ROUTES = ("amg-", "jacobi-", "host-")
@@ -1753,6 +1775,119 @@ def drive_harness(case_id, config, record, tol):
     return counts
 
 
+def halo_lattice(config, device):
+    """The case's f32 lattice operator (scalar, or block for elasticity),
+    built through the port's setup path, without a hierarchy."""
+    from pdebench_tpu_torch.fem.assemble import local_elasticity, local_stiffness
+    from pdebench_tpu_torch.oracle import base, linear_elasticity, scalar
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, pde["manufactured_solution"]["u"])
+    if pde["type"] == "linear_elasticity":
+        lam, mu = linear_elasticity.lame_from_params(pde["pde_params"])
+        ctx = scalar.setup_scalar(config, device, ncomp=-1)
+        return scalar.maybe_block_lattice32(ctx, local_elasticity(ctx.cb, mu, lam))
+    ctx = scalar.setup_scalar(config, device)
+    kappa = base.coefficient_fn(pde["coefficients"]["kappa"], ctx.dim, device)
+    return scalar.maybe_lattice32(ctx, local_stiffness(ctx.cb, kappa(ctx.qpts())))
+
+
+def sweep_records(ids):
+    """The recorded baseline_error of each case (results/oracle_sweep_progress.jsonl)."""
+    out = {}
+    with open(os.path.join(ROOT, "results", "oracle_sweep_progress.jsonl")) as fh:
+        for line in fh:
+            r = json.loads(line)
+            if r.get("case_id") in ids and r.get("ok"):
+                out[r["case_id"]] = r["baseline_error"]
+    return out
+
+
+def drive_halo(cases, dev, report, launches):
+    """Phase 20, the multi-device module on ranks sharing the card. (20a)
+    the stencil kernel on a middle rank's extended stripe at 4 ranks
+    against its plain version (the kernels line's numbers), and each
+    case's stripes on 2 and 4 ranks, gathered, against the whole-lattice
+    launch bit for bit, one launch a rank; (20b) the three cases at full
+    size through dispatch's halo route (every rank an
+    OracleSolver(device="cuda").solve) against the single-device solve on
+    this process; (20c) the dry run's legs (dryrun_multichip(4, "cuda"))
+    in the 4-rank launch, after 20b's. The launches of the 20b solves (each
+    rank's count from 0 just before) are the main path's. The bound counts
+    the function on the owned rows: their weights and output, u over the
+    extended stripe."""
+    from types import SimpleNamespace
+
+    from pdebench_tpu_torch.oracle import OracleSolver
+    from pdebench_tpu_torch.parallel import Group, HaloStencilOperator, launch
+    from pdebench_tpu_torch.parallel.dryrun import (
+        HALO_GRID_TOL, check_halo_route, dryrun_legs, halo_apply, oracle_solve, run_legs,
+    )
+    from pdebench_tpu_torch.solvers import stencil_kernel
+
+    rng = np.random.default_rng(20)
+    records = sweep_records(set(HALO))
+    lats, us, wholes = {}, {}, {}
+    for cid, name in HALO.items():
+        lat = lats[cid] = halo_lattice(cases[cid], dev)
+        hop = HaloStencilOperator.from_lattice_operator(lat, Group(1, 4, dev))
+        plan = hop.plan
+        n_ext, K = int(np.prod(plan.shape)), len(hop.offsets)
+        n = n_ext // plan.shape[0] * hop.stripes.local  # the owned sites
+        block = hop.ncomp > 1
+        u_ext = torch.as_tensor(rng.standard_normal(plan.u_shape), device=dev)
+        stencil_line("20a", name, f"{cid} (a middle rank's stripe of 4)",
+                     SimpleNamespace(apply_grid_w=plan, plan=plan, offsets=hop.offsets, pad=hop.pad),
+                     hop.W, u_ext,
+                     stencil_kernel.block_stencil_plain if block else stencil_kernel.stencil_plain,
+                     TOL_F64, report,
+                     K * 4 * n + 2 * (n_ext + n) if block else K * n + n_ext + n,
+                     4 * _taps_flops(K, n) + 2 * n if block else _taps_flops(K, n))
+        us[cid] = rng.standard_normal(lat.grid_shape)
+        wholes[cid] = lat.apply_grid_w(lat.W_f64, torch.as_tensor(us[cid], device=dev)).cpu().numpy()
+    single = {}
+    for cid in HALO:
+        t0 = time.perf_counter()
+        single[cid] = OracleSolver(device=dev).solve(copy.deepcopy(cases[cid]))
+        info = single[cid].solver_info
+        say("20b", f"{cid} on one device: inner {info['inner']}, baseline_error "
+                   f"{single[cid].baseline_error!r}, t_warm {info['t_warm']:.4f} s "
+                   f"({time.perf_counter() - t0:.1f} s with setup)")
+    for ranks in HALO_RANKS:
+        legs = [(halo_apply, (lats[cid].W_f64.cpu().numpy(), lats[cid].offsets, lats[cid].ncomp,
+                              us[cid])) for cid in HALO]
+        legs += [(oracle_solve, (copy.deepcopy(cases[cid]),)) for cid in HALO]
+        if ranks == 4:
+            legs.append((dryrun_legs, ()))
+        t0 = time.perf_counter()
+        out = launch(run_legs, ranks, dev.type, legs)
+        say("20", f"{ranks} ranks sharing the card: the launch (spawn, setup, applies, 3 cases"
+                  f"{', the dry run' if ranks == 4 else ''}) took {time.perf_counter() - t0:.1f} s")
+        for cid, got in zip(HALO, out[:len(HALO)]):
+            diff = float(np.abs(got["y"] - wholes[cid]).max())
+            say("20a", f"{cid} {'x'.join(map(str, lats[cid].grid_shape))} on {ranks} ranks: "
+                       f"max |halo - whole-lattice| {diff:.3e}, stencil kernel launches per rank "
+                       f"{got['launches']}")
+            if not np.array_equal(got["y"], wholes[cid]) or got["launches"] != [1] * ranks:
+                raise AssertionError(f"halo apply of {cid} on {ranks} ranks: diff {diff}, "
+                                     f"launches {got['launches']}")
+        for cid, got in zip(HALO, out[len(HALO):2 * len(HALO)]):
+            info = got["solver_info"]
+            check_grid(cid, cases[cid], got["grid"])
+            rel = check_halo_route(cid, got, single[cid].reference, ranks)
+            rec = records[cid]
+            say("20b", f"{cid} on {ranks} ranks: pc_used {info['pc_used']} ({info['halo_backend']}), "
+                       f"{info['iterations']} CG iterations, residual {info['residual']:.3e}, grid "
+                       f"{rel:.3e} from the single-device grid (tol {HALO_GRID_TOL:g}), "
+                       f"baseline_error {got['baseline_error']!r} ({abs(got['baseline_error'] - rec) / rec:.2e} "
+                       f"from the record {rec!r}), t_warm {info['t_warm']:.4f} s, of it exchange "
+                       f"{info['halo_exchange_s']:.4f} s and reductions {info['halo_reduce_s']:.4f} s "
+                       f"(rank 0), stencil kernel launches per rank {got['launches']}")
+            launches[HALO[cid]] = launches.get(HALO[cid], 0) + sum(got["launches"])
+        if ranks == 4:
+            say("20c", f"dryrun_multichip(4, {dev.type!r})'s legs passed: {json.dumps(out[-1])}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # (0) the card
@@ -1790,7 +1925,7 @@ def main() -> int:
                        | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
                        | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS) | set(STOKES_2D)
                        | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC) | set(OFF_LATTICE)
-                       | set(CELL_LOCAL) | set(STOKES_AMG) | set(LE_3D))
+                       | set(CELL_LOCAL) | set(STOKES_AMG) | set(LE_3D) | set(HALO))
     cases.update(darcy_cases(cases))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
@@ -1990,6 +2125,11 @@ def main() -> int:
     report["stencil_apply_2d_harness"] = report["stencil_apply_2d"]
     report["gmg_fused_cg_harness"] = report["gmg_fused_cg"]
 
+    # (20) the multi-device module: ranks sharing the card
+    t_phase = time.perf_counter()
+    drive_halo(cases, dev, report, launches)
+    say("20", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+
     meta = {
         "stencil_apply_2d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
         # the same kernel on 3-D lattices; the reference applies 3-D
@@ -2043,6 +2183,11 @@ def main() -> int:
         # scripts/torch_run_benchmark.py's run_single_case
         "stencil_apply_2d_harness": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
         "gmg_fused_cg_harness": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        # the stripe applies of dispatch's halo route (phase 20): the
+        # reference's halo apply is XLA (dynamic_slice taps in shard_map)
+        "stencil_apply_2d_halo": ("stencil_apply.cu", "pdebench_tpu/parallel/halo.py:101"),
+        "stencil_apply_block_2d_halo": ("stencil_apply.cu", "pdebench_tpu/parallel/halo.py:101"),
+        "stencil_apply_3d_halo": ("stencil_apply.cu", "pdebench_tpu/parallel/halo.py:101"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or

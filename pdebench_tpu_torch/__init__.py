@@ -15,6 +15,9 @@ solvers/  lattice stencil operators, stencil GMG, Krylov + mixed-
           wrapper sits beside its plain PyTorch version
 oracle/   OracleSolver front end and the ported oracles (all 14 PDE
           types), the out-of-process runner and the native (C++) backend
+parallel/ multi-device solves over torch.distributed ranks: cell-DD and
+          stripe partitioning with a halo exchange (dispatch's halo
+          route), the rank launcher and the multi-device dry run
 csrc/     CUDA sources, compiled with nvcc at first use (_build.py)
 core/     prompt builder, LLM client (offline `mock`), feedback prompts
 agents/   agent registry + wrappers

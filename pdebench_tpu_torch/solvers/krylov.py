@@ -29,6 +29,28 @@ def _tolerance(b: torch.Tensor, rtol: float, atol: float) -> float:
     return max(rtol * float(torch.linalg.norm(b)), atol)
 
 
+def _reductions(reduce: Optional[Callable]):
+    """(dot, norm, dot_norm) of a solve: torch.dot and torch.linalg.norm
+    on 1-D vectors, dot_norm(a, b, c) = (a . b, ||c||); or, with `reduce`
+    (the sum over ranks of a tensor), the local sums over vectors of any
+    shape summed by `reduce`, dot_norm's two in one call (stripe-sharded
+    solves: parallel/halo.py; each call is a round trip between ranks)."""
+    if reduce is None:
+        return torch.dot, torch.linalg.norm, lambda a, b, c: (torch.dot(a, b), torch.linalg.norm(c))
+
+    def local(a, b):
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+
+    def dot(a, b):
+        return reduce(local(a, b))
+
+    def dot_norm(a, b, c):
+        ab, cc = reduce(torch.stack([local(a, b), local(c, c)]))
+        return ab, torch.sqrt(cc)
+
+    return dot, lambda a: torch.sqrt(dot(a, a)), dot_norm
+
+
 def cg(
     A: Callable,
     b: torch.Tensor,
@@ -37,35 +59,39 @@ def cg(
     rtol: float = 1e-10,
     atol: float = 1e-14,
     maxiter: int = 10000,
+    reduce: Optional[Callable] = None,
 ):
-    """Preconditioned conjugate gradients (SPD systems)."""
+    """Preconditioned conjugate gradients (SPD systems). `reduce`: see
+    `_reductions` (None: 1-D vectors on one device)."""
+    dot, norm, dot_norm = _reductions(reduce)
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
         M = lambda r: r
-    tol = _tolerance(b, rtol, atol)
+    bn = float(norm(b))
+    tol = max(rtol * bn, atol)
 
     x = x0
     r = b - A(x0)
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
+    rz, rn = dot_norm(r, z, r)
+    rn = float(rn)
     # divergence guard: a bad preconditioner must not burn maxiter
-    blowup = 1e6 * (float(torch.linalg.norm(r)) + float(torch.linalg.norm(b)))
+    blowup = 1e6 * (rn + bn)
     k = 0
-    rn = float(torch.linalg.norm(r))
     while k < maxiter and tol < rn < blowup:
         Ap = A(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new, rn = dot_norm(r, z, r)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
         k += 1
-        rn = float(torch.linalg.norm(r))
+        rn = float(rn)
     return x, KrylovInfo(k, rn, rn <= tol)
 
 
@@ -181,6 +207,7 @@ def minres(
     atol: float = 1e-14,
     maxiter: int = 10000,
     A32: Optional[Callable] = None,
+    reduce: Optional[Callable] = None,
 ):
     """Preconditioned MINRES for symmetric (possibly indefinite) systems.
 
@@ -204,8 +231,10 @@ def minres(
     3e-7 relative reduction (what an f32 recurrence can close).
 
     The recurrence's scalars stay on the device; each iteration reads
-    phibar once on the host, for the stop test.
+    phibar once on the host, for the stop test. `reduce`: see
+    `_reductions` (None: 1-D vectors on one device).
     """
+    dot, norm, _ = _reductions(reduce)
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
@@ -220,7 +249,7 @@ def minres(
         eps = 1e-300 if dt == torch.float64 else 1e-30
         zero = torch.zeros((), dtype=dt, device=r.device)
         y = M(r).to(dt)
-        beta1 = torch.sqrt(torch.clamp(torch.dot(r, y), min=0.0))
+        beta1 = torch.sqrt(torch.clamp(dot(r, y), min=0.0))
         tol = float(beta1 * torch.tensor(factor, dtype=torch.float64).to(dt))
         x = torch.zeros_like(r)
         r1 = r2 = r
@@ -234,12 +263,12 @@ def minres(
             yv = A_in(v).to(dt)
             if k >= 1:
                 yv = yv - (beta / torch.clamp(oldb, min=eps)) * r1
-            alfa = torch.dot(v, yv)
+            alfa = dot(v, yv)
             yv = yv - (alfa / beta_s) * r2
             r1, r2 = r2, yv
             y = M(yv).to(dt)
             oldb = beta
-            beta = torch.sqrt(torch.clamp(torch.dot(yv, y), min=0.0))
+            beta = torch.sqrt(torch.clamp(dot(yv, y), min=0.0))
 
             oldeps = epsln
             delta = cs * dbar + sn * alfa
@@ -258,13 +287,13 @@ def minres(
             k += 1
         return x, k
 
-    tol_true = float(torch.linalg.norm(b)) * rtol + atol
+    tol_true = float(norm(b)) * rtol + atol
     # the f32 recurrence can't close more than ~6 digits per restart
     floor = 3e-7 if A32 is not None else 0.0
 
     x = x0
     r = b - A(x0)
-    res = float(torch.linalg.norm(r))
+    res = float(norm(r))
     total = rs = 0
     stalled = False
     while res > tol_true and not stalled and rs < restarts and total < maxiter:
@@ -277,7 +306,7 @@ def minres(
             d, k = run0(r, factor)
         x_new = x + d
         r_new = b - A(x_new)
-        res_new = float(torch.linalg.norm(r_new))
+        res_new = float(norm(r_new))
         total += k
         rs += 1
         # keep the best iterate: a restart that does not improve would

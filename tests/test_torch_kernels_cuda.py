@@ -1412,3 +1412,36 @@ def test_le_3d_solve_on_the_card(dev):
     assert "iterative_failed" not in info and "gmg_failed" not in info
     assert stencil_kernel.LAUNCHES > before
     assert abs(res.baseline_error - 1.0009789573300774e-3) <= 1e-6 * 1.0009789573300774e-3
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_halo_apply_on_the_card_matches_whole_lattice(dev, ranks):
+    """The stripe-partitioned apply (parallel/halo.py) on ranks sharing the
+    card, a P2 scalar and a d = 2 block lattice: each rank's stripe one
+    launch of the stencil kernel, the gathered grid the whole-lattice
+    launch's bit for bit."""
+    from pdebench_tpu_torch import _build
+    from pdebench_tpu_torch.fem.assemble import cell_batch, local_elasticity, local_stiffness
+    from pdebench_tpu_torch.fem.mesh import unit_square_mesh
+    from pdebench_tpu_torch.fem.spaces import FunctionSpace
+    from pdebench_tpu_torch.parallel import launch
+    from pdebench_tpu_torch.parallel.dryrun import halo_apply, run_legs
+    from pdebench_tpu_torch.solvers import stencil
+
+    _build.load("stencil_apply")  # once here, not in every rank
+    m = unit_square_mesh(40)
+    V2 = FunctionSpace(m, 2)
+    K2 = np.asarray(local_stiffness(cell_batch(m, 2)))
+    Vb = FunctionSpace(m, 1, ncomp=2)
+    Kb = np.asarray(local_elasticity(cell_batch(m, 1), 1.0, 1.0))
+    ops = [
+        stencil.lattice_operator_from_local(K2, V2.dofmap_scalar, V2.ndof, V2.dof_coords, dev),
+        stencil.block_lattice_operator_from_local(Kb, Vb.dofmap, Vb.ndof, Vb.dof_coords, 2, dev),
+    ]
+    rng = np.random.default_rng(0)
+    us = [rng.standard_normal(op.grid_shape) for op in ops]
+    legs = [(halo_apply, (op.W_f64.cpu().numpy(), op.offsets, op.ncomp, u)) for op, u in zip(ops, us)]
+    for op, u, got in zip(ops, us, launch(run_legs, ranks, "cuda", legs)):
+        whole = op.apply_grid_w(op.W_f64, torch.as_tensor(u, device=dev)).cpu().numpy()
+        np.testing.assert_array_equal(got["y"], whole)
+        assert got["launches"] == [1] * ranks

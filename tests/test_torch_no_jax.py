@@ -134,3 +134,9 @@ def test_torch_guide_examples_import_no_jax():
         assert not _FORBIDDEN.findall(block), block[:200]
         assert "jax" not in block
     assert sum("from pdebench_tpu_torch" in b for b in blocks) >= 5
+
+
+def test_parallel_slice_sources():
+    for name in ("parallel/__init__.py", "parallel/group.py", "parallel/sharded.py",
+                 "parallel/halo.py", "parallel/dryrun.py"):
+        assert PKG / name in SOURCES
