@@ -128,6 +128,19 @@ recorded values:
               the stripes against the whole-lattice launch bit for bit, the
               grids against the single-device solve's; the multi-device
               dry run's legs (parallel/dryrun.py) in the 4-rank launch
+  Route       the reference's switches, each set for its path only:
+  switches    `burgers_square_v1` (P2 257^2) under PDEBENCH_TPU_FUSED=
+  (21)        arnoldi (kernel #6 is each round's whole Arnoldi cycle, the
+              step's constrained float32 weights its operator), under
+              PDEBENCH_TPU_STEP_RICH=1 (kernel #3 preconditions the GMRES)
+              and under PDEBENCH_TPU_STEP_OUTER=cell (the exact float64
+              cell batch as the outer: the case's record);
+              `helmholtz_basic_k5` and the own-operator
+              `convdiff_elliptic_medium_pe_diagonal_high_freq` (P1 161^2)
+              under PDEBENCH_TPU_FUSED=arnoldi (kernel #6); `poisson_basic`
+              under PDEBENCH_TPU_WARM_REPEATS=3 (the fastest of 3 warm
+              passes); 21a holds the new callers' kernels against their
+              plain versions at those shapes
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. One
@@ -360,6 +373,38 @@ HALO = {
     "poisson_3d_smooth_trig": "stencil_apply_3d_halo",
 }
 HALO_RANKS = (2, 4)
+# The reference's route switches (phase 21): phase -> (the switches, case
+# id -> (baseline_error, relative tolerance, inner on the card), the
+# step_outer a per-step case reports, the kernels-line entries and the
+# counters they read). burgers_square_v1's hierarchy 257 -> 129 -> 65 ->
+# 33 -> 17 is unpadded; on the fused routes it is held to today's JAX run
+# as phase 13 is, under the cell outer to its record, which the JAX
+# package wrote on that outer. convdiff_elliptic_medium_pe_diagonal_high_
+# freq (P1 161^2, eps 0.05, beta (3, 3), no SUPG) is an own-operator
+# hierarchy on which the whole fused cycle converges; on the SUPG and P2
+# cases the fused cycle's 2-V-cycle preconditioner stalls (PERF.md §6), as
+# the reference found on its TPU
+BURGERS_TODAY = BURGERS["burgers_square_v1"][0]
+SWITCHES = (
+    ("21", {"PDEBENCH_TPU_FUSED": "arnoldi"},
+     {"burgers_square_v1": (BURGERS_TODAY, 1e-6, "fused-gmres-step-cuda")}, "stencil",
+     {"gmg_fused_gmres_step": "gmg_fused_gmres", "stencil_apply_2d_step": "stencil_apply"}),
+    ("21b", {"PDEBENCH_TPU_STEP_RICH": "1"},
+     {"burgers_square_v1": (BURGERS_TODAY, 1e-6, "gmres+fused-richardson-step-cuda")}, "stencil",
+     {"gmg_fused_richardson_step": "gmg_fused_richardson", "stencil_apply_2d_step": "stencil_apply"}),
+    ("21c", {"PDEBENCH_TPU_STEP_OUTER": "cell"},
+     {"burgers_square_v1": (0.0019275595522773154, 1e-6, "gmres+vcycle")}, "cell",
+     {"stencil_apply_2d_step": "stencil_apply"}),
+    ("21d", {"PDEBENCH_TPU_FUSED": "arnoldi"},
+     {"helmholtz_basic_k5": (6.517975839100497e-4, 1e-6, "fused-gmres-cuda")}, None,
+     {"gmg_fused_gmres_k5": "gmg_fused_gmres", "stencil_apply_2d": "stencil_apply"}),
+    ("21e", {"PDEBENCH_TPU_FUSED": "arnoldi"},
+     {"convdiff_elliptic_medium_pe_diagonal_high_freq": (0.0005868791058644835, 1e-6, "fused-gmres-cuda")},
+     None, {"gmg_fused_gmres_own": "gmg_fused_gmres", "stencil_apply_2d": "stencil_apply"}),
+)
+OWN_OPERATOR = "convdiff_elliptic_medium_pe_diagonal_high_freq"
+# the best of this many warm passes (PDEBENCH_TPU_WARM_REPEATS, phase 21f)
+WARM_REPEATS = 3
 # the inner routes that launch no kernel of the table: off the lattice and
 # the host LU
 OFF_LATTICE_ROUTES = ("amg-", "jacobi-", "host-")
@@ -734,7 +779,36 @@ def step_weight_operator(config, device):
     lat, wm, bwm = scalar.bilinear_step_lattice(ctx, A_pre, T)
     W_c = torch.as_tensor(wm.weights_np(A_c), device=device).to(torch.float32)
     u_lat = lat.lattice.embed(field.to(torch.float32), 0.0).reshape(wm.shape)
-    return wm, bwm, bwm.device_stack(device), W_c, u_lat
+    return wm, bwm, bwm.device_stack(device), W_c, u_lat, lat, ctx.mask.cpu().numpy()
+
+
+def convdiff_operator(config, device):
+    """A steady convection-diffusion case without SUPG as its oracle
+    builds it: the f32 lattice of eps K + advection with the hierarchy
+    coarsened from that operator itself, the lattice mask and the
+    constrained float32 weights (the fused cycle's operator)."""
+    from pdebench_tpu_torch.fem import symbolic
+    from pdebench_tpu_torch.fem.assemble import local_advection, local_stiffness
+    from pdebench_tpu_torch.oracle import scalar
+    from pdebench_tpu_torch.solvers.gmg import attach_lattice_gmg
+    from pdebench_tpu_torch.solvers.stencil import constrain_step_weights
+
+    pde = config["pde"]
+    config = scalar.override_bc_with_mms(config, pde["manufactured_solution"]["u"])
+    params = pde["pde_params"]
+    if params.get("stabilization", "none") != "none":
+        raise ValueError("convdiff_operator builds the operator without SUPG")
+    ctx = scalar.setup_scalar(config, device)
+    qpts = ctx.qpts()
+    beta_q = np.stack([symbolic.lambdify_numpy(b, ctx.dim)(qpts) for b in params["beta"]], axis=-1)
+    A = float(params["epsilon"]) * local_stiffness(ctx.cb) + local_advection(ctx.cb, beta_q)
+    lat = scalar.maybe_lattice32(ctx, A)
+    mask = ctx.mask.cpu().numpy()
+    attach_lattice_gmg(lat, mask)
+    keep = torch.as_tensor(
+        1.0 - lat.lattice.embed_np(mask, True).astype(np.float32), device=device
+    ).reshape(lat.shape)
+    return lat, mask, constrain_step_weights(lat.W, lat.offsets, keep)
 
 
 def lattice_rhs(lat, mask, rng, device):
@@ -976,10 +1050,11 @@ def check_richardson(ops, rng, dev, report, report_as, phase="3b"):
             report[report_as[cid]] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, **b)
 
 
-def check_gmres(ops, rng, dev, report, report_as):
-    """Kernel #6 on each Helmholtz case's hierarchy with the TRUE
-    constrained weights: one step per element, then the whole cycle by
-    its true-operator residual, times at the main path's m = 30."""
+def check_gmres(ops, rng, dev, report, report_as, phase="3c"):
+    """Kernel #6 on each case's hierarchy with the TRUE constrained
+    weights (a Helmholtz surrogate's, or an own-operator hierarchy's level
+    0): one step per element, then the whole cycle by its true-operator
+    residual, times at the main path's m = 30."""
     from pdebench_tpu_torch.solvers import gmg_fused
 
     for cid, (lat, mask, W32c) in ops.items():
@@ -990,7 +1065,7 @@ def check_gmres(ops, rng, dev, report, report_as):
         err_v = None
         for name, g, w in zip(("V", "H", "beta"), got, want):
             diff, scale, ok = allclose_scale(g, w, TOL_VCYCLE)
-            say("3c", f"fused_gmres {cid} m=1 {name}: max abs diff {diff:.3e} (scale "
+            say(phase, f"fused_gmres {cid} m=1 {name}: max abs diff {diff:.3e} (scale "
                       f"{scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
             if not ok:
                 raise AssertionError(f"fused Arnoldi step disagrees on {cid} in {name}: {diff}")
@@ -1002,7 +1077,7 @@ def check_gmres(ops, rng, dev, report, report_as):
         ms = median_ms(lambda: fg.raw(r, W32c), calls=5, samples=3)
         plain_ms = median_ms(lambda: fg.plain_raw(r, W32c), calls=1, samples=3)
         b = gmres_bound(fg)
-        say("3c", f"fused_gmres {cid} m={ARNOLDI_STEPS} {len(fg.W)} levels, {cluster_line(fg)}: "
+        say(phase, f"fused_gmres {cid} m={ARNOLDI_STEPS} {len(fg.W)} levels, {cluster_line(fg)}: "
                   f"true-operator residual kernel {rel:.3e}, plain {rel_plain:.3e} (kernel below "
                   f"{RESID_MAX:g} and {RESID_RATIO:g}x max(plain, {RESID_FLOOR:g})); kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, "
@@ -1221,7 +1296,7 @@ def check_step_weights(ops, rng, dev, report):
 
     from pdebench_tpu_torch.solvers import stencil_kernel
 
-    for cid, (wm, bwm, P, W_c, u_lat) in ops.items():
+    for cid, (wm, bwm, P, W_c, u_lat, *_) in ops.items():
         W = W_c + bwm.weights_w(P, u_lat)
         again = W_c + bwm.weights_w(P, u_lat)
         W_cpu = W_c.cpu() + bwm.weights_w(bwm.device_stack("cpu"), u_lat.cpu())
@@ -1247,6 +1322,95 @@ def check_step_weights(ops, rng, dev, report):
             u = torch.as_tensor(rng.standard_normal(wm.shape), device=dev).to(Wx.dtype)
             stencil_line("3g", "stencil_apply_2d_step", cid, lat, Wx, u, stencil_kernel.stencil_plain,
                          tol, report, (K + 2) * n, _taps_flops(K, n))
+
+
+def check_step_gmres(cid, ops, m, rng, dev, report, report_as):
+    """Kernel #6 with a per-step operator (phase 21a): the step's float32
+    weights W_c + W(u) constrained on the card (their own offsets) on the
+    constant part's hierarchy: one step per element, then the whole
+    m-step cycle by its true-operator residual, its time beside the
+    constraint's (one call a step on the main path)."""
+    from pdebench_tpu_torch.solvers import gmg_fused
+    from pdebench_tpu_torch.solvers.stencil import constrain_step_weights
+
+    wm, bwm, P, W_c, u_lat, lat, mask = ops
+    W = W_c + bwm.weights_w(P, u_lat)
+    keep = torch.as_tensor(
+        1.0 - lat.lattice.embed_np(mask, True).astype(np.float32), device=dev
+    ).reshape(wm.shape)
+    W32c = constrain_step_weights(W, wm.offsets, keep)
+    c_ms = median_ms(lambda: constrain_step_weights(W, wm.offsets, keep), calls=5, samples=3)
+    K, n = len(wm.offsets), int(np.prod(wm.shape))
+    c_b = bound((2 * K + 1) * n * 4, 2 * K * n, torch.float32)
+    r = lattice_rhs(lat, mask, rng, dev)
+    one = gmg_fused.build_fused_inner_gmres(lat.gmg, 1, dev, wm.offsets)
+    got, want = one.raw(r, W32c), one.plain_raw(r, W32c)
+    torch.cuda.synchronize()
+    err_v = None
+    for name, g, w in zip(("V", "H", "beta"), got, want):
+        diff, scale, ok = allclose_scale(g, w, TOL_VCYCLE)
+        say("21a", f"fused_gmres step {cid} m=1 {name}: max abs diff {diff:.3e} (scale "
+                   f"{scale:.3e}, rtol=atol/scale={TOL_VCYCLE:g})")
+        if not ok:
+            raise AssertionError(f"fused Arnoldi step on {cid}'s step weights disagrees in {name}: {diff}")
+        err_v = diff if name == "V" else err_v
+    fg = gmg_fused.build_fused_inner_gmres(lat.gmg, m, dev, wm.offsets)
+    rel = true_residual(lat, W32c, r, fg(r, W32c), wm.offsets, wm.pad)
+    rel_plain = true_residual(lat, W32c, r, fg.plain(r, W32c), wm.offsets, wm.pad)
+    ms = median_ms(lambda: fg.raw(r, W32c), calls=5, samples=3)
+    plain_ms = median_ms(lambda: fg.plain_raw(r, W32c), calls=1, samples=3)
+    b = gmres_bound(fg)
+    say("21a", f"fused_gmres step {cid} {'x'.join(map(str, wm.shape))} K={K} m={m} {len(fg.W)} levels, "
+               f"{cluster_line(fg)}: true-operator residual kernel {rel:.3e}, plain {rel_plain:.3e}; "
+               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.2e} ms "
+               f"({b['bound_by']}); constrain_step_weights {c_ms:.4f} ms a step (events), bound "
+               f"{c_b['bound_ms']:.2e} ms ({c_b['bound_by']})")
+    if not (rel < RESID_MAX and rel <= RESID_RATIO * max(rel_plain, RESID_FLOOR)):
+        raise AssertionError(f"fused Arnoldi cycle on {cid}'s step weights: residual {rel} vs plain {rel_plain}")
+    report[report_as] = dict(max_abs_err=err_v, ms=ms, plain_ms=plain_ms, **b)
+
+
+def with_env(env, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with the environment variables `env` set, and
+    removed (or restored) after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def drive_warm_repeats(solver, cid, config, record, tol, phase):
+    """poisson_basic with one warm pass, then with WARM_REPEATS
+    (PDEBENCH_TPU_WARM_REPEATS): the passes reported, t_warm the fastest
+    of the case's own passes (so at most its first, a single pass), the
+    error unchanged. The single-pass solve's t_warm is printed beside it;
+    it is another solve's sample, so the fastest of 3 passes lands below
+    it only with a chance of 3 in 4 when the passes spread alike."""
+    from pdebench_tpu_torch.oracle import base
+
+    runs = {}
+    for n in (1, WARM_REPEATS):
+        base.clear_setup_caches()
+        res = with_env({"PDEBENCH_TPU_WARM_REPEATS": str(n)}, solver.solve, copy.deepcopy(config))
+        info = res.solver_info
+        passes = info["warm_pass_s"]
+        rel = abs(res.baseline_error - record) / record
+        say(phase, f"{cid} PDEBENCH_TPU_WARM_REPEATS={n}: warm passes {info['warm_passes']} "
+                   f"({', '.join(f'{t:.5f}' for t in passes)} s), t_warm {info['t_warm']:.5f} s, "
+                   f"cold {info['t_cold']:.4f} s; baseline_error {res.baseline_error!r} (rel {rel:.2e})")
+        if (info["warm_passes"] != n or len(passes) != n or info["t_warm"] != min(passes)
+                or not rel <= tol):
+            raise AssertionError(f"{cid} under PDEBENCH_TPU_WARM_REPEATS={n}: {info}")
+        runs[n] = info
+    say(phase, f"{cid}: t_warm over {WARM_REPEATS} passes {runs[WARM_REPEATS]['t_warm']:.5f} s, its "
+               f"first pass {runs[WARM_REPEATS]['warm_pass_s'][0]:.5f} s, the single-pass solve's "
+               f"{runs[1]['t_warm']:.5f} s")
 
 
 def stokes_kernel_ops(prob_2d, prob_3d, rng, dev, report):
@@ -1553,7 +1717,7 @@ def check_grid(cid, config, grid):
                              f"{int(outside.sum())} NaN, {int(np.isinf(grid).sum())} inf")
 
 
-def drive_cases(solver, cases, want, phase, bitwise=False):
+def drive_cases(solver, cases, want, phase, bitwise=False, step_outer=None):
     """SOLVES whole-case solves per case of the heat, biharmonic,
     convection-diffusion, reaction-diffusion, Burgers and wave paths and
     of the route off the lattice, setup caches cleared before each: the
@@ -1564,7 +1728,8 @@ def drive_cases(solver, cases, want, phase, bitwise=False):
     rounds (per step in a step loop; the Newton
     and linear iterations per step in a Newton loop; the iterations of a
     solve off the lattice) on every solve (with `bitwise`, the same grid
-    bit for bit)."""
+    bit for bit; with `step_outer`, the per-step outer every solve
+    reports)."""
     from pdebench_tpu_torch.oracle import base
     from pdebench_tpu_torch.solvers import gmg_fused, stencil_kernel
 
@@ -1595,6 +1760,7 @@ def drive_cases(solver, cases, want, phase, bitwise=False):
                        f"inner {info.get('inner')}, " + counts
                        + f", residual {info.get('residual')}"
                        + (f", host LU: {info['host_lu']}" if "host_lu" in info else "")
+                       + (f", step outer {info['step_outer']}" if "step_outer" in info else "")
                        + (f", pc {info['pc_used']}, levels (shape, taps) {info.get('gmg_levels')}"
                           if pc_want else "")
                        + f"; launches in this solve (cold and warm runs): #1 {n1}, #2 {n2}")
@@ -1602,7 +1768,8 @@ def drive_cases(solver, cases, want, phase, bitwise=False):
             if not rel <= tol:
                 raise AssertionError(f"{cid}: baseline_error off by {rel:.2e}")
             if (info.get("inner") != inner_want or "iterative_failed" in info
-                    or (pc_want and info.get("pc_used") != pc_want[0])):
+                    or (pc_want and info.get("pc_used") != pc_want[0])
+                    or (step_outer is not None and info.get("step_outer") != step_outer)):
                 raise AssertionError(f"{cid}: inner {info.get('inner')}, {info}")
             on_lattice = not inner_want.startswith(OFF_LATTICE_ROUTES)
             if (on_lattice and n1 < 1) or (inner_want == "fused-cg-cuda" and n2 < 1):
@@ -1925,7 +2092,8 @@ def main() -> int:
                        | set(NAVIER_STOKES) | set(HEAT_2D) | set(HEAT_3D) | set(BIHARMONIC)
                        | set(CONVDIFF) | set(REACTION_DIFFUSION) | set(BURGERS) | set(STOKES_2D)
                        | set(STOKES_3D) | set(WAVE_LSHAPE) | set(WAVE_TJUNC) | set(OFF_LATTICE)
-                       | set(CELL_LOCAL) | set(STOKES_AMG) | set(LE_3D) | set(HALO))
+                       | set(CELL_LOCAL) | set(STOKES_AMG) | set(LE_3D) | set(HALO)
+                       | {OWN_OPERATOR})
     cases.update(darcy_cases(cases))
     p_ops = {cid: poisson_operator(cases[cid], dev) for cid in POISSON}
     h_ops = {cid: helmholtz_operator(cases[cid], dev) for cid in HELMHOLTZ}
@@ -1959,7 +2127,8 @@ def main() -> int:
     # fused block inner CG vs plain; 2-D, then the 3-D forms
     check_fused_cg(p_ops, rng, dev, report, {"poisson_basic": "gmg_fused_cg"})
     check_richardson(h_ops, rng, dev, report, {"helmholtz_basic_k5": "gmg_fused_richardson"})
-    check_gmres(h_ops, rng, dev, report, {"helmholtz_k12_exponential_mode": "gmg_fused_gmres"})
+    check_gmres(h_ops, rng, dev, report, {"helmholtz_k12_exponential_mode": "gmg_fused_gmres",
+                                          "helmholtz_basic_k5": "gmg_fused_gmres_k5"})
     check_fused_cg(p3_ops, rng, dev, report, {"poisson_3d_smooth_trig": "gmg_fused_cg_3d"})
     check_richardson(h3_ops, rng, dev, report, {"helmholtz_3d_k1_trig@12": "gmg_fused_richardson_3d"})
     check_gmres({"helmholtz_3d_k1_trig": h3_ops["helmholtz_3d_k1_trig"]}, rng, dev, report,
@@ -1990,9 +2159,23 @@ def main() -> int:
     # (3g) the per-step weights of Burgers and of a reaction Jacobian, and
     # kernel #1 with them; kernel #2 at 12 PCG steps on the hierarchy of a
     # linear reaction's step operator
-    check_step_weights({cid: step_weight_operator(cases[cid], dev)
-                        for cid in ("burgers_square_v1", "reaction_diffusion_allen_cahn_p2")},
-                       rng, dev, report)
+    sw_ops = {cid: step_weight_operator(cases[cid], dev)
+              for cid in ("burgers_square_v1", "reaction_diffusion_allen_cahn_p2")}
+    check_step_weights(sw_ops, rng, dev, report)
+    # (21a) the new callers of kernels #6 and #3 (the route switches): #6
+    # on burgers_square_v1's constrained step weights at its m = 20, #3's 2
+    # V-cycles on its constant part's hierarchy, #6 on the own-operator
+    # hierarchy of OWN_OPERATOR at m = 30
+    from pdebench_tpu_torch.oracle import burgers
+
+    bops = sw_ops["burgers_square_v1"]
+    check_step_gmres("burgers_square_v1", bops, burgers.INNER_ITERS, rng, dev, report,
+                     "gmg_fused_gmres_step")
+    check_richardson({"burgers_square_v1": (bops[5], bops[6], None)}, rng, dev, report,
+                     {"burgers_square_v1": "gmg_fused_richardson_step"}, phase="21a")
+    check_gmres({OWN_OPERATOR: convdiff_operator(cases[OWN_OPERATOR], dev)}, rng, dev, report,
+                {OWN_OPERATOR: "gmg_fused_gmres_own"}, phase="21a")
+    del sw_ops, bops
     check_fused_cg({"reaction_diffusion_linear_basic": rd_operator(
         cases["reaction_diffusion_linear_basic"], dev)}, rng, dev, report,
         {"reaction_diffusion_linear_basic": "gmg_fused_cg_rd"}, iters=12, phase="3g")
@@ -2130,6 +2313,29 @@ def main() -> int:
     drive_halo(cases, dev, report, launches)
     say("20", f"the phase took {time.perf_counter() - t_phase:.1f} s")
 
+    # (21) the reference's route switches, each set for its path only
+    for phase, env, want, step_outer, entries in SWITCHES:
+        stencil_kernel.LAUNCHES = 0
+        gmg_fused.LAUNCHES = gmg_fused.LAUNCHES_RICHARDSON = gmg_fused.LAUNCHES_GMRES = 0
+        gmg_fused.LAUNCHES_BLOCK = gmg_fused.LAUNCHES_BLOCK_RICHARDSON = 0
+        gmg_fused.LAUNCHES_DYN_BLOCK = 0
+        t_phase = time.perf_counter()
+        with_env(env, drive_cases, solver, cases, want, phase, bitwise=True, step_outer=step_outer)
+        t_phase = time.perf_counter() - t_phase
+        counts = {"stencil_apply": stencil_kernel.LAUNCHES, "gmg_fused_cg": gmg_fused.LAUNCHES,
+                  "gmg_fused_richardson": gmg_fused.LAUNCHES_RICHARDSON,
+                  "gmg_fused_gmres": gmg_fused.LAUNCHES_GMRES}
+        say(phase, f"switches {env}: kernel launches on this main path: {counts}; the phase took "
+                   f"{t_phase:.1f} s")
+        for entry, counter in entries.items():
+            if counts[counter] < 1:
+                raise AssertionError(f"{counter} never launched on main path {phase}: {counts}")
+            launches[entry] = launches.get(entry, 0) + counts[counter]
+    t_phase = time.perf_counter()
+    drive_warm_repeats(solver, "poisson_basic", cases["poisson_basic"], *POISSON["poisson_basic"][:2],
+                       "21f")
+    say("21f", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+
     meta = {
         "stencil_apply_2d": ("stencil_apply.cu", "pdebench_tpu/solvers/stencil_pallas.py:131"),
         # the same kernel on 3-D lattices; the reference applies 3-D
@@ -2188,6 +2394,14 @@ def main() -> int:
         "stencil_apply_2d_halo": ("stencil_apply.cu", "pdebench_tpu/parallel/halo.py:101"),
         "stencil_apply_block_2d_halo": ("stencil_apply.cu", "pdebench_tpu/parallel/halo.py:101"),
         "stencil_apply_3d_halo": ("stencil_apply.cu", "pdebench_tpu/parallel/halo.py:101"),
+        # the new callers of the route switches (phase 21): #6 with a
+        # per-step operator (the reference's dispatch.py:223-258), #3 as the
+        # per-step preconditioner (:326-342), #6 on a small surrogate and on
+        # an own-operator hierarchy (:268-325)
+        "gmg_fused_gmres_step": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
+        "gmg_fused_richardson_step": ("gmg_fused_cg.cu", "pdebench_tpu/solvers/gmg_fused.py:434"),
+        "gmg_fused_gmres_k5": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
+        "gmg_fused_gmres_own": ("gmg_fused_gmres.cu", "pdebench_tpu/solvers/gmg_fused.py:1269"),
     }
     # library_ms: no single PyTorch call computes a spatially varying
     # multi-tap stencil, a (block) V-cycle chain, a (block) PCG solve or

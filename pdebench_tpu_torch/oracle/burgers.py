@@ -19,7 +19,13 @@ preconditioned by the PyTorch V-cycle of the constant part's hierarchy
 (M / dt + nu K), the f64 outer on the float32 weights cast to f64, every
 apply one stencil kernel launch. Above the bilinear map's size gate each
 step's cell batch (below) is summed into the weights instead, as the
-reference does.
+reference does. The reference's switches reach this loop through dispatch:
+PDEBENCH_TPU_FUSED=arnoldi runs each round's whole Arnoldi cycle as one
+kernel launch ("fused-gmres-step-*"), PDEBENCH_TPU_STEP_RICH=1 makes
+kernel #3 the preconditioner ("gmres+fused-richardson-step-*"), and
+PDEBENCH_TPU_STEP_OUTER=cell makes each step's exact float64 cell batch
+(below, built on the device) the outer's operator, the inner unchanged
+(the route the case records were written on; `solver_info["step_outer"]`).
 
 Elsewhere (no lattice: the signed-distance domains, periodic_square, the
 thin t_junction; or a lattice without a hierarchy) each step builds the
@@ -46,6 +52,7 @@ import torch
 
 from ..fem import symbolic
 from ..fem.assemble import LocalOperator, local_advection, local_load, local_mass, local_stiffness
+from ..solvers import dispatch
 from . import base, heat, scalar
 from .types import OracleResult, compute_rel_L2_grid
 
@@ -109,6 +116,10 @@ class BurgersSolver:
         A_const, M = step_matrices(cb, dt, nu)
 
         dev = self.device
+        # PDEBENCH_TPU_STEP_OUTER=cell: each step's exact float64 cell
+        # batch is the outer's operator on a lattice too (the reference's
+        # _need_A)
+        cell_outer = dispatch.step_outer() == "cell"
 
         def cells(ops, u_n):
             """The step's cell batch A = M / dt + advection(u_n) + nu K on
@@ -123,7 +134,7 @@ class BurgersSolver:
             u0_dev = torch.as_tensor(u0, device=dev)
             step = scalar.bilinear_step_lattice(ctx, A_const, lambda: advection_tensor(cb))
             ops = None
-            if step is None or step[2] is None:
+            if step is None or step[2] is None or cell_outer:
                 # the device pieces of the per-step cell batch
                 ops = (torch.as_tensor(M, device=dev), torch.as_tensor(local_stiffness(cb), device=dev),
                        cb.on("phi", dev), torch.as_tensor(space.dofmap_scalar, device=dev))
@@ -136,7 +147,12 @@ class BurgersSolver:
             (mass_apply,) = scalar.stencil_appliers64(lat32, space.dofmap_scalar, M)
             W_c32 = torch.as_tensor(wmap.weights_np(A_const), device=dev).to(torch.float32)
             P = None if bwm is None else bwm.device_stack(dev)
-            return lat32, mass_apply, (wmap, bwm, W_c32), P, ops, u0_dev
+            cell_op = None
+            if cell_outer:
+                # the step batches' dofs and fixed-order sum plan, built once
+                cell_op = LocalOperator(ops[0], space.dofmap_scalar, space.ndof)
+                cell_op.gather_sum()
+            return lat32, mass_apply, (wmap, bwm, W_c32, cell_op), P, ops, u0_dev
 
         lat32, mass_apply, wparts, P, ops, u0_dev = base.charge_setup(ctx, build)
 
@@ -144,7 +160,7 @@ class BurgersSolver:
             step_kw = dict(step_op=lambda u_n: mass_apply.with_local(cells(ops, u_n)))
             n_inner = CELL_INNER_ITERS
         else:
-            wmap, bwm, W_c32 = wparts
+            wmap, bwm, W_c32, cell_op = wparts
 
             def step_weights(u_n):
                 if bwm is None:
@@ -155,6 +171,8 @@ class BurgersSolver:
                 return wmap, W_c32 + bwm.weights_w(P, u_lat)
 
             step_kw = dict(step_weights=step_weights)
+            if cell_op is not None:
+                step_kw["step_op"] = lambda u_n: cell_op.with_local(cells(ops, u_n))
             n_inner = INNER_ITERS
 
         def run():

@@ -6,9 +6,13 @@ Steady: A = eps K + the advection form (+ SUPG) on a lattice, solved by
 `solve_linear(symmetric=False)`: mixed-precision refinement with one
 GMRES(30) cycle a round, preconditioned by the PyTorch V-cycle of a GMG
 hierarchy coarsened from A itself ("gmres+vcycle"; GMRES(60) with Jacobi
-below the hierarchy's size gate). No fused kernel: on the TPU the fused
-Arnoldi cycle and the Richardson chain both lost to the plain V-cycle on
-these own-operator hierarchies (the reference's dispatch.py:275-360).
+below the hierarchy's size gate). No fused kernel by default: on the TPU
+the fused Arnoldi cycle and the Richardson chain both lost to the plain
+V-cycle on these own-operator hierarchies (the reference's
+dispatch.py:275-360); PDEBENCH_TPU_FUSED=arnoldi runs the whole cycle as
+kernel #6 ("fused-gmres-*"), whose 2-V-cycle preconditioner stalls on
+SUPG and P2 operators (the solve then falls through to the route off the
+lattice, `iterative_failed` recording the stall).
 Transient: heat's step loop on M + dt A, inner GMRES(20) with a hierarchy
 (GMRES(60) without), and dt (tau (beta.grad v), f) in the load. A step
 that does not converge raises on a CUDA device; on the CPU the loop keeps

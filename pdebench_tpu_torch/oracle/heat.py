@@ -144,7 +144,9 @@ def step_loop(
     wave's Newmark scheme; backward Euler reads only u_n: `mass_rhs`).
     `step_weights(u_n)` gives a per-step operator's (weight map, float32
     weights) on lat32's lattice for solve_constrained_ir (Burgers); without
-    it every step solves lat32's operator. Without a lattice (lat32 None)
+    it every step solves lat32's operator. With both, `step_op(u_n)` is the
+    step's float64 cell batch, the outer's operator (the cell outer of
+    PDEBENCH_TPU_STEP_OUTER=cell). Without a lattice (lat32 None)
     every step solves the cell-local `op`, or `step_op(u_n)`, a fresh cell
     batch on op's dofs (Burgers' lagged convection), preconditioned by
     M32 (a float32 AMG V-cycle built once) or Jacobi. With `method` (a
@@ -154,7 +156,8 @@ def step_loop(
 
     Returns (u, info): info has the inner's name, the iterations and the
     per-step outer rounds (with `method`, the per-step Krylov iterations
-    under "step_iterations"). A step that does not converge raises on a CUDA
+    under "step_iterations"; with `step_weights`, the outer's kind under
+    "step_outer"). A step that does not converge raises on a CUDA
     device; on the CPU the loop goes on from its iterate, as the
     reference's scan does, and info["iterative_failed"] names the first
     such step."""
@@ -174,7 +177,7 @@ def step_loop(
                 op if step_op is None else step_op(u), b, mask, g_fn(t), lat32, rtol, atol,
                 inner=inner, inner_iters=inner_iters, max_outer=dispatch.STEP_MAX_OUTER,
                 step_weights=None if step_weights is None else step_weights(u),
-                M32_custom=M32,
+                cell_outer=step_weights is not None and step_op is not None, M32_custom=M32,
             )
         names.append(name)
         rounds.append(its if method is not None else its // inner_iters)
@@ -193,6 +196,8 @@ def step_loop(
         raise RuntimeError(f"the steps took different inner solves: {sorted(set(names))}")
     info = dict(inner=names[0], iterations=iterations, residual=residual)
     info["step_iterations" if method is not None else "outer_rounds"] = rounds
+    if step_weights is not None:
+        info["step_outer"] = "stencil" if step_op is None else "cell"
     if failed is not None:
         info["iterative_failed"] = failed
     return u, info

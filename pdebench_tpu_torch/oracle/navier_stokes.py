@@ -44,8 +44,10 @@ opt-in: PDEBENCH_TPU_NS_DEVICE_NEWTON=1 with PDEBENCH_TPU_NS_CONV_M=hier,
 which the CPU parity tests set). A device linear solve that does not
 converge raises on CUDA tensors (with the Newton step and residual); on
 CPU tensors the solve falls through to the host-LU Newton from the same
-start, as the reference does (whose fallback loop first retries each
-step on the device at rtol 1e-8).
+start, as the reference does: each of its steps first retries the linear
+solve on the device at rtol RETRY_ETA = 1e-8 and factors on the host only
+where that does not converge (`solver_info["device_retries"]` counts the
+retries that converged).
 
 Not ported (opt-in switches of the reference): the MINRES Stokes init
 (PDEBENCH_TPU_NS_DEVICE_INIT), the host-first-step mode
@@ -97,6 +99,10 @@ NS_HIER_VCYCLES = 1
 NS_INIT_RTOL = 1e-3
 # Eisenstat-Walker forcing bounds
 ETA_MIN, ETA_MAX = 1e-4, 0.1
+# the host-LU Newton after a device Newton's linear failure first retries
+# each step's linear solve on the device to this relative tolerance (the
+# reference's fallback loop)
+RETRY_ETA = 1e-8
 
 ROUTE_HOST_LU = "newton-host-lu"
 ROUTE_DYN_VCYCLE = "newton-fgmres+dyn-vcycle"
@@ -362,9 +368,13 @@ class NavierStokesProblem:
             it += 1
         return x, rn, it, rn <= tol
 
-    def newton_host(self, x0, nu_v, rtol, atol, max_it):
+    def newton_host(self, x0, nu_v, rtol, atol, max_it, retry_device=False):
         """Host-LU Newton with frozen-Jacobian steps; residual and Jacobian
-        on the device."""
+        on the device. With `retry_device` (the fall-through after a device
+        Newton's linear failure) each step first solves its linear system
+        on the device at RETRY_ETA and factors on the host only where that
+        does not converge, as the reference's fallback loop does; a retry
+        that does not converge raises on CUDA tensors."""
         V, Q, dev = self.ctx.V, self.ctx.Q, self.device
         x = torch.where(self.mask, self.g, x0)
         r = self.residual(x, nu_v)
@@ -374,14 +384,24 @@ class NavierStokesProblem:
         for _ in range(max_it):
             if rn <= tol or rn > 1e4 * rn0 or not np.isfinite(rn):
                 break  # converged, or diverging
-            K = mixed.saddle_to_scipy(
-                self.jacobian(x, nu_v).cpu().numpy(), self.G_loc, V.dofmap,
-                Q.dofmap_scalar, self.nu_dofs, self.np_dofs,
-            )
-            flu = directmod.ConstrainedLU(K, self.mask_np)
-            delta = torch.as_tensor(flu.solve(-r.cpu().numpy()), device=dev)
+            J = self.jacobian(x, nu_v)
+            delta, flu = None, None
+            if retry_device:
+                d, info = self.lin_solve(J, -r, RETRY_ETA)
+                if info.converged:
+                    delta = d
+                    self.stats["device_retries"] = self.stats.get("device_retries", 0) + 1
+                elif self.device.type != "cpu":
+                    self._lin_failed(f"host-LU Newton step {steps}, device retry", rn, info)
+            if delta is None:
+                K = mixed.saddle_to_scipy(
+                    J.cpu().numpy(), self.G_loc, V.dofmap,
+                    Q.dofmap_scalar, self.nu_dofs, self.np_dofs,
+                )
+                flu = directmod.ConstrainedLU(K, self.mask_np)
+                delta = torch.as_tensor(flu.solve(-r.cpu().numpy()), device=dev)
+                self.stats["lin"] += 1
             steps += 1
-            self.stats["lin"] += 1
             t = 1.0
             for _ in range(10):
                 rn_new = float(torch.linalg.norm(self.residual(x + t * delta, nu_v)))
@@ -393,7 +413,7 @@ class NavierStokesProblem:
             rn = float(torch.linalg.norm(r))
             # frozen-Jacobian steps while a back-substitution still buys a
             # 25% residual decrease
-            while rn > tol and np.isfinite(rn):
+            while flu is not None and rn > tol and np.isfinite(rn):
                 d2 = torch.as_tensor(flu.solve(-r.cpu().numpy()), device=dev)
                 t2, accepted = 1.0, False
                 for _ in range(6):
@@ -414,6 +434,7 @@ class NavierStokesProblem:
             out = self.newton_device(x0, nu_v, rtol, atol, max_it, update_tol)
             if out is not None:
                 return out
+            return self.newton_host(x0, nu_v, rtol, atol, max_it, retry_device=True)
         return self.newton_host(x0, nu_v, rtol, atol, max_it)
 
     def stokes_direct(self, nu_init):
@@ -503,6 +524,7 @@ class NavierStokesProblem:
         }
         if failed:
             info["iterative_failed"] = self.stats["iterative_failed"]
+            info["device_retries"] = self.stats.get("device_retries", 0)
         return grid, info
 
 

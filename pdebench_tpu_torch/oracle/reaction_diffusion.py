@@ -30,7 +30,11 @@ reference's cell Jacobian with R' at the quadrature points, summed into
 weights in a fixed order: `solver_info["jacobian_weights"]`), solved by
 `dispatch.solve_constrained_ir(step_weights=...)`: GMRES(15) in f32
 preconditioned by the PyTorch V-cycle of the constant part's hierarchy,
-the f64 outer on the float32 weights cast to f64. Elsewhere (no lattice,
+the f64 outer on the float32 weights cast to f64 (the reference's
+switches reach it through dispatch: PDEBENCH_TPU_FUSED=arnoldi,
+PDEBENCH_TPU_STEP_RICH=1, and PDEBENCH_TPU_STEP_OUTER=cell, which makes
+the cell Jacobian, R' at the quadrature points, the outer's operator;
+`solver_info["step_outer"]`). Elsewhere (no lattice,
 or a lattice without a hierarchy) the Jacobian is the cell batch J = M /
 dt + eps K + local_mass(R'(u) at the quadrature points), built on the
 device each Newton iteration, solved by the cell-local refinement:
@@ -181,15 +185,20 @@ class NewtonSteps:
 
     def direction(self, u, G, mask, zeros, lin_rtol, atol):
         """The Newton direction J(u) d = -G: the step weights' solve on a
-        lattice, the cell-local one elsewhere. Returns solve_constrained_ir's
+        lattice (its outer the cell Jacobian where `cells` is set on a
+        lattice), the cell-local one elsewhere. Returns solve_constrained_ir's
         (d, iterations, residual, converged, inner name)."""
         if self.lat32 is None:
             op, sw, n_inner = self.cells.with_local(self.jacobian_cells(u)), None, NEWTON_GMRES_CELL
         else:
-            op, sw, n_inner = None, self.jacobian_weights(u), NEWTON_GMRES
+            # the cell batch on a lattice: the exact outer of
+            # PDEBENCH_TPU_STEP_OUTER=cell
+            op = None if self.cells is None else self.cells.with_local(self.jacobian_cells(u))
+            sw, n_inner = self.jacobian_weights(u), NEWTON_GMRES
         return dispatch.solve_constrained_ir(
             op, -G, mask, zeros, self.lat32, lin_rtol, atol,
             inner="gmres", inner_iters=n_inner, max_outer=NEWTON_MAX_OUTER, step_weights=sw,
+            cell_outer=op is not None,
         )
 
 
@@ -247,6 +256,8 @@ def newton_steps(
         newton_iterations=newton, linear_iterations=linear,
         iterations=sum(linear), residual=rn,
     )
+    if ns.lat32 is not None:
+        info["step_outer"] = "stencil" if ns.cells is None else "cell"
     if failed is not None:
         info["iterative_failed"] = failed
     return u, info
@@ -328,11 +339,17 @@ class ReactionDiffusionSolver:
                 step = scalar.bilinear_step_lattice(ctx, A_pre, lambda: mass_tensor(cb))
                 lat32, wmap, bwm = step if step is not None else (None, None, None)
                 bilinear = bwm is not None
-                M_loc = None if bilinear else torch.as_tensor(M, device=dev)
-                K_loc = None if bilinear else torch.as_tensor(K, device=dev)
+                # PDEBENCH_TPU_STEP_OUTER=cell: the cell Jacobian is the
+                # outer's operator on a lattice too
+                cell_outer = lat32 is not None and dispatch.step_outer() == "cell"
+                batches = not bilinear or cell_outer
+                M_loc = torch.as_tensor(M, device=dev) if batches else None
+                K_loc = torch.as_tensor(K, device=dev) if batches else None
                 cells = None
-                if lat32 is None:
+                if lat32 is None or cell_outer:
                     cells = LocalOperator(M_loc, space.dofmap_scalar, space.ndof)
+                    cells.gather_sum()
+                if lat32 is None:
                     mass_apply, stiff_apply = cells, cells.with_local(K_loc)
                 else:
                     mass_apply, stiff_apply = scalar.stencil_appliers64(

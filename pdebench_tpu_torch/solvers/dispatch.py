@@ -38,14 +38,22 @@ a CUDA kernel, "-torch" its plain version (CPU tensors):
                 hierarchies: elasticity), "stencil-cg" (padded
                 hierarchies, or none)
   nonsymmetric: "fused-gmres-cuda" / "fused-gmres-torch" (the whole
-                Arnoldi cycle, surrogate hierarchies of >= 20,000 dofs),
+                Arnoldi cycle, surrogate hierarchies of >= 20,000 dofs;
+                under PDEBENCH_TPU_FUSED=arnoldi every unpadded scalar
+                hierarchy, own-operator and surrogate, of any size),
                 "gmres+fused-richardson-cuda" / "-torch" (other surrogate
                 hierarchies), "gmres+vcycle" (padded or own-operator
                 hierarchies), "gmres+jacobi" (no hierarchy)
   per-step:     "gmres+vcycle" (`step_weights`: an operator that changes
                 every step or Newton iteration, its float32 weights given,
                 the constant part's hierarchy as preconditioner; Burgers,
-                the reaction Jacobian)
+                the reaction Jacobian; padded hierarchies whatever the
+                switches), "fused-gmres-step-cuda" / "-torch"
+                (PDEBENCH_TPU_FUSED=arnoldi: the whole Arnoldi cycle, the
+                step's constrained float32 weights a kernel input),
+                "gmres+fused-richardson-step-cuda" / "-torch"
+                (PDEBENCH_TPU_STEP_RICH=1: 2 V-cycles of the constant
+                part's hierarchy in one launch precondition the GMRES)
   off lattice:  "amg-cg-ir", "amg-gmres-ir" (the refinement), "amg-cg",
                 "amg-gmres", "amg-bicgstab" (float64 Krylov with the AMG
                 V-cycle: the retry, or bicgstab), "jacobi-cg",
@@ -78,6 +86,38 @@ exchange of boundary rows an apply (parallel/halo.py), pc_used
 solution. Where it fails or does not converge it raises on CUDA tensors;
 on CPU tensors `solver_info["halo_failed"]` records why and the solve
 goes on by the routes above, as in the reference.
+
+The reference's route switches, read at call time under its names:
+
+  PDEBENCH_TPU_FUSED       "1" (default), "all", "cg": the routes above;
+                           "arnoldi": also kernel #6's whole Arnoldi cycle
+                           on every scalar hierarchy in fused_gate, steady
+                           and per-step ("0" / "none", the reference's
+                           lattice routes without a fused kernel, are not
+                           ported: every lattice solve of solve_linear and
+                           solve_constrained_ir raises under them)
+  PDEBENCH_TPU_STEP_RICH   "1": kernel #3 preconditions a per-step GMRES
+                           that the fused cycle does not take
+  PDEBENCH_TPU_STEP_OUTER  "stencil" (default): a per-step system's f64
+                           outer applies its float32 weights cast to f64;
+                           "cell": the step's exact float64 cell batch
+                           through the cell-local apply (read by the
+                           oracles, which pass the batch as `op` with
+                           cell_outer=True)
+  PDEBENCH_TPU_FORCE_DIRECT
+                           "1": every solve_linear call takes the host LU
+                           (the frozen CPU-proxy protocol),
+                           solver_info["host_request"] names the switch
+  PDEBENCH_TPU_STRUCTURED_LU
+                           "ir" (default): a direct request on a lattice
+                           takes the lattice IR ("direct_rerouted");
+                           "direct": the literal host LU
+
+Each switch is an explicit request: a kernel that fails to build or
+launch raises, never giving way to a plain version. A switched route that
+does not converge is handled as every lattice IR is: a steady iterative
+request goes on to the route off the lattice (`iterative_failed` keeps
+the stall), a step loop's step raises on CUDA tensors.
 
 Port of pdebench_tpu/solvers/dispatch.py. Not ported, by decision: the
 reference's small-direct gate for its remote TPU (systems off the lattice
@@ -170,6 +210,47 @@ def fused_block_gate(lattice32) -> bool:
     )
 
 
+def fused_mode() -> str:
+    """PDEBENCH_TPU_FUSED at call time: "arnoldi" (kernel #6 on every
+    scalar hierarchy in fused_gate, steady and per-step) or "default" (the
+    reference's "1", "all" and "cg"). "0" and "none", the reference's
+    pure XLA path, have no counterpart in the port."""
+    mode = os.environ.get("PDEBENCH_TPU_FUSED", "1").lower()
+    if mode in ("0", "none"):
+        raise NotImplementedError(f"PDEBENCH_TPU_FUSED={mode}: the port has no route without its kernels")
+    return "arnoldi" if mode == "arnoldi" else "default"
+
+
+def step_rich() -> bool:
+    """PDEBENCH_TPU_STEP_RICH=1 at call time: kernel #3 (RICHARDSON_CYCLES
+    V-cycles of the constant part's hierarchy) preconditions a per-step
+    GMRES that the fused Arnoldi cycle does not take."""
+    return os.environ.get("PDEBENCH_TPU_STEP_RICH", "0") == "1"
+
+
+def step_outer() -> str:
+    """PDEBENCH_TPU_STEP_OUTER at call time: the f64 outer of a per-step
+    system, "stencil" (its float32 weights cast to f64) or "cell" (the
+    step's exact float64 cell batch). The Burgers and reaction oracles read
+    it once a solve and pass solve_constrained_ir `cell_outer`."""
+    outer = os.environ.get("PDEBENCH_TPU_STEP_OUTER", "stencil")
+    if outer not in ("stencil", "cell"):
+        raise ValueError(f"PDEBENCH_TPU_STEP_OUTER={outer}: expected stencil or cell")
+    return outer
+
+
+def force_direct() -> bool:
+    """PDEBENCH_TPU_FORCE_DIRECT=1 at call time: solve_linear takes the
+    host LU for every case."""
+    return os.environ.get("PDEBENCH_TPU_FORCE_DIRECT") == "1"
+
+
+def structured_lu_direct() -> bool:
+    """PDEBENCH_TPU_STRUCTURED_LU at call time: anything but "ir" (the
+    default) keeps a direct request on a lattice on the host LU."""
+    return os.environ.get("PDEBENCH_TPU_STRUCTURED_LU", "ir") != "ir"
+
+
 def _fused(gmg, key, build):
     """The fused kernel object `key` of this hierarchy, built once."""
     if key not in gmg.fused:
@@ -190,6 +271,7 @@ def solve_constrained_ir(
     inner_iters: int,
     max_outer: int,
     step_weights=None,
+    cell_outer: bool = False,
     M32_custom: Optional[Callable] = None,
 ):
     """Mixed-precision constrained solve of a lattice operator: the f64
@@ -203,10 +285,15 @@ def solve_constrained_ir(
     (Burgers' lagged convection, a Newton Jacobian), its float32 weights
     W32 on wmap's offsets. The f64 outer applies W32 CAST to f64 (the
     reference's stencil-cast outer: it converges to the operator of the
-    float32 weights, not to the float64 assembly's), the f32 inner applies
-    W32, and lattice32's hierarchy of the constant part preconditions a
-    GMRES inner through the PyTorch V-cycle ("gmres+vcycle"); every apply
-    is one stencil kernel launch on CUDA tensors. `op` is not used.
+    float32 weights, not to the float64 assembly's) or, with `cell_outer`
+    (PDEBENCH_TPU_STEP_OUTER=cell), `op`, the step's float64 cell batch
+    through the cell-local apply (the exact operator). The f32 inner
+    applies W32 in a GMRES, preconditioned by lattice32's hierarchy of the
+    constant part: the PyTorch V-cycle ("gmres+vcycle"), kernel #3's chain
+    under PDEBENCH_TPU_STEP_RICH=1, or the whole Arnoldi cycle as kernel
+    #6 under PDEBENCH_TPU_FUSED=arnoldi (`_step_inner_route`); every
+    stencil apply is one kernel launch on CUDA tensors. Without
+    `cell_outer` `op` is not used.
 
     lattice32=None: the cell-local form (meshes whose dofs form no
     lattice, lattices without a hierarchy for a per-step operator). The
@@ -228,6 +315,7 @@ def solve_constrained_ir(
         x, info = _cell_refinement(op, A64, rhs, x0, mask, M32, rtol, atol, inner, inner_iters, max_outer)
         pc = "jacobi" if M32_custom is None else "amg"
         return x, info.iterations, info.residual, info.converged, f"{pc}-{inner}-ir"
+    fused_mode()  # PDEBENCH_TPU_FUSED=0 / none raises on every lattice route
     emb, inv = lattice32.embedding, lattice32.inv_j
     gshape = lattice32.grid_shape
     if step_weights is None:
@@ -238,20 +326,26 @@ def solve_constrained_ir(
         wmap, W32 = step_weights
         apply_w, W64 = wmap.apply_grid, W32.to(b.dtype)
 
-    def raw64(v):
-        v_lat = emb.embed(v, 0.0).reshape(gshape)
-        return apply_w(W64, v_lat).reshape(-1)[inv]
+    if step_weights is not None and cell_outer:
+        if op is None:
+            raise ValueError("the cell outer takes the step's float64 cell batch as op")
+        A64, rhs, x0 = _constrained_system(op, b, mask, g)
+    else:
 
-    A64 = constrained_operator(raw64, mask)
-    rhs = constrained_rhs(raw64, b, mask, g)
-    x0 = torch.where(mask, g, 0.0)
+        def raw64(v):
+            v_lat = emb.embed(v, 0.0).reshape(gshape)
+            return apply_w(W64, v_lat).reshape(-1)[inv]
+
+        A64 = constrained_operator(raw64, mask)
+        rhs = constrained_rhs(raw64, b, mask, g)
+        x0 = torch.where(mask, g, 0.0)
 
     # absent sites of masked lattices are treated as constrained
     mask_lat = emb.embed(mask, True)
     if step_weights is None:
         inner_custom, M32, inner_name = _inner_route(op, lattice32, mask_lat, inner, inner_iters)
     else:
-        inner_custom, M32, inner_name = None, _vcycle(lattice32), "gmres+vcycle"
+        inner_custom, M32, inner_name = _step_inner_route(lattice32, mask_lat, wmap, W32, inner_iters)
 
     def A32(v_lat):
         vz = torch.where(mask_lat, 0.0, v_lat)
@@ -310,13 +404,14 @@ def _inner_route(op: LocalOperator, lattice32, mask_lat: torch.Tensor, inner: st
         inner_name = f"fused-block-cg-{kind}"
     elif (
         inner == "gmres"
-        and gmg.surrogate
         and fused_gate(lattice32)
-        and op.ndof >= FUSED_ARNOLDI_MIN_DOFS
+        and (fused_mode() == "arnoldi" or (gmg.surrogate and op.ndof >= FUSED_ARNOLDI_MIN_DOFS))
     ):
-        # the hierarchy preconditions a SURROGATE (Helmholtz's shifted
-        # Laplacian): the Arnoldi operator is the TRUE constrained
-        # system, its weights a kernel input, never hierarchy level 0
+        # the Arnoldi operator is the constrained system's own float32
+        # weights, a kernel input: for a SURROGATE hierarchy (Helmholtz's
+        # shifted Laplacian) never level 0; for an own-operator one
+        # (PDEBENCH_TPU_FUSED=arnoldi) the weights of level 0, the
+        # operator the reference's baked kernel applies
         from .gmg_fused import build_fused_inner_gmres
 
         def build():
@@ -342,6 +437,36 @@ def _inner_route(op: LocalOperator, lattice32, mask_lat: torch.Tensor, inner: st
         M32 = _vcycle(lattice32)
         inner_name = "stencil-cg" if inner == "cg" else "gmres+vcycle"
     return inner_custom, M32, inner_name
+
+
+def _step_inner_route(lattice32, mask_lat: torch.Tensor, wmap, W32: torch.Tensor, inner_iters: int):
+    """(inner_custom, M32, inner name) of a per-step operator's GMRES
+    inner (the module docstring's per-step routes). The fused cycle is
+    built once per hierarchy, offsets and m; the step's weights are
+    constrained on their device at every call."""
+    gmg = lattice32.gmg
+    dev = lattice32.device
+    kind = "cuda" if dev.type == "cuda" else "torch"
+    if fused_mode() == "arnoldi" and fused_gate(lattice32):
+        from .gmg_fused import build_fused_inner_gmres
+
+        fg = _fused(
+            gmg, ("gmres-step", inner_iters, tuple(wmap.offsets)),
+            lambda: build_fused_inner_gmres(gmg, inner_iters, dev, wmap.offsets),
+        )
+        keep = (1.0 - mask_lat.to(torch.float32)).reshape(lattice32.grid_shape)
+        W32c = constrain_step_weights(W32, wmap.offsets, keep)
+        return (lambda r: fg(r, W32c)), None, f"fused-gmres-step-{kind}"
+    if step_rich() and fused_gate(lattice32):
+        from .gmg_fused import build_fused_richardson
+
+        M32 = _fused(
+            gmg, ("richardson", RICHARDSON_CYCLES),
+            lambda: build_fused_richardson(gmg, RICHARDSON_CYCLES, dev),
+        )
+        return None, M32, f"gmres+fused-richardson-step-{kind}"
+    # padded hierarchies whatever the switches (no kernel takes them)
+    return None, _vcycle(lattice32), "gmres+vcycle"
 
 
 def _vcycle(lattice32):
@@ -589,6 +714,16 @@ def solve_linear(
     lat32 = opts.get("_lattice32")
     on_card = b.device.type != "cpu"
 
+    # explicit requests for the host LU, on every device: not fallbacks
+    if force_direct():
+        info["host_request"] = "PDEBENCH_TPU_FORCE_DIRECT=1"
+        return _host_lu(op, b, mask, g, info)
+    if use_direct and lat32 is not None and structured_lu_direct():
+        info["host_request"] = "PDEBENCH_TPU_STRUCTURED_LU=direct"
+        return _host_lu(op, b, mask, g, info)
+    if lat32 is not None:
+        fused_mode()  # PDEBENCH_TPU_FUSED=0 / none raises on every lattice route
+
     if lat32 is not None:
         rerouted = use_direct
         if use_direct:
@@ -687,6 +822,11 @@ def solve_linear(
             )
 
     # host sparse-direct path (or the CPU fallback)
+    return _host_lu(op, b, mask, g, info)
+
+
+def _host_lu(op: LocalOperator, b, mask, g, info: Dict[str, Any]):
+    """The host SuperLU solve of the constrained system; x on the host."""
     x = directmod.solve_direct_constrained(
         op.to_scipy(), b.cpu().numpy(), mask.cpu().numpy(), g.cpu().numpy()
     )

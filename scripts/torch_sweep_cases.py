@@ -48,6 +48,11 @@ dropped (the JAX package's re-solve before its commit 1101cb6, as
 `transient_record_check.py`'s second solve; the record of a case written
 before that commit then is the answer). --device cpu runs the plain
 versions on the CPU instead of the card (no timing is meaningful there).
+The route switches the oracle reads (PDEBENCH_TPU_FUSED=arnoldi,
+PDEBENCH_TPU_STEP_RICH=1, PDEBENCH_TPU_STEP_OUTER=cell, ...) pass through
+the environment, e.g.
+
+    PDEBENCH_TPU_FUSED=arnoldi python3 scripts/torch_sweep_cases.py --pde convection_diffusion --domain unit_square
 
 Imports neither jax nor pdebench_tpu.
 """

@@ -129,9 +129,21 @@ def test_oracle_runs_the_kernels(dev):
     assert abs(res.baseline_error - 1.924806820736457e-4) <= 1e-6 * 1.924806820736457e-4
 
 
+def _stall_off_lattice(monkeypatch, inner):
+    """The route off the lattice that an iterative request falls through
+    to after a lattice IR that did not converge, stalled too."""
+    from pdebench_tpu_torch.solvers import dispatch
+
+    def stalled_off(op, b, *args, **kwargs):
+        return None, {"inner": inner, "iterations": 25000, "residual": 1.0}
+
+    monkeypatch.setattr(dispatch, "_off_lattice", stalled_off)
+
+
 def test_unconverged_ir_on_cuda_raises(dev, monkeypatch):
-    """On CUDA tensors an unconverged lattice solve raises; it never moves
-    to the host LU."""
+    """On CUDA tensors an unconverged lattice solve, and the route off the
+    lattice after it, raise, naming both attempts; the solve never moves to
+    the host LU."""
     from pdebench_tpu_torch.oracle import OracleSolver
     from pdebench_tpu_torch.solvers import dispatch
 
@@ -139,9 +151,10 @@ def test_unconverged_ir_on_cuda_raises(dev, monkeypatch):
         return torch.zeros_like(b), 40 * 25, 1.0, False, "fused-cg-cuda"
 
     monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    _stall_off_lattice(monkeypatch, "amg-cg-ir")
     with open(DATA) as fh:
         cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == "poisson_basic")
-    with pytest.raises(RuntimeError, match="did not converge"):
+    with pytest.raises(RuntimeError, match="did not converge.*amg-cg-ir.*the lattice IR before it.*fused-cg-cuda"):
         OracleSolver(device=dev).solve(cfg)
 
 
@@ -259,10 +272,11 @@ def test_unconverged_nonsymmetric_ir_on_cuda_raises(dev, monkeypatch):
         return torch.zeros_like(b), 40 * 30, 1.0, False, "fused-gmres-cuda"
 
     monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    _stall_off_lattice(monkeypatch, "amg-gmres-ir")
     with open(DATA) as fh:
         cfg = next(json.loads(l)["oracle_config"] for l in fh
                    if json.loads(l)["id"] == "helmholtz_k12_exponential_mode")
-    with pytest.raises(RuntimeError, match="did not converge"):
+    with pytest.raises(RuntimeError, match="did not converge.*amg-gmres-ir.*the lattice IR before it.*fused-gmres-cuda"):
         OracleSolver(device=dev).solve(cfg)
 
 
@@ -456,7 +470,9 @@ def test_direct_request_at_k15_takes_the_host_lu_on_cuda(dev, monkeypatch):
 @pytest.mark.parametrize("ksp", ["preonly", "cg"])
 def test_stalled_ir_on_cuda_raises_whatever_the_request(dev, monkeypatch, ksp):
     """poisson_high_contrast_no_exact with its lattice IR stalled: a
-    preonly request and an iterative one both raise on the card."""
+    preonly request raises at the lattice IR; an iterative one goes on to
+    the route off the lattice (stalled too) and raises naming both
+    attempts."""
     from pdebench_tpu_torch.oracle import OracleSolver
     from pdebench_tpu_torch.solvers import dispatch
 
@@ -464,12 +480,14 @@ def test_stalled_ir_on_cuda_raises_whatever_the_request(dev, monkeypatch, ksp):
         return torch.zeros_like(b), 40 * 25, 1.0, False, "fused-cg-cuda"
 
     monkeypatch.setattr(dispatch, "solve_constrained_ir", stalled)
+    _stall_off_lattice(monkeypatch, "amg-cg-ir")
     with open(DATA) as fh:
         cfg = next(json.loads(l)["oracle_config"] for l in fh
                    if json.loads(l)["id"] == "poisson_high_contrast_no_exact")
     cfg["oracle_solver"] = dict(cfg["oracle_solver"], ksp_type=ksp)
     cfg.pop("reference_config")
-    with pytest.raises(RuntimeError, match="did not converge"):
+    want = "lattice IR did not converge" if ksp == "preonly" else "amg-cg-ir.*the lattice IR before it"
+    with pytest.raises(RuntimeError, match=want):
         OracleSolver(device=dev).solve(cfg)
 
 
@@ -1445,3 +1463,117 @@ def test_halo_apply_on_the_card_matches_whole_lattice(dev, ranks):
         whole = op.apply_grid_w(op.W_f64, torch.as_tensor(u, device=dev)).cpu().numpy()
         np.testing.assert_array_equal(got["y"], whole)
         assert got["launches"] == [1] * ranks
+
+
+# -- the reference's route switches on the card -------------------------------
+
+
+def _cut_burgers(resolution, steps):
+    cfg = _config("burgers_square_v1")
+    cfg["mesh"]["resolution"] = resolution
+    cfg["pde"]["t_final"] = steps * cfg["pde"].get("dt", 0.01)
+    return cfg
+
+
+def test_step_arnoldi_kernel_matches_plain(dev):
+    """Kernel #6 with a per-step operator: Burgers' constrained step
+    weights (P2 129^2, 19 taps) on the constant part's hierarchy at m = 20,
+    the first step per element, the cycle by its true-operator residual."""
+    from pdebench_tpu_torch.oracle import base, burgers, scalar
+    from pdebench_tpu_torch.solvers import dispatch
+    from pdebench_tpu_torch.solvers.stencil import constrain_step_weights
+
+    cfg = _cut_burgers(64, 1)
+    u_exact = cfg["pde"]["manufactured_solution"]["u"]
+    ctx = scalar.setup_scalar(scalar.override_bc_with_mms(cfg, u_exact), dev)
+    A_c, _ = burgers.step_matrices(ctx.cb, 0.01, 0.01)
+    lat, wm, bwm = scalar.bilinear_step_lattice(ctx, A_c, lambda: burgers.advection_tensor(ctx.cb))
+    assert dispatch.fused_gate(lat)
+    u = base.interpolate_nodal(ctx.space, u_exact, t=0.0).astype(np.float32)
+    u_lat = torch.as_tensor(lat.lattice.embed_np(u, 0.0).reshape(wm.shape), device=dev)
+    W = torch.as_tensor(wm.weights_np(A_c), device=dev).to(torch.float32) + bwm.weights_w(bwm.device_stack(dev), u_lat)
+    mask = ctx.mask.cpu().numpy()
+    keep = torch.as_tensor(1.0 - lat.lattice.embed_np(mask, True).astype(np.float32), device=dev).reshape(wm.shape)
+    W32c = constrain_step_weights(W, wm.offsets, keep)
+    r = _lattice_rhs(lat, mask, 11, dev)
+    fg = gmg_fused.build_fused_inner_gmres(lat.gmg, 20, dev, wm.offsets)
+    before = gmg_fused.LAUNCHES_GMRES
+    V, H, beta = fg.raw(r, W32c)
+    assert gmg_fused.LAUNCHES_GMRES == before + 1
+    Vp, Hp, bp = fg.plain_raw(r, W32c)
+    for got, want in ((V[0], Vp[0]), (H[:2, 0], Hp[:2, 0]), (beta, bp)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=TOL_VCYCLE, atol=TOL_VCYCLE * scale)
+    z = fg(r, W32c)
+    pad = max(abs(o) for off in wm.offsets for o in off)
+    Az = stencil_kernel.stencil_plain(z.reshape(wm.shape), W32c, wm.offsets, pad).reshape(-1)
+    rel = float(torch.linalg.norm(r - Az) / torch.linalg.norm(r))
+    z_plain = fg.plain(r, W32c)
+    Azp = stencil_kernel.stencil_plain(z_plain.reshape(wm.shape), W32c, wm.offsets, pad).reshape(-1)
+    rel_plain = float(torch.linalg.norm(r - Azp) / torch.linalg.norm(r))
+    assert rel < 0.1 and rel <= 2.0 * max(rel_plain, RESID_FLOOR), (rel, rel_plain)
+
+
+@pytest.mark.parametrize("env,inner,counter", [
+    ({"PDEBENCH_TPU_FUSED": "arnoldi"}, "fused-gmres-step-cuda", "LAUNCHES_GMRES"),
+    ({"PDEBENCH_TPU_STEP_RICH": "1"}, "gmres+fused-richardson-step-cuda", "LAUNCHES_RICHARDSON"),
+    ({"PDEBENCH_TPU_STEP_OUTER": "cell"}, "gmres+vcycle", None),
+], ids=["arnoldi", "step-rich", "cell-outer"])
+def test_burgers_switch_routes_on_the_card(dev, monkeypatch, env, inner, counter):
+    """burgers_square_v1 at P2 129^2, 2 steps, under each switch: the
+    route's kernel launches, the grid within 1e-7 of the same route's CPU
+    run (the plain versions), and the default route's error within 1e-6
+    (the fused routes) or the cell outer's own CPU error."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    cfg = _cut_burgers(64, 2)
+    default = OracleSolver(device="cpu").solve(copy.deepcopy(cfg))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cpu = OracleSolver(device="cpu").solve(copy.deepcopy(cfg))
+    before = getattr(gmg_fused, counter) if counter else None
+    res = OracleSolver(device=dev).solve(copy.deepcopy(cfg))
+    info = res.solver_info
+    assert info["inner"] == inner and "iterative_failed" not in info
+    assert info["step_outer"] == env.get("PDEBENCH_TPU_STEP_OUTER", "stencil")
+    if counter:
+        assert getattr(gmg_fused, counter) > before
+    gap = np.linalg.norm(res.reference - cpu.reference) / np.linalg.norm(cpu.reference)
+    assert gap < 1e-7, gap
+    want = cpu if counter is None else default
+    assert abs(res.baseline_error - want.baseline_error) <= 1e-6 * want.baseline_error
+
+
+@pytest.mark.parametrize("case_id,resolution", [("convdiff_low_pe", 96), ("helmholtz_basic_k5", None)])
+def test_steady_arnoldi_on_the_card(dev, monkeypatch, case_id, resolution):
+    """PDEBENCH_TPU_FUSED=arnoldi on an own-operator hierarchy
+    (convection-diffusion at 97^2) and on a surrogate one below the fused
+    cycle's size gate (helmholtz_basic_k5, 121^2): kernel #6 is the whole
+    inner, the error within 1e-6 of the default route's on the card."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    cfg = _config(case_id)
+    if resolution:
+        cfg["mesh"]["resolution"] = resolution
+    default = OracleSolver(device=dev).solve(copy.deepcopy(cfg))
+    monkeypatch.setenv("PDEBENCH_TPU_FUSED", "arnoldi")
+    before = gmg_fused.LAUNCHES_GMRES
+    res = OracleSolver(device=dev).solve(copy.deepcopy(cfg))
+    assert res.solver_info["inner"] == "fused-gmres-cuda"
+    assert gmg_fused.LAUNCHES_GMRES > before
+    assert abs(res.baseline_error - default.baseline_error) <= 1e-6 * default.baseline_error
+
+
+def test_host_lu_requests_on_the_card(dev, monkeypatch):
+    """PDEBENCH_TPU_FORCE_DIRECT=1 on CUDA tensors: the host LU by
+    request, named, no kernel launched."""
+    from pdebench_tpu_torch.oracle import OracleSolver
+
+    cfg = _config("poisson_basic")
+    monkeypatch.setenv("PDEBENCH_TPU_FORCE_DIRECT", "1")
+    before = gmg_fused.LAUNCHES
+    res = OracleSolver(device=dev).solve(cfg)
+    info = res.solver_info
+    assert info["inner"] == "host-lu" and info["host_request"] == "PDEBENCH_TPU_FORCE_DIRECT=1"
+    assert gmg_fused.LAUNCHES == before
+    assert abs(res.baseline_error - 1.924806820736457e-4) <= 1e-6 * 1.924806820736457e-4

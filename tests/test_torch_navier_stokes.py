@@ -10,6 +10,7 @@ port's host-LU Newton against the reference's CPU default: grid within
 1e-7, baseline_error within 1e-8. Newton and Krylov counts may differ (an
 inexact Newton sums in another order); the grid and the error may not."""
 
+import copy
 import json
 from pathlib import Path
 
@@ -47,6 +48,7 @@ from pdebench_tpu_torch.solvers.stencil import BlockLatticeWeightMap, detect_lat
 # where PyTorch's default (a thread per core in each) waits on preempted peers
 torch.set_num_threads(1)
 
+DATA = Path(__file__).resolve().parent.parent / "data" / "benchmark_v2.jsonl"
 TOL = 1e-12
 GRID_TOL = 1e-7
 ERR_TOL = 1e-8
@@ -270,3 +272,23 @@ def test_route_rule_sends_the_stalling_lattices_to_the_host_lu():
     }
     prob = ns.NavierStokesProblem(cfgs["navier_stokes_high_re"], "cpu")
     assert prob.route == ns.ROUTE_HOST_LU and prob.sst is None and prob.spec is None
+
+
+def test_ns_host_lu_fallback_retries_on_the_device(monkeypatch):
+    """navier_stokes_high_re cut to resolution 12: the device Newton's
+    linear solve stalls at its second step on the CPU (the plain kernel #5
+    preconditioner), and the host-LU Newton it falls through to first
+    retries each step on the device at rtol 1e-8, as the reference's
+    fallback loop does (the reference pinned to its device Newton). The
+    grids agree to rounding (2.6e-14 here; 1.6e-10 without the retry)."""
+    with open(DATA) as fh:
+        cfg = next(json.loads(l)["oracle_config"] for l in fh if json.loads(l)["id"] == "navier_stokes_high_re")
+    cfg["mesh"]["resolution"] = 12
+    port = ns.NavierStokesSolver("cpu").solve(copy.deepcopy(cfg), _compute_baseline=False)
+    info = port.solver_info
+    assert info["inner"] == "newton-host-lu" and "Newton step 1" in info["iterative_failed"]
+    assert info["device_retries"] >= 1
+    monkeypatch.setenv("PDEBENCH_TPU_NS_DEVICE_NEWTON", "1")
+    monkeypatch.setenv("PDEBENCH_TPU_NS_CONV_M", "hier")
+    ref = RefSolver().solve(copy.deepcopy(cfg), _compute_baseline=False)
+    assert float(np.nanmax(np.abs(port.reference - ref.reference))) < 1e-12
